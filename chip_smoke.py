@@ -1,0 +1,242 @@
+"""Smoke test of the PyTorch/CUDA port (spark_rapids_tpu_torch) on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It builds the port's hand-written CUDA kernels from the sources in the
+checkout (into build/torch_kernels/), holds each kernel against its plain
+torch version on the card, then drives the port's main path — TPC-H q6 and
+the two ``contains`` queries at SF 1, through TorchSession → DataFrame →
+collect() — and holds every result against the port's own CPU engine. It
+exits non-zero, printing no result, where no CUDA device is present, and
+when any phase fails.
+
+Output, in order: the card (nvidia-smi name and power limit, torch's device
+name and count); the build time and the ``-Xptxas -v`` report; the kernel
+phase; the kernel list; the slice phase; one JSON line with each kernel's
+launches on the main path, error, times and bound; and last the line
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+SF = 1.0
+SEED = 19980802
+# one NVIDIA H100 SXM (NVIDIA's data sheet): HBM rate, and the float32 rate
+# outside the tensor cores, the nearest listed peak for scalar byte compares
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean time of one call from CUDA events around ``reps`` calls, after a
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_ops(data, lengths, pat: bytes) -> int:
+    """Byte compares the kernel makes on these inputs: at each position that
+    fits, compares up to the first mismatch."""
+    import torch
+
+    n, w = data.shape
+    L = len(pat)
+    S = w - L + 1
+    fits = (torch.arange(S, device=data.device)[None, :] + L) <= torch.clamp(lengths, max=w)[:, None]
+    active = fits.clone()
+    total = 0
+    for t in range(L):
+        total += int(active.sum())
+        active &= data[:, t : t + S] == pat[t]
+    return total
+
+
+def live_bytes(lengths, w: int, L: int) -> int:
+    """Plane bytes the function must read on these inputs: the bytes below
+    each row's length, in rows that can hold the pattern, counted in the
+    32-byte sectors that are the least the card's memory moves."""
+    import torch
+
+    live = torch.clamp(lengths.to(torch.int64), max=w)
+    live = torch.where(live >= L, live, torch.zeros_like(live))
+    return int(((live + 31) // 32 * 32).sum())
+
+
+def kernel_phase(orders):
+    """match_starts against its plain version over the case grid and at the
+    slice's shape. Returns the kernel's record for the JSON line."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.device import host_to_device
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import check_match_starts
+    from spark_rapids_tpu_torch.types import Schema
+
+    cases = 0
+    for W in (8, 16, 64, 128, 256):
+        for n in (4099, 65536):  # 4099*W is not a multiple of the 256-thread block
+            cases += check_match_starts(W, n, seed=SEED + W + n)
+    log(f"kernel phase: match_starts == match_starts_plain, bit-identical, on {cases} cases "
+        "(W in 8,16,64,128,256; L in 1,7,17,W up to W; n in 4099,65536; bytes past each "
+        "row's length are noise and some rows hold the pattern across their end)")
+
+    # the slice's own shape: the o_comment plane of orders at SF 1
+    i = orders.schema.index_of("o_comment")
+    one = HostBatch(Schema([orders.schema[i]]), [orders.columns[i]], orders.num_rows)
+    plane = host_to_device(one, "cuda").columns[0]
+    data, lengths = plane.data, plane.lengths
+    pat = b"special"
+    got = SK.match_starts(data, lengths, pat)
+    plain = SK.match_starts_plain(data, lengths, pat)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    if err != 0:
+        raise AssertionError("match_starts differs from plain at the slice's shape")
+    n, w = data.shape
+    ms = time_ms(lambda: SK.match_starts(data, lengths, pat), reps=20)
+    plain_ms = time_ms(lambda: SK.match_starts_plain(data, lengths, pat), reps=5)
+    nbytes = live_bytes(lengths, w, len(pat)) + 4 * n + len(pat) + n * w
+    ops = compare_ops(data, lengths, pat)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"kernel phase: slice shape n={n} W={w} L={len(pat)}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes} bytes -> {bytes_ms:.4f} ms; {ops} byte compares -> {ops_ms:.4f} ms; "
+        f"of the bytes, {n * w} are the mask written)")
+    del got, plain, data, lengths, plane
+    return {
+        "name": "match_starts",
+        "route": "cuda",
+        "source": "spark_rapids_tpu_torch/csrc/match_starts.cu",
+        "replaces": "spark_rapids_tpu/ops/pallas_strings.py:171",
+        "launches": None,  # the main path's count, filled in after the slice phase
+        "max_abs_err": float(err),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def slice_phase(tables) -> dict:
+    """The three queries on the card and on the port's CPU engine. Returns
+    the match_starts launches of the main path's run."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+
+    gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    SK.LAUNCHES = 0  # counts from here on are the main path's
+    for name, (fn, used) in SLICE_QUERIES.items():
+        before = SK.LAUNCHES
+        t0 = time.perf_counter()
+        got = fn(lambda t: gpu.create_dataframe(tables[t])).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = SK.LAUNCHES - before
+        off = [
+            (e.node, e.reasons)
+            for e in gpu._last_overrides.explain
+            if not e.on_device and not e.node.startswith("CpuScan")
+        ]
+        if off:
+            raise AssertionError(f"{name}: nodes off the device: {off}")
+        t0 = time.perf_counter()
+        want = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ok, msg = rows_equal(got, want)
+        if not ok or not want:
+            raise AssertionError(f"{name}: device rows differ from the CPU engine: {msg}")
+        if name.startswith("contains") and launches == 0:
+            raise AssertionError(f"{name}: match_starts was not launched")
+        rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
+        log(f"slice phase: {name} at SF {SF} over {'+'.join(used)}: device wall "
+            f"{wall_ms:.1f} ms, CPU engine {cpu_ms:.1f} ms, match_starts launches "
+            f"{launches}, result {rows}; equal to the CPU engine, nothing off the "
+            "device but scans")
+    return {"match_starts": SK.LAUNCHES}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs only on a GPU", file=sys.stderr)
+        return 2
+    import spark_rapids_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}: "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    K.build("match_starts")
+    info = K.BUILD_INFO["match_starts"]
+    log(f"build: match_starts for sm_90a in {time.perf_counter() - t0:.2f} s -> {info['path']}")
+    log(info["report"].strip())
+
+    t0 = time.perf_counter()
+    orders, lineitem = gen_orders_lineitem(SF, SEED)
+    tables = {"orders": orders, "lineitem": lineitem}
+    log(f"data: TPC-H SF {SF} seed {SEED}: orders {orders.num_rows} rows, lineitem "
+        f"{lineitem.num_rows} rows, generated in {time.perf_counter() - t0:.1f} s")
+
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+
+    record = kernel_phase(orders)
+    log(f"kernels: match_starts route=cuda source={record['source']} "
+        f"replaces={record['replaces']} launches in the kernel phase {SK.LAUNCHES}")
+
+    launches = slice_phase(tables)
+    record["launches"] = launches["match_starts"]
+    if record["launches"] <= 0:
+        raise AssertionError("the main path launched match_starts no time")
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

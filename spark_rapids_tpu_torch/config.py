@@ -1,0 +1,191 @@
+"""Typed configuration — the ``RapidsConf`` analogue, cut to the keys the
+port reads.
+
+Cut from ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder, the
+same key names and defaults, and ``TpuConf`` unchanged, so the reference's
+test confs apply as they are. A key the port does not read (the JAX
+package's serving, caching, fault-injection, Pallas and scheduling keys) is
+not defined here: ``TpuConf`` keeps it as an unknown setting that nothing
+reads. Every operator/expression rule also gets a kill switch
+(``spark.rapids.sql.exec.*`` / ``spark.rapids.sql.expression.*``), read
+through ``TpuConf.rule_enabled`` by ``plan/overrides.py``.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Generic, Optional, TypeVar
+
+T = TypeVar("T")
+
+
+class ConfEntry(Generic[T]):
+    def __init__(self, key: str, default: T, doc: str, conv: Callable[[str], T]):
+        self.key = key
+        self.default = default
+        self.doc = doc
+        self.conv = conv
+
+    def get(self, conf: "TpuConf") -> T:
+        return conf.get(self.key, self.default, self.conv)
+
+
+class _EntryBuilder:
+    def __init__(self, key: str):
+        self._key = key
+        self._doc = ""
+
+    def doc(self, text: str) -> "_EntryBuilder":
+        self._doc = text
+        return self
+
+    def boolean_conf(self, default: bool) -> ConfEntry[bool]:
+        return ConfEntry(self._key, default, self._doc, lambda s: s.strip().lower() in ("true", "1"))
+
+    def int_conf(self, default: int) -> ConfEntry[int]:
+        return ConfEntry(self._key, default, self._doc, int)
+
+    def bytes_conf(self, default: int) -> ConfEntry[int]:
+        return ConfEntry(self._key, default, self._doc, _parse_bytes)
+
+    def double_conf(self, default: float) -> ConfEntry[float]:
+        return ConfEntry(self._key, default, self._doc, float)
+
+    def string_conf(self, default: Optional[str]) -> ConfEntry[Optional[str]]:
+        return ConfEntry(self._key, default, self._doc, lambda s: s)
+
+
+def conf(key: str) -> _EntryBuilder:
+    return _EntryBuilder(key)
+
+def _parse_bytes(s: str) -> int:
+    s = s.strip().lower()
+    mult = 1
+    for suffix, m in (("k", 1 << 10), ("m", 1 << 20), ("g", 1 << 30), ("t", 1 << 40)):
+        if s.endswith(suffix + "b"):
+            s, mult = s[:-2], m
+            break
+        if s.endswith(suffix):
+            s, mult = s[:-1], m
+            break
+    return int(float(s) * mult)
+
+
+# ── The keys the port reads ─────────────────────────────────────────────────
+
+SQL_ENABLED = conf("spark.rapids.sql.enabled").doc(
+    "Enable (true) or disable (false) device acceleration of SQL operators."
+).boolean_conf(True)
+
+EXPLAIN = conf("spark.rapids.sql.explain").doc(
+    "Explain why parts of a query were or were not placed on the device: "
+    "NONE, NOT_ON_GPU (only log un-replaced nodes), ALL."
+).string_conf("NONE")
+
+TEST_CONF = conf("spark.rapids.sql.test.enabled").doc(
+    "Test mode: fail if any operator that was expected on device fell back "
+    "(reference: RapidsConf TEST_CONF)."
+).boolean_conf(False)
+
+TEST_ALLOWED_NONTPU = conf("spark.rapids.sql.test.allowedNonGpu").doc(
+    "Comma-separated exec names allowed to stay on CPU in test mode."
+).string_conf(None)
+
+BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes").doc(
+    "Target size of a columnar batch the operators work on "
+    "(reference: RapidsConf.scala:402)."
+).bytes_conf(1 << 30)
+
+SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
+    "Default number of partitions for exchanges (Spark's key, honored here)."
+).int_conf(8)
+
+ANSI_ENABLED = conf("spark.sql.ansi.enabled").doc(
+    "Spark's ANSI mode (honored here): casts raise on overflow or malformed "
+    "input instead of returning NULL, and integral narrowing range-checks "
+    "instead of wrapping."
+).boolean_conf(False)
+
+DECIMAL_ENABLED = conf("spark.rapids.sql.decimalType.enabled").doc(
+    "Enable decimal (64-bit) processing on device."
+).boolean_conf(True)
+
+VARIABLE_FLOAT_AGG = conf("spark.rapids.sql.variableFloatAgg.enabled").doc(
+    "Allow float/double aggregations whose result can vary with evaluation "
+    "order (sum/avg over float)."
+).boolean_conf(True)
+
+CAST_FLOAT_TO_STRING = conf("spark.rapids.sql.castFloatToString.enabled").doc(
+    "Enable float→string casts, which may differ from Spark in formatting."
+).boolean_conf(False)
+
+CAST_STRING_TO_FLOAT = conf("spark.rapids.sql.castStringToFloat.enabled").doc(
+    "Enable string→float casts, which may differ from Spark in corner cases."
+).boolean_conf(False)
+
+CAST_STRING_TO_TIMESTAMP = conf(
+    "spark.rapids.sql.castStringToTimestamp.enabled"
+).doc(
+    "Enable string→timestamp casts on device; the device grammar is the "
+    "UTC-only subset of Spark's (no zone offsets), matching the reference's "
+    "gated support (GpuCast.scala castStringToTimestamp)."
+).boolean_conf(False)
+
+STRING_MAX_BYTES = conf("spark.rapids.tpu.string.maxBytes").doc(
+    "Maximum per-value string width the fixed-width device representation "
+    "pads to before the column falls back to the CPU."
+).int_conf(256)
+
+POOL_SIZE_FRACTION = conf("spark.rapids.memory.gpu.allocFraction").doc(
+    "Fraction of device memory the HBM pool may use "
+    "(reference: RapidsConf.scala RMM_ALLOC_FRACTION)."
+).double_conf(0.9)
+
+DEVICE_POOL_LIMIT = conf("spark.rapids.tpu.memory.deviceLimitBytes").doc(
+    "Spillable-buffer budget on device; 0 means unlimited. When registered "
+    "spillable bytes would exceed this, the catalog proactively spills "
+    "(reference: RMM pool size via spark.rapids.memory.gpu.allocFraction)."
+).bytes_conf(0)
+
+
+class TpuConf:
+    """An immutable-ish view over a key→string dict, with typed access.
+
+    Mirrors ``RapidsConf``'s construction from the Spark conf; here it is
+    constructed from a plain dict plus ``SPARK_RAPIDS_*``-style environment
+    overrides.
+    """
+
+    def __init__(self, settings: Optional[dict[str, Any]] = None):
+        self._settings: dict[str, str] = {}
+        for k, v in (settings or {}).items():
+            self._settings[k] = str(v) if not isinstance(v, bool) else str(v).lower()
+
+    def get(self, key: str, default: T, conv: Callable[[str], T]) -> T:
+        raw = self._settings.get(key)
+        if raw is None:
+            raw = os.environ.get("SRT_CONF_" + key.replace(".", "_").upper())
+        if raw is None:
+            return default
+        return conv(raw)
+
+    def get_raw(self, key: str) -> Optional[str]:
+        return self._settings.get(key)
+
+    def set(self, key: str, value: Any) -> "TpuConf":
+        new = dict(self._settings)
+        new[key] = str(value) if not isinstance(value, bool) else str(value).lower()
+        return TpuConf(new)
+
+    def is_enabled(self, entry: ConfEntry[bool]) -> bool:
+        return entry.get(self)
+
+    # Rule kill switches (auto-derived keys): default True unless set.
+    def rule_enabled(self, conf_key: str, default: bool = True) -> bool:
+        raw = self._settings.get(conf_key)
+        if raw is None:
+            return default
+        return raw.strip().lower() in ("true", "1")
+
+    def items(self):
+        return self._settings.items()
+

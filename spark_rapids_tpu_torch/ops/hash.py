@@ -1,0 +1,240 @@
+"""Spark-compatible Murmur3 (x86_32, seed 42) — reference: HashFunctions.scala
+and GpuHashPartitioning.scala (on-device murmur3 partition bucketing via
+cudf Table.partition).
+
+Spark's ``Murmur3Hash`` folds columns left-to-right: the running hash is the
+seed for the next column. Per type (HashExpression in Spark):
+
+* bool → hashInt(1/0); byte/short/int/date → hashInt(x)
+* long/timestamp → hashLong(x); decimal(<=18) → hashLong(unscaled)
+* float → hashInt(floatToIntBits(x)) with -0f normalized to 0f
+* double → hashLong(doubleToLongBits(x)) with -0.0 normalized
+* string → hashUnsafeBytes(utf8 bytes): 4-byte little-endian words, then
+  remaining tail bytes one at a time (sign-extended)
+* NULL → hash unchanged
+
+Implemented over the array-module seam in uint32 lanes. Copied from
+``spark_rapids_tpu/ops/hash.py``: only its numpy path is carried over (the
+CPU engine's exchange); the device path and the native host plane come with
+the exchange slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from ..types import (
+    BooleanType,
+    ByteType,
+    DataType,
+    DateType,
+    DecimalType,
+    DoubleType,
+    FloatType,
+    IntegerType,
+    LongType,
+    ShortType,
+    StringType,
+    TimestampType,
+)
+
+_C1 = np.uint32(0xCC9E2D51)
+_C2 = np.uint32(0x1B873593)
+_M5 = np.uint32(0xE6546B64)
+
+DEFAULT_SEED = 42
+
+
+def _u32(xp, x):
+    return xp.asarray(x).astype(xp.uint32)
+
+
+def _rotl(xp, x, r):
+    x = x.astype(xp.uint32)
+    return ((x << np.uint32(r)) | (x >> np.uint32(32 - r))).astype(xp.uint32)
+
+
+def _mix_k1(xp, k1):
+    k1 = (k1 * _C1).astype(xp.uint32)
+    k1 = _rotl(xp, k1, 15)
+    return (k1 * _C2).astype(xp.uint32)
+
+
+def _mix_h1(xp, h1, k1):
+    h1 = (h1 ^ k1).astype(xp.uint32)
+    h1 = _rotl(xp, h1, 13)
+    return (h1 * np.uint32(5) + _M5).astype(xp.uint32)
+
+
+def _fmix(xp, h1, length):
+    h1 = (h1 ^ xp.asarray(length).astype(xp.uint32)).astype(xp.uint32)
+    h1 = h1 ^ (h1 >> np.uint32(16))
+    h1 = (h1 * np.uint32(0x85EBCA6B)).astype(xp.uint32)
+    h1 = h1 ^ (h1 >> np.uint32(13))
+    h1 = (h1 * np.uint32(0xC2B2AE35)).astype(xp.uint32)
+    return h1 ^ (h1 >> np.uint32(16))
+
+
+def hash_int(xp, x_i32, seed_u32):
+    k1 = _mix_k1(xp, _u32(xp, x_i32))
+    h1 = _mix_h1(xp, _u32(xp, seed_u32), k1)
+    return _fmix(xp, h1, 4)
+
+
+def hash_long(xp, x_i64, seed_u32):
+    x = xp.asarray(x_i64).astype(xp.int64)
+    low = _u32(xp, x & xp.asarray(0xFFFFFFFF, dtype=xp.int64))
+    high = _u32(xp, (x >> 32) & xp.asarray(0xFFFFFFFF, dtype=xp.int64))
+    k1 = _mix_k1(xp, low)
+    h1 = _mix_h1(xp, _u32(xp, seed_u32), k1)
+    k1 = _mix_k1(xp, high)
+    h1 = _mix_h1(xp, h1, k1)
+    return _fmix(xp, h1, 8)
+
+
+def hash_bytes_padded(xp, data_u8, lengths, seed_u32):
+    """hashUnsafeBytes over padded byte rows [n, width] with per-row lengths.
+
+    Words are consumed 4 bytes at a time little-endian; the tail is consumed
+    byte-by-byte sign-extended. The python loop is over the static width, so
+    on device it unrolls into one fused kernel.
+    """
+    n, width = data_u8.shape
+    lengths = xp.asarray(lengths).astype(xp.int32)
+    h1 = xp.broadcast_to(_u32(xp, seed_u32), (n,)).astype(xp.uint32)
+    nwords = width // 4
+    d = data_u8.astype(xp.uint32)
+    for w in range(nwords):
+        b0 = d[:, 4 * w]
+        b1 = d[:, 4 * w + 1]
+        b2 = d[:, 4 * w + 2]
+        b3 = d[:, 4 * w + 3]
+        word = (b0 | (b1 << np.uint32(8)) | (b2 << np.uint32(16)) | (b3 << np.uint32(24))).astype(xp.uint32)
+        use = lengths >= (4 * w + 4)
+        k1 = _mix_k1(xp, word)
+        h1 = xp.where(use, _mix_h1(xp, h1, k1), h1)
+    # tail bytes (position >= last full word, < length), sign-extended
+    for i in range(width):
+        b = data_u8[:, i].astype(xp.int8).astype(xp.int32)  # sign-extend
+        use = (i >= (lengths // 4) * 4) & (i < lengths)
+        k1 = _mix_k1(xp, _u32(xp, b))
+        h1 = xp.where(use, _mix_h1(xp, h1, k1), h1)
+    return _fmix(xp, h1, lengths.astype(xp.uint32))
+
+
+def _float_norm(xp, x, is_double: bool):
+    # Spark normalizes -0.0 to 0.0 before hashing; NaN is canonical already
+    # in the JVM (Float.floatToIntBits collapses NaNs).
+    zero = xp.zeros_like(x)
+    x = xp.where(x == 0, zero, x)
+    if is_double:
+        canonical = xp.asarray(np.float64(np.nan))
+    else:
+        canonical = xp.asarray(np.float32(np.nan))
+    return xp.where(xp.isnan(x), canonical, x)
+
+
+def np_strings_to_padded(data, valid):
+    """Object-dtype string array → (uint8[n, width], lengths) for the CPU
+    hashing/encoding paths (width rounded to a multiple of 4)."""
+    n = len(data)
+    raw = [
+        data[i].encode("utf-8") if (valid[i] and data[i] is not None) else b""
+        for i in range(n)
+    ]
+    width = max((len(b) for b in raw), default=0)
+    width = max(4, (width + 3) // 4 * 4)
+    out = np.zeros((n, width), dtype=np.uint8)
+    lengths = np.zeros(n, dtype=np.int32)
+    for i, b in enumerate(raw):
+        out[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
+        lengths[i] = len(b)
+    return out, lengths
+
+
+def _hash_scalar_np(dt: DataType, value, seed_u32: np.uint32) -> np.uint32:
+    """Spark-exact murmur3 of ONE python value (CPU oracle path for nested
+    types: Spark's HashExpression folds element hashes recursively)."""
+    from ..types import ArrayType, MapType, StructType
+
+    if value is None:
+        return seed_u32
+    if isinstance(dt, ArrayType):
+        h = seed_u32
+        for el in value:
+            h = _hash_scalar_np(dt.element_type, el, h)
+        return h
+    if isinstance(dt, StructType):
+        h = seed_u32
+        for f in dt.fields:
+            h = _hash_scalar_np(f.data_type, value.get(f.name), h)
+        return h
+    if isinstance(dt, MapType):  # Spark: hashing maps is disallowed
+        raise TypeError("hash of map type is not supported (Spark semantics)")
+    one = hash_column(
+        np,
+        dt,
+        np.asarray([value], dtype=object if isinstance(dt, StringType) else dt.np_dtype),
+        np.asarray([True]),
+        None,
+        np.asarray([seed_u32], dtype=np.uint32),
+    )
+    return np.uint32(one[0])
+
+
+def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
+    """One column's contribution: returns the new running hash (uint32[n]),
+    leaving rows with NULL unchanged (Spark semantics)."""
+    from ..types import is_complex
+
+    if is_complex(dt):
+        assert xp is np, "complex hash keys are gated off the device path"
+        v = np.asarray(valid).astype(bool)
+        seeds = np.broadcast_to(np.asarray(seed_u32, dtype=np.uint32), (len(v),)).copy()
+        out = seeds.copy()
+        for i in range(len(v)):
+            if v[i] and data[i] is not None:
+                out[i] = _hash_scalar_np(dt, data[i], seeds[i])
+        return out
+    if xp is not np:
+        raise NotImplementedError("device murmur3 has no device implementation in the torch port yet")
+    if isinstance(dt, StringType):
+        if xp is np and (getattr(data, "ndim", 1) != 2 or lengths is None):
+            data, lengths = np_strings_to_padded(data, np.asarray(valid).astype(bool))
+        h = hash_bytes_padded(xp, data, lengths, seed_u32)
+    elif isinstance(dt, BooleanType):
+        h = hash_int(xp, xp.where(data, 1, 0), seed_u32)
+    elif isinstance(dt, (LongType, TimestampType)):
+        h = hash_long(xp, data, seed_u32)
+    elif isinstance(dt, DecimalType):
+        if dt.precision <= 18:
+            h = hash_long(xp, data, seed_u32)
+        else:  # pragma: no cover - DECIMAL64 gate prevents this
+            raise NotImplementedError
+    elif isinstance(dt, FloatType):
+        x = _float_norm(xp, data.astype(xp.float32), False)
+        bits = x.view(np.int32)
+        h = hash_int(xp, bits, seed_u32)
+    elif isinstance(dt, DoubleType):
+        x = _float_norm(xp, data.astype(xp.float64), True)
+        bits = x.view(np.int64)
+        h = hash_long(xp, bits, seed_u32)
+    else:  # byte/short/int/date
+        h = hash_int(xp, data.astype(xp.int32), seed_u32)
+    seed_b = xp.broadcast_to(_u32(xp, seed_u32), h.shape)
+    return xp.where(xp.asarray(valid).astype(bool), h, seed_b)
+
+
+def murmur3_rows(xp, cols: list[tuple[DataType, Any, Any, Any]], n: int, seed: int = DEFAULT_SEED):
+    """Row hash over columns [(dtype, data, valid, lengths)] → int32[n]."""
+    h = xp.broadcast_to(_u32(xp, np.uint32(seed)), (n,)).astype(xp.uint32)
+    for dt, data, valid, lengths in cols:
+        h = hash_column(xp, dt, data, valid, lengths, h)
+    return h.astype(xp.int32) if xp is np else h.astype(xp.int32)
+
+
+def partition_ids(xp, row_hash_i32, num_partitions: int):
+    """Spark's ``Pmod(hash, n)`` — non-negative modulus."""
+    m = row_hash_i32 % np.int32(num_partitions)
+    return xp.where(m < 0, m + np.int32(num_partitions), m).astype(xp.int32)

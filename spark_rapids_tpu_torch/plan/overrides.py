@@ -1,0 +1,337 @@
+"""Plan-rewrite layer: replace CPU execs with device execs where supported.
+
+Reference: GpuOverrides.scala (rule registries + apply pipeline :2998-3098),
+RapidsMeta.scala (tagging with ``willNotWorkOnGpu`` reason bookkeeping),
+GpuTransitionOverrides.scala (transition insertion).
+
+The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
+tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
+``spark.rapids.sql.expression.<Name>``), explain reasons and transition
+pass, but its rules cover only what this slice of the port runs on the
+device — project, filter, ungrouped aggregation and the coalesce, over the
+expressions of TPC-H q6 and ``contains``. Every other node stays on the CPU
+engine with its reason in the explain, which is the system's own per-node
+fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
+shared.)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+from .. import config as cfg
+from ..config import TpuConf
+from ..exec import cpu as C
+from ..exec import gpu as G
+from ..expr import Expression
+from ..expr import aggregates as agg
+from ..expr import arithmetic as ar
+from ..expr import predicates as pred
+from ..expr import strings as st
+from ..expr.base import Alias, BoundReference, Literal
+from ..expr.cast import Cast
+from ..types import (
+    BooleanType,
+    ByteType,
+    DateType,
+    DecimalType,
+    DoubleType,
+    FloatType,
+    IntegerType,
+    LongType,
+    Schema,
+    ShortType,
+    StringType,
+    TimestampType,
+)
+from .physical import Exec
+
+# ── expression rules ───────────────────────────────────────────────────────
+
+_INTEGRAL = (ByteType, ShortType, IntegerType, LongType)
+_FLOATING = (FloatType, DoubleType)
+_NUMERIC = _INTEGRAL + _FLOATING
+
+
+class ExprRule:
+    def __init__(self, cls, name: str, check: Optional[Callable] = None):
+        self.cls = cls
+        self.name = name
+        self.conf_key = f"spark.rapids.sql.expression.{name}"
+        self.check = check  # (expr, conf) -> Optional[str] (reason if bad)
+
+
+def _float_agg_check(e, conf: TpuConf) -> Optional[str]:
+    """variableFloatAgg gate (reference RapidsConf.scala): float sums/avgs
+    are evaluation-order dependent; when disabled they stay on CPU so the
+    row-order result is Spark's."""
+    if isinstance(e.child.data_type, _FLOATING) and not conf.is_enabled(
+        cfg.VARIABLE_FLOAT_AGG
+    ):
+        return (
+            "float/double sum/avg varies with evaluation order; disabled by "
+            f"{cfg.VARIABLE_FLOAT_AGG.key}"
+        )
+    if not isinstance(e.child.data_type, _NUMERIC):
+        return (
+            f"{type(e).__name__} over {e.child.data_type.simple_string} is not "
+            "in the torch port yet"
+        )
+    return None
+
+
+def _cast_check(e: Cast, conf: TpuConf) -> Optional[str]:
+    frm, to = e.c.data_type, e.to
+    if e.ansi:
+        return "ANSI-mode cast runs on CPU (device error channel not in the torch port yet)"
+    ok = isinstance(to, _FLOATING) and isinstance(frm, _NUMERIC) or (
+        isinstance(to, _INTEGRAL) and isinstance(frm, _INTEGRAL)
+    )
+    if not ok:
+        return f"cast {frm} -> {to} is not supported on device in the torch port yet"
+    return None
+
+
+def _minmax_check(e, conf: TpuConf) -> Optional[str]:
+    if not isinstance(e.child.data_type, _NUMERIC + (DateType, TimestampType, BooleanType)):
+        return (
+            f"{type(e).__name__} input type {e.child.data_type.simple_string} is "
+            "not in the torch port yet"
+        )
+    return None
+
+
+def _literal_pattern_check(e, conf: TpuConf) -> Optional[str]:
+    if not isinstance(e.children()[1], Literal):
+        return f"{type(e).__name__} with a non-literal pattern is not supported on device"
+    return None
+
+
+def _no_decimal_arith(e, conf: TpuConf) -> Optional[str]:
+    if isinstance(e.data_type, DecimalType):
+        return f"decimal {type(e).__name__} is not in the torch port yet"
+    return None
+
+
+_EXPR_RULES: dict = {}
+
+
+def _expr(cls, name=None, check=None):
+    _EXPR_RULES[cls] = ExprRule(cls, name or cls.__name__, check)
+
+
+for _cls in (
+    BoundReference,
+    Literal,
+    Alias,
+    pred.EqualTo,
+    pred.LessThan,
+    pred.LessThanOrEqual,
+    pred.GreaterThan,
+    pred.GreaterThanOrEqual,
+    pred.And,
+    pred.Or,
+    pred.Not,
+    pred.IsNull,
+    pred.IsNotNull,
+    agg.Count,
+    agg.First,
+    agg.Last,
+):
+    _expr(_cls)
+for _cls in (ar.Add, ar.Subtract, ar.Multiply):
+    _expr(_cls, check=_no_decimal_arith)
+_expr(agg.Sum, check=_float_agg_check)
+_expr(agg.Average, check=_float_agg_check)
+_expr(agg.Min, check=_minmax_check)
+_expr(agg.Max, check=_minmax_check)
+_expr(Cast, check=_cast_check)
+_expr(st.Contains, check=_literal_pattern_check)
+
+
+def _check_expr_tree(e: Expression, conf: TpuConf, reasons: List[str]) -> bool:
+    ok = True
+    rule = _EXPR_RULES.get(type(e))
+    if rule is None:
+        reasons.append(f"expression {type(e).__name__} has no device implementation")
+        ok = False
+    elif not conf.rule_enabled(rule.conf_key):
+        reasons.append(f"expression {rule.name} disabled by {rule.conf_key}")
+        ok = False
+    elif rule.check is not None:
+        why = rule.check(e, conf)
+        if why:
+            reasons.append(why)
+            ok = False
+    for c in e.children():
+        ok = _check_expr_tree(c, conf, reasons) and ok
+    return ok
+
+
+def _check_schema(schema: Schema, conf: TpuConf, reasons: List[str], where: str) -> bool:
+    ok = True
+    for f in schema:
+        dt = f.data_type
+        if isinstance(dt, DecimalType) and not conf.is_enabled(cfg.DECIMAL_ENABLED):
+            reasons.append(f"{where}: decimal disabled by {cfg.DECIMAL_ENABLED.key}")
+            ok = False
+        if not isinstance(
+            dt, _NUMERIC + (BooleanType, StringType, DateType, TimestampType, DecimalType)
+        ):
+            reasons.append(
+                f"{where}: {dt.simple_string} columns are not in the torch port yet"
+            )
+            ok = False
+    return ok
+
+
+# ── exec rules ─────────────────────────────────────────────────────────────
+
+
+class ExecRule:
+    def __init__(self, cls, name: str, convert, exprs_of, check=None):
+        self.cls = cls
+        self.name = name
+        self.conf_key = f"spark.rapids.sql.exec.{name}"
+        self.convert = convert  # (cpu_exec, children) -> Exec
+        self.exprs_of = exprs_of  # (cpu_exec) -> list[Expression]
+        self.check = check  # (cpu_exec, conf) -> Optional[str]
+
+
+_EXEC_RULES: dict = {}
+
+
+def _rule(cls, name, convert, exprs_of, check=None):
+    _EXEC_RULES[cls] = ExecRule(cls, name, convert, exprs_of, check=check)
+
+
+def _conv_agg(e: C.CpuHashAggregateExec, ch):
+    g = G.GpuHashAggregateExec(
+        e.mode, e.grouping, e.agg_fns, e.result_exprs, e.result_names, ch[0]
+    )
+    g._schema = e.output
+    return g
+
+
+def _ungrouped_only(e: C.CpuHashAggregateExec, conf: TpuConf) -> Optional[str]:
+    if e.grouping:
+        return "grouped aggregation is not in the torch port yet"
+    return None
+
+
+_rule(
+    C.CpuProjectExec,
+    "ProjectExec",
+    lambda e, ch: G.GpuProjectExec(e.exprs, ch[0], schema=e.output),
+    lambda e: e.exprs,
+)
+_rule(
+    C.CpuFilterExec,
+    "FilterExec",
+    lambda e, ch: G.GpuFilterExec(e.condition, ch[0]),
+    lambda e: [e.condition],
+)
+_rule(
+    C.CpuHashAggregateExec,
+    "HashAggregateExec",
+    _conv_agg,
+    lambda e: e.grouping + list(e.agg_fns) + (e.result_exprs or []),
+    check=_ungrouped_only,
+)
+_rule(
+    C.CpuCoalescePartitionsExec,
+    "CoalescePartitionsExec",
+    lambda e, ch: G.GpuCoalescePartitionsExec(ch[0]),
+    lambda e: [],
+)
+
+
+# ── the override pass ──────────────────────────────────────────────────────
+
+
+@dataclasses.dataclass
+class ExplainEntry:
+    node: str
+    on_device: bool
+    reasons: List[str]
+
+
+class GpuOverrides:
+    """GpuOverrides + GpuTransitionOverrides, applied to a CPU physical plan
+    (the port's ``TpuOverrides``)."""
+
+    def __init__(self, conf: TpuConf):
+        self.conf = conf
+        self.explain: List[ExplainEntry] = []
+
+    def apply(self, plan: Exec) -> Exec:
+        if not self.conf.is_enabled(cfg.SQL_ENABLED):
+            return plan
+        converted = self._convert(plan)
+        if converted.is_device:
+            # the query root funnels to the host anyway (collect); merging
+            # partitions on the device first is the JAX package's plan shape
+            converted = G.GpuCoalescePartitionsExec(converted)
+        out = self._insert_transitions(converted, want_device=False)
+        self._maybe_log()
+        return out
+
+    # conversion walk (meta.tagForGpu + convertIfNeeded)
+    def _convert(self, plan: Exec) -> Exec:
+        children = [self._convert(c) for c in plan.children]
+        rule = _EXEC_RULES.get(type(plan))
+        reasons: List[str] = []
+        if rule is None:
+            reasons.append(f"exec {type(plan).__name__} has no device implementation")
+            self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
+            return plan.with_new_children(children)
+        if not self.conf.rule_enabled(rule.conf_key):
+            reasons.append(f"disabled by {rule.conf_key}")
+        else:
+            _check_schema(plan.output, self.conf, reasons, rule.name)
+            if rule.check is not None:
+                why = rule.check(plan, self.conf)
+                if why:
+                    reasons.append(why)
+            for e in rule.exprs_of(plan):
+                _check_expr_tree(e, self.conf, reasons)
+        if reasons:
+            self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
+            return plan.with_new_children(children)
+        self.explain.append(ExplainEntry(plan.node_string(), True, []))
+        return rule.convert(plan, children)
+
+    # transition insertion (GpuTransitionOverrides)
+    def _insert_transitions(self, plan: Exec, want_device: bool) -> Exec:
+        new_children = [
+            self._insert_transitions(c, want_device=plan.is_device)
+            for c in plan.children
+        ]
+        plan = plan.with_new_children(new_children)
+        if plan.is_device and not want_device:
+            return G.DeviceToHostExec(plan)
+        if not plan.is_device and want_device:
+            # post-transition coalesce (GpuTransitionOverrides:84-91 +
+            # GpuCoalesceBatches)
+            return G.GpuCoalesceBatchesExec(
+                G.HostToDeviceExec(plan),
+                G.CoalesceGoal(cfg.BATCH_SIZE_BYTES.get(self.conf)),
+            )
+        return plan
+
+    def _maybe_log(self):
+        mode = cfg.EXPLAIN.get(self.conf).upper()
+        if mode == "NONE":
+            return
+        import sys
+
+        for e in self.explain:
+            if e.on_device and mode != "ALL":
+                continue
+            marker = "will run on device" if e.on_device else "cannot run on device"
+            print(f"! {e.node}: {marker}", file=sys.stderr)
+            for r in e.reasons:
+                print(f"    because {r}", file=sys.stderr)
+
+    def fallback_execs(self) -> List[str]:
+        return [e.node for e in self.explain if not e.on_device]

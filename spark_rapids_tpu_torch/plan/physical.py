@@ -1,0 +1,137 @@
+"""Physical plan base — the ``SparkPlan``/``GpuExec`` seam.
+
+Reference: GpuExec.scala (the GpuExec trait: supportsColumnar, CoalesceGoal
+batching contracts :166-277). Every node is an ``Exec`` producing a
+``PartitionSet`` — a list of lazily-computable partition iterators of
+batches. CPU execs stream ``HostBatch``; device execs stream ``DeviceBatch``;
+explicit transition execs convert (HostToDeviceExec / DeviceToHostExec).
+
+Copied from ``spark_rapids_tpu/plan/physical.py``. The context keeps what
+this slice of the port runs: the conf, the session, the device and the
+device's memory budget (from ``torch.cuda.mem_get_info`` where the JAX
+package reads ``jax.local_devices()`` memory stats). Metrics, spill,
+scheduling, shuffle and mesh state come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, List, Sequence
+
+import torch
+
+from ..config import TpuConf
+from ..types import Schema
+
+
+class ExecContext:
+    """Per-query execution context: conf, session and device."""
+
+    def __init__(self, conf: TpuConf, session=None, device="cpu"):
+        from .. import config as cfg
+
+        self.conf = conf
+        self.session = session
+        self.device = torch.device(device)
+        # the spillable-buffer budget the JAX package sizes from device
+        # memory × allocFraction (GpuDeviceManager.initializeRmm's sizing);
+        # 0 = unlimited, as on a CPU backend
+        limit = cfg.DEVICE_POOL_LIMIT.get(conf)
+        if limit <= 0 and self.device.type == "cuda":
+            _free, total = torch.cuda.mem_get_info(self.device)
+            limit = int(total * cfg.POOL_SIZE_FRACTION.get(conf))
+        self.device_limit = max(limit, 0)
+
+
+def _scoped_part(index: int, thunk):
+    """Wrap a partition thunk so a TaskInfo (TaskContext analogue) is the
+    active thread-local whenever this partition's frames execute. Nested
+    PartitionSets re-assert their own TaskInfo before each pull, so each
+    operator's loop body sees the TaskInfo of the stage directly beneath it
+    (stable across batches — what row counters need)."""
+
+    def run():
+        from ..exec import task as _task
+
+        info = _task.TaskInfo(index, attempt=_task.current_attempt())
+
+        def gen():
+            _task.set_current(info)
+            _task.reset_input_file()
+            it = thunk()
+            while True:
+                try:
+                    x = next(it)
+                except StopIteration:
+                    return
+                # re-assert AFTER the pull: deeper stages set their own info
+                # while producing x
+                _task.set_current(info)
+                yield x
+
+        return gen()
+
+    return run
+
+
+class PartitionSet:
+    """Lazily computable partitions (the RDD[ColumnarBatch] analogue)."""
+
+    def __init__(self, parts: List[Callable[[], Iterator]]):
+        self.parts = [_scoped_part(i, t) for i, t in enumerate(parts)]
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self.parts)
+
+    def map_partitions(self, fn) -> "PartitionSet":
+        def wrap(thunk):
+            return lambda: fn(thunk())
+
+        return PartitionSet([wrap(t) for t in self.parts])
+
+    def materialize(self) -> List[list]:
+        return [list(t()) for t in self.parts]
+
+
+class Exec:
+    """Physical operator base."""
+
+    def __init__(self, children: Sequence["Exec"]):
+        self._children = list(children)
+
+    # ── tree ────────────────────────────────────────────────────────────
+    @property
+    def children(self) -> List["Exec"]:
+        return self._children
+
+    def with_new_children(self, children: List["Exec"]) -> "Exec":
+        import copy
+
+        new = copy.copy(self)
+        new._children = list(children)
+        return new
+
+    # ── contract ────────────────────────────────────────────────────────
+    @property
+    def output(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def is_device(self) -> bool:
+        """True if this exec produces DeviceBatch (the supportsColumnar bit)."""
+        return False
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        raise NotImplementedError
+
+    # ── pretty print ────────────────────────────────────────────────────
+    def node_string(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, indent: int = 0) -> str:
+        lines = [" " * indent + ("* " if self.is_device else "  ") + self.node_string()]
+        for c in self.children:
+            lines.append(c.tree_string(indent + 2))
+        return "\n".join(lines)
+
+    def __str__(self):
+        return self.tree_string()

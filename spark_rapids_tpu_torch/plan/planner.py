@@ -1,0 +1,370 @@
+"""Logical → CPU physical planning.
+
+Produces the "Spark plan" that the override pass (overrides.py) then rewrites
+onto the device — mirroring how the reference receives Catalyst physical
+plans. Aggregations are split into partial → hash exchange → final exactly
+like Spark's physical aggregation strategy (which the reference inherits).
+
+Copied from ``spark_rapids_tpu/plan/planner.py``, cut to the logical nodes
+the port's DataFrame builds: local relations, project, filter, aggregate
+(with the one-DISTINCT rewrite), sort and limit. A global sort over several
+partitions plans as coalesce-to-one + local sort, because range partitioning
+is not in the port yet. Joins, windows, file scans and the rest come with
+later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+from .. import config as cfg
+from ..config import TpuConf
+from ..expr import Alias, Expression, UnresolvedAttribute, bind, output_name
+from ..expr.aggregates import AggregateFunction
+from ..expr.base import BoundReference
+from ..exec.cpu import (
+    CpuCoalescePartitionsExec,
+    CpuFilterExec,
+    CpuHashAggregateExec,
+    CpuLimitExec,
+    CpuProjectExec,
+    CpuScanExec,
+    CpuShuffleExchangeExec,
+    CpuSortExec,
+    CpuTakeOrderedAndProjectExec,
+)
+from ..plan import logical as L
+from ..plan import partitioning as P
+from ..plan.physical import Exec
+
+
+def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
+    if isinstance(lp, L.LocalRelation):
+        return CpuScanExec(lp.table, lp.schema, lp.num_partitions)
+    if isinstance(lp, L.Project):
+        return CpuProjectExec(lp.exprs, plan_physical(lp.child, conf))
+    if isinstance(lp, L.Filter):
+        return CpuFilterExec(lp.condition, plan_physical(lp.child, conf))
+    if isinstance(lp, L.Aggregate):
+        return _plan_aggregate(lp, conf)
+    if isinstance(lp, L.Sort):
+        child = plan_physical(lp.child, conf)
+        if lp.is_global and _num_partitions_hint(child) != 1:
+            child = CpuCoalescePartitionsExec(child)
+        return CpuSortExec(lp.order, child)
+    if isinstance(lp, L.Limit):
+        # Limit over a global Sort plans as TopN (Spark's
+        # TakeOrderedAndProject strategy; reference limit.scala)
+        if isinstance(lp.child, L.Sort) and lp.child.is_global:
+            return CpuTakeOrderedAndProjectExec(
+                lp.n, lp.child.order, plan_physical(lp.child.child, conf)
+            )
+        return CpuLimitExec(lp.n, plan_physical(lp.child, conf))
+    if isinstance(lp, L.Hint):
+        return plan_physical(lp.child, conf)
+    raise NotImplementedError(
+        f"no physical plan for {type(lp).__name__} in the torch port yet"
+    )
+
+
+def _num_partitions_hint(e: Exec) -> int:
+    if isinstance(e, (CpuScanExec, CpuShuffleExchangeExec)):
+        return e.num_partitions
+    if isinstance(e, (CpuCoalescePartitionsExec, CpuLimitExec)):
+        return 1
+    if e.children:
+        return _num_partitions_hint(e.children[0])
+    return 1
+
+
+def _extract_aggs(
+    e: Expression, agg_fns: List[AggregateFunction]
+) -> Expression:
+    """Replace AggregateFunction nodes with placeholders indexing agg_fns."""
+    if isinstance(e, AggregateFunction):
+        try:
+            i = agg_fns.index(e)
+        except ValueError:
+            i = len(agg_fns)
+            agg_fns.append(e)
+        return _AggResultRef(i, e)
+    if not e.children():
+        return e
+    from ..expr.base import map_child_exprs
+
+    return map_child_exprs(e, lambda c: _extract_aggs(c, agg_fns))
+
+
+@dataclasses.dataclass(frozen=True)
+class _AggResultRef(Expression):
+    """Placeholder resolved to a BoundReference over [keys ++ agg results]."""
+
+    index: int
+    fn: AggregateFunction
+
+    @property
+    def data_type(self):
+        return self.fn.data_type
+
+    @property
+    def nullable(self):
+        return self.fn.nullable
+
+
+def _finalize_result_expr(e: Expression, num_keys: int, key_exprs) -> Expression:
+    """Rewrite grouping-expr occurrences and agg placeholders to bound refs
+    over the virtual post-aggregation schema [key0..k, agg0..m]."""
+    if isinstance(e, _AggResultRef):
+        return BoundReference(num_keys + e.index, e.fn.data_type, e.fn.nullable)
+    for i, k in enumerate(key_exprs):
+        # grouping exprs may arrive Alias-wrapped (SQL compiler emits
+        # Alias(expr, "__g0") keys); the result expr references the BARE
+        # expr — match through the alias or the ordinal binds to the CHILD
+        # schema and reads the wrong post-aggregation column
+        kc = k.child if isinstance(k, Alias) else k
+        if e == k or e == kc:
+            return BoundReference(i, kc.data_type, kc.nullable)
+    if not e.children():
+        return e
+    from ..expr.base import map_child_exprs
+
+    return map_child_exprs(e, lambda c: _finalize_result_expr(c, num_keys, key_exprs))
+
+
+def _merge_regular_agg(
+    e: AggregateFunction,
+    name: str,
+    inner_out: List[Expression],
+    child: Expression,
+    sum_type,
+) -> Expression:
+    """Split a non-distinct aggregate into an inner partial (appended to
+    ``inner_out``) and the outer merge expression returned. ``child`` is
+    the expression the partial aggregates over (the original child for the
+    one-distinct shape; an Expand-projected column for multi-distinct)."""
+    import dataclasses as _dc
+
+    from ..expr import Literal
+    from ..expr.aggregates import (
+        Average,
+        Count,
+        First,
+        Last,
+        Max,
+        Min,
+        Sum,
+        _CentralMoment,
+    )
+    from ..expr.cast import Cast
+    from ..expr.conditional import Coalesce
+    from ..expr.arithmetic import Divide
+    from ..types import DOUBLE, LONG
+
+    if isinstance(e, (Min, Max, First, Last)):
+        inner_out.append(Alias(_dc.replace(e, child=child), name))
+        return _dc.replace(e, child=UnresolvedAttribute(name))
+    if isinstance(e, Sum):
+        # re-summing widens again (decimal p+10): cast back
+        inner_out.append(Alias(_dc.replace(e, child=child), name))
+        return Cast(Sum(UnresolvedAttribute(name)), sum_type)
+    if isinstance(e, Count):
+        inner_out.append(Alias(_dc.replace(e, child=child), name))
+        return Coalesce((Sum(UnresolvedAttribute(name)), Literal(0, LONG)))
+    if isinstance(e, Average):
+        sname, cname = name + "s", name + "c"
+        inner_out.append(Alias(Sum(Cast(child, DOUBLE)), sname))
+        inner_out.append(Alias(Count(child), cname))
+        return Divide(
+            Sum(UnresolvedAttribute(sname)),
+            Cast(Sum(UnresolvedAttribute(cname)), DOUBLE),
+        )
+    if isinstance(e, _CentralMoment):
+        # (count, Σx, Σx²) partials re-sum; the result expression
+        # mirrors _CentralMoment.evaluate term for term
+        from ..expr.arithmetic import Multiply, Subtract
+        from ..expr.conditional import If
+        from ..expr.math import Sqrt
+        from ..expr.predicates import GreaterThan, LessThan
+
+        cname, sname, ssn = name + "c", name + "s", name + "ss"
+        xd = Cast(child, DOUBLE)
+        inner_out.append(Alias(Count(child), cname))
+        inner_out.append(Alias(Sum(xd), sname))
+        inner_out.append(Alias(Sum(Multiply(xd, xd)), ssn))
+        nD = Cast(
+            Coalesce((Sum(UnresolvedAttribute(cname)), Literal(0, LONG))),
+            DOUBLE,
+        )
+        sS = Sum(UnresolvedAttribute(sname))
+        m2 = Subtract(
+            Sum(UnresolvedAttribute(ssn)), Multiply(sS, Divide(sS, nD))
+        )
+        div = Subtract(nD, Literal(1.0, DOUBLE)) if e.sample else nD
+        var = If(
+            GreaterThan(div, Literal(0.0, DOUBLE)),
+            Divide(m2, div),
+            Literal(float("nan"), DOUBLE),
+        )
+        var = If(
+            GreaterThan(nD, Literal(0.0, DOUBLE)),
+            var,
+            Literal(None, DOUBLE),
+        )
+        var = If(LessThan(var, Literal(0.0, DOUBLE)), Literal(0.0, DOUBLE), var)
+        return Sqrt(var) if e.sqrt else var
+    from ..expr.aggregates import CollectList, CollectSet, MergeLists, MergeSets
+
+    if isinstance(e, CollectList):
+        # partial collect per inner group, merged at the outer aggregate
+        # (Spark's Collect merge phase; MergeLists/Sets are CPU-executed)
+        inner_out.append(Alias(_dc.replace(e, child=child), name))
+        merge_cls = MergeSets if isinstance(e, CollectSet) else MergeLists
+        return merge_cls(UnresolvedAttribute(name))
+    raise NotImplementedError(
+        f"{type(e).__name__} combined with DISTINCT aggregates"
+    )
+
+
+def _rewrite_distinct(lp: L.Aggregate) -> L.Aggregate:
+    """Plan DISTINCT aggregates as two stacked aggregations — Spark's
+    AggUtils.planAggregateWithOneDistinct shape (reference relies on it:
+    distinct arrives at the plugin already rewritten):
+
+        Aggregate(keys, [sum(y), count(DISTINCT x)])
+        ⇒ inner:  Aggregate(keys ++ [x], partial non-distinct aggs)
+          outer:  Aggregate(keys, re-aggregate partials + agg over x)
+
+    Multiple DISTINCT column sets (the Expand-based rewrite) are not in the
+    port yet."""
+    import dataclasses as _dc
+
+    from ..expr.base import map_child_exprs
+
+    # the single distinct child
+    dchildren = []
+
+    def find(e):
+        if isinstance(e, AggregateFunction) and getattr(e, "distinct", False):
+            if e.child not in dchildren:
+                dchildren.append(e.child)
+        for c in e.children():
+            find(c)
+
+    for e in lp.aggregates:
+        find(e)
+    if len(dchildren) > 1:
+        raise NotImplementedError(
+            "several DISTINCT column sets need Expand, not in the torch port yet"
+        )
+    first_child = dchildren[0]
+
+    key_names = [f"__k{i}" for i in range(len(lp.grouping))]
+    inner_out: List[Expression] = [
+        Alias(g, n) for g, n in zip(lp.grouping, key_names)
+    ]
+    inner_out.append(Alias(first_child, "__dk"))
+    nd_count = [0]
+
+    def replace_agg(e: Expression) -> Expression:
+        if isinstance(e, AggregateFunction):
+            if getattr(e, "distinct", False):
+                return _dc.replace(e, child=UnresolvedAttribute("__dk"), distinct=False)
+            name = f"__nd{nd_count[0]}"
+            nd_count[0] += 1
+            sum_type = bind(e, lp.child.schema).data_type
+            return _merge_regular_agg(e, name, inner_out, e.child, sum_type)
+        if not e.children():
+            return e
+        return map_child_exprs(e, replace_agg)
+
+    outer_out: List[Expression] = []
+    for e in lp.aggregates:
+        name = output_name(e)
+        target = e.child if isinstance(e, Alias) else e
+        mapped = None
+        for i, g in enumerate(lp.grouping):
+            # grouping items may be Alias-wrapped (SQL compiler) — match
+            # through the alias like _finalize_result_expr does
+            gc = g.child if isinstance(g, Alias) else g
+            if target == g or target == gc:
+                mapped = UnresolvedAttribute(key_names[i])
+                break
+        if mapped is None:
+            mapped = replace_agg(target)
+        outer_out.append(Alias(mapped, name))
+
+    inner = L.Aggregate(list(lp.grouping) + [first_child], inner_out, lp.child)
+    outer_grouping = [UnresolvedAttribute(n) for n in key_names]
+    return L.Aggregate(outer_grouping, outer_out, inner)
+
+
+def _plan_aggregate(lp: L.Aggregate, conf: TpuConf) -> Exec:
+    from ..expr.aggregates import contains_distinct
+
+    if any(contains_distinct(e) for e in lp.aggregates):
+        lp = _rewrite_distinct(lp)
+    child = plan_physical(lp.child, conf)
+    child_schema = child.output
+    bound_grouping = [bind(g, child_schema) for g in lp.grouping]
+    # resolve aggregate list, splitting agg fns from result expressions
+    agg_fns: List[AggregateFunction] = []
+    result_exprs: List[Expression] = []
+    result_names: List[str] = []
+    for e in lp.aggregates:
+        name = output_name(e)
+        inner = e.child if isinstance(e, Alias) else e
+        bound = bind(inner, child_schema)
+        rewritten = _extract_aggs(bound, agg_fns)
+        result_exprs.append(
+            _finalize_result_expr(rewritten, len(bound_grouping), bound_grouping)
+        )
+        result_names.append(name)
+    partial_grouping = [
+        Alias(g, f"key{i}") for i, g in enumerate(bound_grouping)
+    ]
+    if _num_partitions_hint(child) == 1:
+        # single upstream partition: one complete-mode pass — no partial/
+        # exchange/final chain (Spark's partial-merge pair is pure overhead
+        # here, and every extra operator costs a device round trip)
+        return CpuHashAggregateExec(
+            "complete", partial_grouping, agg_fns, result_exprs, result_names, child
+        )
+    nparts = cfg.SHUFFLE_PARTITIONS.get(conf)
+    from ..expr.aggregates import CollectList, MergeLists
+
+    if any(isinstance(f, (CollectList, MergeLists)) for f in agg_fns):
+        # collect_list/set has no fixed-width merge buffer: exchange the RAW
+        # rows by the grouping keys, then one complete aggregate per
+        # partition — result identical to Spark's partial+merge, and the
+        # device kernel only ever builds final list planes (the reference's
+        # GpuCollectList merges device lists; this engine trades that merge
+        # for a row exchange)
+        if bound_grouping:
+            pre = CpuShuffleExchangeExec(
+                P.HashPartitioning(nparts, list(bound_grouping)), child
+            )
+        else:
+            pre = CpuCoalescePartitionsExec(child)
+        return CpuHashAggregateExec(
+            "complete", partial_grouping, agg_fns, result_exprs, result_names, pre
+        )
+    partial = CpuHashAggregateExec(
+        "partial", partial_grouping, agg_fns, None, None, child
+    )
+    if bound_grouping:
+        exchange = CpuShuffleExchangeExec(
+            P.HashPartitioning(
+                nparts,
+                [UnresolvedAttribute(f"key{i}") for i in range(len(bound_grouping))],
+            ),
+            partial,
+        )
+    else:
+        exchange = CpuCoalescePartitionsExec(partial)
+    final_grouping = [
+        Alias(UnresolvedAttribute(f"key{i}"), f"key{i}")
+        for i in range(len(bound_grouping))
+    ]
+    return CpuHashAggregateExec(
+        "final", final_grouping, agg_fns, result_exprs, result_names, exchange
+    )

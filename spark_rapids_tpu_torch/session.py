@@ -1,0 +1,275 @@
+"""TorchSession + DataFrame — the SparkSession-shaped entry point.
+
+The port of ``spark_rapids_tpu/session.py``: DataFrame → logical plan → CPU
+physical plan → ``GpuOverrides`` rewrite → execution.
+``conf["spark.rapids.sql.enabled"]=False`` gives the pure-CPU run, which is
+how the differential tests produce their oracle.
+
+The device is explicit: ``TorchSession(conf, device=None)`` runs on
+``cuda`` and raises where no card is present, unless the caller passes
+``device="cpu"`` (the tests do). It never falls back to the CPU on its own.
+
+This slice carries the DataFrame subset of TPC-H q6 and the ``contains``
+queries — ``create_dataframe``, ``select``, ``filter``, ``agg``,
+``collect``, ``explain`` — plus ``group_by``, ``sort`` and ``limit``, which
+run on the CPU engine with an explain reason. Columns from a dict carry no
+nulls except strings (None); pass a ``HostBatch`` or an Arrow table for
+nullable fixed-width columns. Joins, SQL, caching,
+scheduling and the service layers come with later slices.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from . import config as cfg
+from .columnar.host import (
+    HostBatch,
+    HostColumn,
+    batch_rows,
+    concat_batches,
+    from_arrow,
+    string_column,
+)
+from .config import TpuConf
+from .expr import Expression, UnresolvedAttribute
+from .functions import Column
+from .plan import logical as L
+from .plan.overrides import GpuOverrides
+from .plan.physical import ExecContext
+from .plan.planner import plan_physical
+from .types import Schema, StringType, StructField
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchSession runs on a CUDA device and none is available; "
+                'pass device="cpu" to run on the CPU'
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
+
+
+class TorchSession:
+    """The port's ``TpuSession``. Conf keys are the JAX package's."""
+
+    def __init__(self, conf: Optional[dict] = None, device=None):
+        self.conf = TpuConf(conf or {})
+        self.device = _resolve_device(device)
+        if (
+            cfg.SQL_ENABLED.get(self.conf)
+            and self.conf.get_raw(cfg.SHUFFLE_PARTITIONS.key) is None
+        ):
+            # single-device default: ONE task (the reference's
+            # concurrentGpuTasks model), as in the JAX package
+            self.conf = self.conf.set(cfg.SHUFFLE_PARTITIONS.key, 1)
+        self._last_overrides: Optional[GpuOverrides] = None
+
+    def create_dataframe(
+        self,
+        data: Union[HostBatch, dict, object],
+        schema: Optional[Schema] = None,
+        num_partitions: int = 1,
+    ) -> "DataFrame":
+        """A DataFrame over in-memory data: a ``HostBatch``, a dict of
+        columns (numpy arrays, or sequences of str/None for strings), or a
+        ``pyarrow`` Table/RecordBatch (pyarrow is imported only then)."""
+        if isinstance(data, HostBatch):
+            batch = data
+            if schema is not None and schema != batch.schema:
+                raise ValueError("schema does not match the HostBatch's schema")
+        elif isinstance(data, dict):
+            batch = _batch_from_dict(data, schema)
+        elif type(data).__module__.startswith("pyarrow"):
+            batch = from_arrow(data, schema)
+        else:
+            raise TypeError(f"cannot create dataframe from {type(data)}")
+        return DataFrame(self, L.LocalRelation(batch, batch.schema, num_partitions))
+
+    createDataFrame = create_dataframe
+
+    # ── execution ───────────────────────────────────────────────────────
+    def _prepare_plan(self, lp: L.LogicalPlan):
+        if cfg.ANSI_ENABLED.get(self.conf):
+            # Spark resolves ansiEnabled into Cast at analysis time
+            import dataclasses as _dc
+
+            from .expr.cast import Cast
+
+            lp = L.transform_expressions(
+                lp,
+                lambda e: _dc.replace(e, ansi=True)
+                if isinstance(e, Cast) and not e.ansi
+                else e,
+            )
+        cpu_plan = plan_physical(lp, self.conf)
+        overrides = GpuOverrides(self.conf)
+        final_plan = overrides.apply(cpu_plan)
+        self._last_overrides = overrides
+        self._assert_test_mode(overrides)
+        return final_plan
+
+    def _execute(self, lp: L.LogicalPlan) -> HostBatch:
+        final_plan = self._prepare_plan(lp)
+        ctx = ExecContext(self.conf, self, self.device)
+        parts = final_plan.execute(ctx)
+        batches = [b for t in parts.parts for b in t() if b.num_rows]
+        return concat_batches(final_plan.output, batches)
+
+    def _assert_test_mode(self, overrides: GpuOverrides) -> None:
+        """TEST_CONF: fail when expected-on-device execs fell back
+        (reference: GpuTransitionOverrides validation under TEST_CONF)."""
+        if not cfg.TEST_CONF.get(self.conf):
+            return
+        allowed = (cfg.TEST_ALLOWED_NONTPU.get(self.conf) or "").split(",")
+        allowed = {a.strip() for a in allowed if a.strip()}
+        allowed |= {"CpuScan", "DeviceToHost", "HostToDevice"}
+        bad = []
+        for e in overrides.explain:
+            if e.on_device:
+                continue
+            name = e.node.split(" ")[0].split("[")[0]
+            if not any(name.startswith(a) for a in allowed):
+                bad.append((e.node, e.reasons))
+        if bad:
+            msg = "; ".join(f"{n}: {r}" for n, r in bad)
+            raise AssertionError(f"execs unexpectedly not on device: {msg}")
+
+
+def _batch_from_dict(data: dict, schema: Optional[Schema]) -> HostBatch:
+    from .types import BOOLEAN, DOUBLE, FLOAT, INT, LONG, STRING, BYTE, SHORT
+
+    by_dtype = {
+        np.dtype(np.bool_): BOOLEAN,
+        np.dtype(np.int8): BYTE,
+        np.dtype(np.int16): SHORT,
+        np.dtype(np.int32): INT,
+        np.dtype(np.int64): LONG,
+        np.dtype(np.float32): FLOAT,
+        np.dtype(np.float64): DOUBLE,
+    }
+    fields, cols = [], []
+    for i, (name, values) in enumerate(data.items()):
+        if isinstance(values, HostColumn):
+            fields.append(StructField(name, values.dtype))
+            cols.append(values)
+            continue
+        dt = schema[i].data_type if schema is not None else None
+        arr = np.asarray(values) if not isinstance(values, np.ndarray) else values
+        if dt is None:
+            if arr.dtype.kind == "U" or (
+                arr.dtype == object and all(v is None or isinstance(v, str) for v in values)
+            ):
+                dt = STRING
+            elif arr.dtype in by_dtype:
+                dt = by_dtype[arr.dtype]
+            else:
+                raise TypeError(f"column {name!r}: no SQL type for numpy {arr.dtype}")
+        if isinstance(dt, StringType):
+            cols.append(string_column(list(values), dt))
+        else:
+            data_np = np.ascontiguousarray(arr, dtype=dt.np_dtype)
+            cols.append(HostColumn(dt, data_np, np.ones(len(data_np), dtype=bool)))
+        fields.append(StructField(name, dt))
+    n = len(cols[0]) if cols else 0
+    if any(len(c) != n for c in cols):
+        raise ValueError("columns of different lengths")
+    return HostBatch(schema or Schema(fields), cols, n)
+
+
+def _to_exprs(cols: Sequence[Union[str, Column, Expression]]) -> List[Expression]:
+    out = []
+    for c in cols:
+        if isinstance(c, str):
+            out.append(UnresolvedAttribute(c))
+        elif isinstance(c, Column):
+            out.append(c.expr)
+        else:
+            out.append(c)
+    return out
+
+
+class DataFrame:
+    def __init__(self, session: TorchSession, plan: L.LogicalPlan):
+        self._session = session
+        self._plan = plan
+
+    @property
+    def schema(self) -> Schema:
+        return self._plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names
+
+    # ── transformations ─────────────────────────────────────────────────
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame(self._session, L.Project(_to_exprs(cols), self._plan))
+
+    def filter(self, condition: Union[Column, Expression]) -> "DataFrame":
+        e = condition.expr if isinstance(condition, Column) else condition
+        return DataFrame(self._session, L.Filter(e, self._plan))
+
+    where = filter
+
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData(self, _to_exprs(cols))
+
+    groupBy = group_by
+
+    def agg(self, *aggs) -> "DataFrame":
+        return GroupedData(self, []).agg(*aggs)
+
+    def sort(self, *cols, ascending: Union[bool, List[bool]] = True) -> "DataFrame":
+        exprs = _to_exprs(cols)
+        if isinstance(ascending, bool):
+            ascending = [ascending] * len(exprs)
+        # Column.desc()/asc() markers override the ascending kwarg
+        ascending = [
+            False if (isinstance(c, Column) and getattr(c, "_sort_desc", False)) else a
+            for c, a in zip(cols, ascending)
+        ]
+        orders = [L.SortOrder(e, a) for e, a in zip(exprs, ascending)]
+        return DataFrame(self._session, L.Sort(orders, True, self._plan))
+
+    orderBy = sort
+    order_by = sort
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self._session, L.Limit(n, self._plan))
+
+    # ── actions ─────────────────────────────────────────────────────────
+    def to_host(self) -> HostBatch:
+        """The result as one ``HostBatch``."""
+        return self._session._execute(self._plan)
+
+    def collect(self) -> List[tuple]:
+        return batch_rows(self.to_host())
+
+    def explain(self) -> str:
+        cpu_plan = plan_physical(self._plan, self._session.conf)
+        final_plan = GpuOverrides(self._session.conf).apply(cpu_plan)
+        s = final_plan.tree_string()
+        print(s)
+        return s
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, grouping: List[Expression]):
+        self._df = df
+        self._grouping = grouping
+
+    def agg(self, *aggs) -> DataFrame:
+        agg_exprs = [a.expr if isinstance(a, Column) else a for a in aggs]
+        # Spark: group-by output = grouping columns ++ aggregates
+        all_out = list(self._grouping) + agg_exprs
+        return DataFrame(
+            self._df._session, L.Aggregate(self._grouping, all_out, self._df._plan)
+        )

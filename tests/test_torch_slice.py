@@ -1,0 +1,295 @@
+"""The port's first slice end to end: TPC-H q6 and the two ``contains``
+queries through TorchSession (device="cpu"), held against the JAX package's
+device engine on JAX-CPU and its CPU engine, rows within the harness's
+tolerance (rel 1e-9, abs 1e-11), with no compute fallback in the port's
+plan. Also the port's import and device rules."""
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+pytest.importorskip("jax")  # the reference; absent on a machine with only the port
+
+from harness import _normalize, _values_equal, cpu_session, tpu_session
+from spark_rapids_tpu.tpch.datagen import gen_table as jax_gen_table
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch import functions as PF
+from spark_rapids_tpu_torch.ops import strings_kernels as SK
+from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+
+import spark_rapids_tpu.functions as JF
+
+SF = 0.002
+
+
+@pytest.fixture(scope="module")
+def tables():
+    o, l = gen_orders_lineitem(SF)
+    return {"orders": o, "lineitem": l}
+
+
+@pytest.fixture(scope="module")
+def jax_tables():
+    return {n: jax_gen_table(n, SF) for n in ("orders", "lineitem")}
+
+
+def _port_session(enabled=True, device="cpu"):
+    return TorchSession(
+        {"spark.rapids.sql.enabled": enabled, "spark.rapids.sql.test.enabled": enabled},
+        device=device,
+    )
+
+
+def _assert_rows_equal(a, b, what):
+    a, b = _normalize(a, True), _normalize(b, True)
+    assert len(a) == len(b), f"{what}: {len(a)} vs {len(b)} rows"
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        assert len(ra) == len(rb), f"{what} row {i}: {ra} vs {rb}"
+        for j, (x, y) in enumerate(zip(ra, rb)):
+            assert _values_equal(x, y, approx_float=True), f"{what} row {i} col {j}: {x!r} vs {y!r}"
+
+
+def _no_compute_fallback(session):
+    bad = [
+        (e.node, e.reasons)
+        for e in session._last_overrides.explain
+        if not e.on_device and not e.node.startswith("CpuScan")
+    ]
+    assert not bad, f"compute fallbacks: {bad}"
+
+
+def _jax_query(name):
+    """The slice's queries written against the JAX package's functions."""
+    col, count, lit = JF.col, JF.count, JF.lit
+    if name == "q6":
+        from spark_rapids_tpu.tpch.queries import q6
+
+        return q6
+    if name == "contains_agg":
+        return lambda t: t("orders").filter(col("o_comment").contains("special")).agg(
+            count(lit(1)), JF.sum(col("o_totalprice"))
+        )
+    return lambda t: t("orders").filter(col("o_comment").contains("special")).select(
+        "o_orderkey", "o_orderpriority", "o_comment"
+    )
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("name", list(SLICE_QUERIES))
+def test_slice_query_matches_both_jax_engines(name, parts, tables, jax_tables):
+    """One partition plans the aggregate complete; three plan it partial →
+    coalesce → final, all on the device."""
+    fn, used = SLICE_QUERIES[name]
+    port = _port_session()
+    port_rows = fn(lambda t: port.create_dataframe(tables[t], num_partitions=parts)).collect()
+    _no_compute_fallback(port)
+    assert any(e.on_device and e.node.startswith("CpuFilter") for e in port._last_overrides.explain)
+    jfn = _jax_query(name)
+    for session in (tpu_session(), cpu_session()):
+        rows = jfn(
+            lambda t: session.create_dataframe(jax_tables[t], num_partitions=parts)
+        ).collect()
+        _assert_rows_equal(port_rows, rows, f"{name} port vs JAX")
+    assert port_rows, name
+
+
+def test_slice_plans_fuse_the_filter_into_the_aggregate(tables):
+    port = _port_session()
+    fn, _ = SLICE_QUERIES["contains_agg"]
+    df = fn(lambda t: port.create_dataframe(tables[t]))
+    plan = df.explain()
+    assert "GpuHashAggregate(complete)" in plan and "GpuFilter contains" in plan
+    from spark_rapids_tpu_torch.exec.gpu import GpuFilterExec, GpuHashAggregateExec
+
+    node = port._prepare_plan(df._plan)
+    while not isinstance(node, GpuHashAggregateExec):
+        node = node.children[0]
+    child, pre_filter = node._fused_child()
+    assert pre_filter is not None and not isinstance(child, GpuFilterExec)
+
+
+def test_device_aggregates_and_predicates_match_cpu_engine(tables):
+    """The rest of the slice's device surface: ungrouped min/max/avg/first,
+    or/not/null tests and string equality, against the port's CPU engine."""
+    col, lit = PF.col, PF.lit
+
+    def build(s):
+        o = s.create_dataframe(tables["orders"])
+        return o.filter(
+            ((col("o_orderstatus") == "F") | ~(col("o_totalprice") > 100000.0))
+            & col("o_comment").is_not_null()
+            & (col("o_custkey") + lit(1) - lit(1) >= 0)
+        ).agg(
+            PF.min(col("o_totalprice")),
+            PF.max(col("o_orderdate")),
+            PF.avg(col("o_totalprice")),
+            PF.count(col("o_custkey")),
+            PF.sum(col("o_custkey") * lit(2)),
+            PF.first(col("o_orderkey")),
+        )
+
+    dev = _port_session()
+    got = build(dev).collect()
+    _no_compute_fallback(dev)
+    want = build(_port_session(enabled=False)).collect()
+    _assert_rows_equal(got, want, "device vs CPU engine")
+
+
+def test_unported_nodes_fall_back_with_a_reason(tables):
+    """Grouped aggregation and sort stay on the CPU engine, say why in the
+    explain, and still give the CPU engine's rows."""
+    col = PF.col
+    dev = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
+
+    def build(s):
+        return (
+            s.create_dataframe(tables["orders"])
+            .filter(col("o_comment").contains("special"))
+            .group_by("o_orderpriority")
+            .agg(PF.count(col("o_orderkey")).alias("n"))
+            .order_by("o_orderpriority")
+        )
+
+    got = build(dev).collect()
+    reasons = [r for e in dev._last_overrides.explain for r in e.reasons]
+    assert "grouped aggregation is not in the torch port yet" in reasons
+    assert any("CpuSortExec has no device implementation" in r for r in reasons)
+    want = build(_port_session(enabled=False)).collect()
+    assert got == want and len(got) == 5
+
+
+def test_torch_session_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession(device="cuda")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    """Importing the port and running a query leaves jax and every
+    spark_rapids_tpu module out of sys.modules (module names compared
+    exactly: the port's own name shares the prefix)."""
+    code = """
+import sys
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+o, l = gen_orders_lineitem(0.0002)
+s = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
+for fn, _ in SLICE_QUERIES.values():
+    fn(lambda t: s.create_dataframe({"orders": o, "lineitem": l}[t])).collect()
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+    or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
+)
+print("BAD", bad)
+print("ARROW", "pyarrow" in sys.modules)
+"""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "ARROW False" in out.stdout, out.stdout
+
+
+def test_cpu_run_launches_no_kernel(tables):
+    before = SK.LAUNCHES
+    port = _port_session()
+    fn, _ = SLICE_QUERIES["contains_rows"]
+    fn(lambda t: port.create_dataframe(tables[t])).collect()
+    assert SK.LAUNCHES == before
+
+
+def _q1(F, t):
+    """TPC-H q1 as spark_rapids_tpu/tpch/queries.py writes it, over the
+    functions module ``F`` of either package."""
+    col, count = F.col, F.count
+    from datetime import date
+
+    li = t("lineitem")
+    disc_price = col("l_extendedprice") * (1 - col("l_discount"))
+    return (
+        li.filter(col("l_shipdate") <= date(1998, 9, 2))
+        .group_by("l_returnflag", "l_linestatus")
+        .agg(
+            F.sum(col("l_quantity")).alias("sum_qty"),
+            F.sum(col("l_extendedprice")).alias("sum_base_price"),
+            F.sum(disc_price).alias("sum_disc_price"),
+            F.sum(disc_price * (1 + col("l_tax"))).alias("sum_charge"),
+            F.avg(col("l_quantity")).alias("avg_qty"),
+            F.avg(col("l_extendedprice")).alias("avg_price"),
+            F.avg(col("l_discount")).alias("avg_disc"),
+            count("*").alias("count_order"),
+        )
+        .order_by("l_returnflag", "l_linestatus")
+    )
+
+
+def test_q1_falls_back_per_node_and_matches_jax(tables, jax_tables):
+    """q1 is not in this slice: its filter runs on the device, its grouped
+    aggregate and sort on the CPU engine, each with a reason, and the rows
+    are the JAX engines' — in order, as the sort gives them."""
+    port = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
+    got = _q1(PF, lambda t: port.create_dataframe(tables[t])).collect()
+    explain = {e.node.split(" ")[0].split("[")[0]: e for e in port._last_overrides.explain}
+    assert explain["CpuFilter"].on_device
+    assert not explain["CpuHashAggregate(complete)"].on_device
+    assert not explain["CpuSortExec"].on_device
+    for session in (tpu_session(), cpu_session()):
+        want = _q1(JF, lambda t: session.create_dataframe(jax_tables[t])).collect()
+        assert len(got) == len(want) == 4
+        for ra, rb in zip(got, want):
+            assert all(_values_equal(x, y, approx_float=True) for x, y in zip(ra, rb)), (ra, rb)
+
+
+_EDGE = {
+    "s": ["abc special", None, "", "xspecialx", "nothing", None, "specia", "special"],
+    "v": [1.5, 2.0, float("nan"), -0.0, 4.0, 5.0, 6.0, 7.0],
+    "k": list(range(8)),
+}
+
+
+def _edge_query(F, s, data, pat, rows):
+    col, lit = F.col, F.lit
+    df = s.create_dataframe(data).filter(col("s").contains(pat))
+    if rows:
+        return df.select("k", "s", "v")
+    return df.agg(
+        F.count(lit(1)), F.sum(col("v")), F.min(col("v")), F.max(col("v")),
+        F.first(col("s")), F.count(col("s")),
+    )
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("pat", ["special", "zzz", "", "x" * 40])
+def test_contains_edge_cases_match_jax(pat, rows):
+    """Null and empty strings, NaN and -0.0, no match, the empty pattern and
+    one longer than the plane: the port's device path, its CPU engine and
+    the JAX CPU engine agree."""
+    import numpy as np
+    import pyarrow as pa
+
+    port_data = {
+        "s": _EDGE["s"],
+        "v": np.asarray(_EDGE["v"]),
+        "k": np.asarray(_EDGE["k"], dtype=np.int64),
+    }
+    dev = _port_session()
+    got = _edge_query(PF, dev, port_data, pat, rows).collect()
+    _no_compute_fallback(dev)
+    cpu = _edge_query(PF, _port_session(enabled=False), port_data, pat, rows).collect()
+    jax_rows = _edge_query(
+        JF, cpu_session(), pa.table({k: pa.array(v) for k, v in _EDGE.items()}), pat, rows
+    ).collect()
+    _assert_rows_equal(got, cpu, "device vs CPU engine")
+    _assert_rows_equal(got, jax_rows, "port vs JAX CPU engine")

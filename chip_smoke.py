@@ -13,14 +13,18 @@ exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
 
 Output, in order: the card (nvidia-smi name and power limit, torch's device
-name and count); the build time and the ``-Xptxas -v`` report; the kernel
-phase; the kernel list; the slice phase; one JSON line with each kernel's
-launches on the main path, error, times and bound; and last the line
-``{"ok": true, "device": {...}}``.
+name and count); the build time and the ``-Xptxas -v`` report (a spill
+fails the run); the kernel phase, with the launches of each kernel path in
+the grid and at the slice's shape, the time of the bare mask write and of
+the ``.any(axis=1)`` that ``Contains`` applies to the mask; the kernel
+list; the slice phase, with the main path's launches per kernel path; one
+JSON line with each kernel's launches on the main path, error, times and
+bound; and last the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -89,16 +93,22 @@ def kernel_phase(orders):
     from spark_rapids_tpu_torch.columnar.device import host_to_device
     from spark_rapids_tpu_torch.columnar.host import HostBatch
     from spark_rapids_tpu_torch.ops import strings_kernels as SK
-    from spark_rapids_tpu_torch.testing import check_match_starts
+    from spark_rapids_tpu_torch.testing import GRID, GRID_LENGTHS, SPLIT_GRID, check_match_starts
     from spark_rapids_tpu_torch.types import Schema
 
     cases = 0
-    for W in (8, 16, 64, 128, 256):
-        for n in (4099, 65536):  # 4099*W is not a multiple of the 256-thread block
+    before = dict(SK.LAUNCHES_BY_PATH)
+    for W, ns in GRID + SPLIT_GRID:
+        for n in ns:
             cases += check_match_starts(W, n, seed=SEED + W + n)
+    grid_paths = {k: SK.LAUNCHES_BY_PATH[k] - before[k] for k in before}
     log(f"kernel phase: match_starts == match_starts_plain, bit-identical, on {cases} cases "
-        "(W in 8,16,64,128,256; L in 1,7,17,W up to W; n in 4099,65536; bytes past each "
-        "row's length are noise and some rows hold the pattern across their end)")
+        f"(W, n in {[(W, list(ns)) for W, ns in GRID + SPLIT_GRID]}; L in {list(GRID_LENGTHS)} "
+        "up to W; one L per (W, n) also at storage offsets W and 1; bytes past each row's "
+        "length are noise and some rows hold the pattern across their end)")
+    log(f"kernel phase: launches per path in the grid: {json.dumps(grid_paths)}")
+    if min(grid_paths.values()) <= 0:
+        raise AssertionError(f"the grid did not launch every kernel path: {grid_paths}")
 
     # the slice's own shape: the o_comment plane of orders at SF 1
     i = orders.schema.index_of("o_comment")
@@ -106,24 +116,38 @@ def kernel_phase(orders):
     plane = host_to_device(one, "cuda").columns[0]
     data, lengths = plane.data, plane.lengths
     pat = b"special"
+    before = dict(SK.LAUNCHES_BY_PATH)
     got = SK.match_starts(data, lengths, pat)
+    slice_paths = {k: SK.LAUNCHES_BY_PATH[k] - before[k] for k in before}
     plain = SK.match_starts_plain(data, lengths, pat)
     torch.cuda.synchronize()
     err = int((got.to(torch.int16) - plain.to(torch.int16)).abs().max())
     if err != 0:
         raise AssertionError("match_starts differs from plain at the slice's shape")
+    log(f"kernel phase: launches per path at the slice's shape: {json.dumps(slice_paths)}")
+    if slice_paths != {"vec16": 1, "bytes": 0}:
+        raise AssertionError(f"the slice's shape did not take the vec16 path: {slice_paths}")
     n, w = data.shape
     ms = time_ms(lambda: SK.match_starts(data, lengths, pat), reps=20)
     plain_ms = time_ms(lambda: SK.match_starts_plain(data, lengths, pat), reps=5)
+    # yardsticks the port never calls: the mask's write alone, and the row
+    # reduction Contains applies to the mask
+    write_floor_ms = time_ms(
+        lambda: torch.empty((n, w), dtype=torch.bool, device="cuda").fill_(False), reps=20
+    )
+    any_ms = time_ms(lambda: got.any(dim=1), reps=20)
     nbytes = live_bytes(lengths, w, len(pat)) + 4 * n + len(pat) + n * w
     ops = compare_ops(data, lengths, pat)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     log(f"kernel phase: slice shape n={n} W={w} L={len(pat)}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({nbytes} bytes -> {bytes_ms:.4f} ms; {ops} byte compares -> {ops_ms:.4f} ms; "
-        f"of the bytes, {n * w} are the mask written)")
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of "
+        f"the bound ({nbytes} bytes -> {bytes_ms:.4f} ms; {ops} byte compares -> "
+        f"{ops_ms:.4f} ms; of the bytes, {n * w} are the mask written)")
+    log(f"kernel phase: yardsticks at the slice shape: the bare mask write "
+        f"(torch.empty((n, W), bool).fill_(False)) {write_floor_ms:.4f} ms; the mask's "
+        f".any(axis=1) {any_ms:.4f} ms")
     del got, plain, data, lengths, plane
     return {
         "name": "match_starts",
@@ -137,6 +161,9 @@ def kernel_phase(orders):
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "write_floor_ms": write_floor_ms,
+        "any_ms": any_ms,
+        "launches_by_path": None,  # the main path's counts, filled in after the slice phase
     }
 
 
@@ -153,6 +180,7 @@ def slice_phase(tables) -> dict:
     gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
     cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.LAUNCHES = 0  # counts from here on are the main path's
+    SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
     for name, (fn, used) in SLICE_QUERIES.items():
         before = SK.LAUNCHES
         t0 = time.perf_counter()
@@ -180,7 +208,8 @@ def slice_phase(tables) -> dict:
             f"{wall_ms:.1f} ms, CPU engine {cpu_ms:.1f} ms, match_starts launches "
             f"{launches}, result {rows}; equal to the CPU engine, nothing off the "
             "device but scans")
-    return {"match_starts": SK.LAUNCHES}
+    log(f"slice phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)}")
+    return {"match_starts": SK.LAUNCHES, "match_starts_by_path": dict(SK.LAUNCHES_BY_PATH)}
 
 
 def main() -> int:
@@ -209,6 +238,10 @@ def main() -> int:
     info = K.BUILD_INFO["match_starts"]
     log(f"build: match_starts for sm_90a in {time.perf_counter() - t0:.2f} s -> {info['path']}")
     log(info["report"].strip())
+    spills = [ln for ln in info["report"].splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    if spills:
+        raise AssertionError(f"match_starts spills registers: {spills}")
 
     t0 = time.perf_counter()
     orders, lineitem = gen_orders_lineitem(SF, SEED)
@@ -224,6 +257,7 @@ def main() -> int:
 
     launches = slice_phase(tables)
     record["launches"] = launches["match_starts"]
+    record["launches_by_path"] = launches["match_starts_by_path"]
     if record["launches"] <= 0:
         raise AssertionError("the main path launched match_starts no time")
     print(json.dumps({"kernels": [record]}))

@@ -9,6 +9,12 @@ runs ``match_starts_plain``, the same function in plain torch. Nothing falls
 back from the card to the plain version: a kernel that fails to build or to
 launch raises.
 
+The kernel has two paths in one source. ``vec16`` (16-byte loads and
+stores) takes planes with ``W % 16 == 0`` whose data and output start on a
+16-byte boundary; every other plane (``W = 8``, ``W = 130``, a view at an
+odd storage offset) takes ``bytes``, the same tiling with byte loads and
+stores. ``LAUNCHES_BY_PATH`` counts the launches of each.
+
 The TPU kernel's gating (the Mosaic subprocess probe, its TTL cache, the
 process kill switch and ``spark.rapids.sql.pallas.enabled``) has no
 counterpart here.
@@ -16,6 +22,7 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +30,8 @@ import torch
 #: launches of the CUDA kernel in this process (the plain version and the
 #: no-launch cases do not count)
 LAUNCHES = 0
+#: the same launches by kernel path (see :func:`kernel_path`)
+LAUNCHES_BY_PATH = {"vec16": 0, "bytes": 0}
 
 
 def match_starts_plain(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch.Tensor:
@@ -58,6 +67,7 @@ def _library():
             ctypes.c_int,  # L
             ctypes.c_longlong,  # n
             ctypes.c_int,  # W
+            ctypes.c_int,  # vec: 1 for the vec16 path
             ctypes.c_void_p,  # out
             ctypes.c_void_p,  # stream
         ]
@@ -65,6 +75,19 @@ def _library():
         return fn
 
     return K.kernel(("match_starts_fn",), make)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_pattern(pat: bytes, device: torch.device) -> torch.Tensor:
+    """The pattern's bytes on ``device``, copied once per (pattern, device):
+    a launch makes no host-to-device copy."""
+    return torch.tensor(list(pat), dtype=torch.uint8).to(device)
+
+
+def kernel_path(w: int, data_ptr: int, out_ptr: int) -> str:
+    """``"vec16"`` where the plane's rows are whole 16-byte chunks and both
+    buffers start on a 16-byte boundary, else ``"bytes"``."""
+    return "vec16" if w % 16 == 0 and data_ptr % 16 == 0 and out_ptr % 16 == 0 else "bytes"
 
 
 def match_starts(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch.Tensor:
@@ -93,11 +116,14 @@ def match_starts(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch
     if not (data.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("match_starts wants contiguous data and lengths")
     fn = _library()
-    pat_t = torch.as_tensor(np.frombuffer(pat, dtype=np.uint8).copy()).to(data.device)
     out = torch.empty((n, w), dtype=torch.bool, device=data.device)
     if n == 0:
         return out
+    path = kernel_path(w, data.data_ptr(), out.data_ptr())
     with torch.cuda.device(data.device):  # the launch uses the current device
+        stream = torch.cuda.current_stream()
+        pat_t = _device_pattern(pat, data.device)
+        pat_t.record_stream(stream)  # the cache may drop it while this launch runs
         err = fn(
             ctypes.c_void_p(data.data_ptr()),
             ctypes.c_void_p(lengths.data_ptr()),
@@ -105,10 +131,12 @@ def match_starts(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch
             L,
             n,
             w,
+            int(path == "vec16"),
             ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            ctypes.c_void_p(stream.cuda_stream),
         )
     if err != 0:
-        raise RuntimeError(f"match_starts kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"match_starts kernel launch failed ({path} path): cudaError {err}")
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out

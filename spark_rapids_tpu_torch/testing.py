@@ -11,18 +11,50 @@ import torch
 
 from .ops import strings_kernels as SK
 
-#: pattern lengths of the grid; ``W`` stands for the plane's width
-GRID_LENGTHS = (1, 7, 17, "W")
+#: pattern lengths of the grid, on both sides of the kernel's 4-byte screen
+#: and of its 16-byte run of outputs; ``W`` stands for the plane's width
+GRID_LENGTHS = (1, 3, 4, 5, 15, 16, 17, 31, 33, "W")
+
+#: (W, row counts) of the grid. W = 8 (the narrowest plane the device
+#: layout makes) and W = 130 take the kernel's byte path, the others its
+#: 16-byte path; at W = 2048 a row tile holds two rows. 4099 rows
+#: leave the last row tile of every width part-filled. One row count for
+#: W = 2048 keeps the plain version's [n, S, L] intermediate under 0.3 GB.
+GRID = (
+    (8, (4099, 65536)),
+    (16, (4099, 65536)),
+    (64, (4099, 65536)),
+    (128, (4099, 65536)),
+    (130, (4099, 65536)),
+    (256, (4099, 65536)),
+    (2048, (4099,)),
+)
+
+#: rows wider than the kernel's 4096-byte tile, which split over column
+#: tiles: checked on the card beside :data:`GRID`
+SPLIT_GRID = ((8192, (257,)), (8200, (257,)))
+
+
+def grid_lengths(W: int, lengths=GRID_LENGTHS) -> list:
+    """The pattern lengths of ``lengths`` that fit in a plane of width ``W``,
+    each once."""
+    return list(dict.fromkeys(W if L == "W" else L for L in lengths if L == "W" or L <= W))
 
 
 def ragged_plane(W: int, n: int, seed: int):
-    """u8[n, W] of 'a'/'b' bytes and i32[n] lengths in [0, W]; the first
-    ``W + 1`` rows take every length once. The bytes past each row's length
-    are 'a'/'b' too, not zeros, so a kernel that tests the fit against W
-    instead of the row's length gives a different mask."""
+    """u8[n, W] of 'a'/'b' bytes and i32[n] lengths in [0, W]. The first
+    ``W + 1`` rows take every length once; where ``n <= W`` the first rows
+    take lengths spread evenly over [0, W], ``W - 1`` and ``W`` among them.
+    The bytes past each row's length are 'a'/'b' too, not zeros, so a
+    kernel that tests the fit against W instead of the row's length gives a
+    different mask."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, W + 1, n).astype(np.int32)
-    lens[: W + 1] = np.arange(W + 1)[:n]
+    if n > W:
+        lens[: W + 1] = np.arange(W + 1)
+    elif n >= 2:
+        lens[:n] = np.linspace(0, W, n).astype(np.int32)
+        lens[n - 2] = W - 1
     data = rng.choice(np.frombuffer(b"ab", np.uint8), size=(n, W))
     return data, lens
 
@@ -41,16 +73,13 @@ def plant_straddles(data: np.ndarray, lens: np.ndarray, pat: bytes, skip_row: in
     return int(rows.size)
 
 
-def match_starts_cases(W: int, n: int, seed: int):
+def match_starts_cases(W: int, n: int, seed: int, lengths=GRID_LENGTHS):
     """Yield ``(L, data, lens, pat, straddles)`` for each pattern length of
-    the grid. The pattern is the first ``L`` bytes of a row that holds at
-    least ``L``, so it occurs at least once; ``L == W`` gives a pattern
-    that only full rows can hold."""
+    ``lengths`` (the grid's by default). The pattern is the first ``L``
+    bytes of a row that holds at least ``L``, so it occurs at least once;
+    ``L == W`` gives a pattern that only full rows can hold."""
     base, lens = ragged_plane(W, n, seed)
-    for L in GRID_LENGTHS:
-        L = W if L == "W" else L
-        if L > W:
-            continue
+    for L in grid_lengths(W, lengths):
         data = base.copy()
         src = int(np.argmax(lens >= L))
         pat = bytes(data[src, :L])
@@ -58,26 +87,48 @@ def match_starts_cases(W: int, n: int, seed: int):
         yield L, data, lens, pat, straddles
 
 
+def at_storage_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of the 2-D tensor ``t`` that starts ``offset`` elements into its
+    storage: ``offset = W`` is ``plane[1:]`` of a plane with one more row,
+    ``offset = 1`` a base off every 16-byte boundary."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _check_one(d: torch.Tensor, ln: torch.Tensor, pat: bytes, what: str) -> None:
+    w = d.shape[1]
+    before, before_total = dict(SK.LAUNCHES_BY_PATH), SK.LAUNCHES
+    got = SK.match_starts(d, ln, pat)
+    torch.cuda.synchronize()
+    want = SK.kernel_path(w, d.data_ptr(), got.data_ptr())
+    ran = {k: SK.LAUNCHES_BY_PATH[k] - before[k] for k in before}
+    if ran != {k: int(k == want) for k in before} or SK.LAUNCHES != before_total + 1:
+        raise AssertionError(f"match_starts launched {ran}, not one {want} launch: {what}")
+    plain = SK.match_starts_plain(d, ln, pat)
+    if not torch.equal(got, plain):
+        bad = int((got != plain).sum())
+        raise AssertionError(f"match_starts differs from plain at {bad} positions: {what}")
+
+
 def check_match_starts(W: int, n: int, seed: int) -> int:
     """The CUDA kernel against ``match_starts_plain`` on the card, required
-    bit-identical, over :func:`match_starts_cases`. Raises AssertionError on
-    the first case that differs; returns the number of cases."""
+    bit-identical, over :func:`match_starts_cases`, and for one pattern
+    length also on the plane at storage offsets ``W`` (``plane[1:]``) and
+    ``1``. Each launch must take the path :func:`SK.kernel_path` names.
+    Raises AssertionError on the first case that differs; returns the
+    number of launches checked."""
     cases = 0
     for L, data, lens, pat, straddles in match_starts_cases(W, n, seed):
         d, ln = torch.from_numpy(data).cuda(), torch.from_numpy(lens).cuda()
-        before = SK.LAUNCHES
-        got = SK.match_starts(d, ln, pat)
-        torch.cuda.synchronize()
-        if SK.LAUNCHES != before + 1:
-            raise AssertionError(f"match_starts launched no kernel: n={n} W={W} L={L}")
-        plain = SK.match_starts_plain(d, ln, pat)
-        if not torch.equal(got, plain):
-            bad = int((got != plain).sum())
-            raise AssertionError(
-                f"match_starts differs from plain at {bad} positions: n={n} W={W} L={L} "
-                f"({straddles} rows with the pattern across the row end)"
-            )
+        what = f"n={n} W={W} L={L} ({straddles} rows with the pattern across the row end)"
+        _check_one(d, ln, pat, what)
         cases += 1
+        if L == min(17, W):
+            for offset in (W, 1):
+                _check_one(at_storage_offset(d, offset), ln, pat, f"{what}, storage offset {offset}")
+                cases += 1
     return cases
 
 

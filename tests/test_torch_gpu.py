@@ -14,7 +14,13 @@ import torch
 
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.ops import strings_kernels as SK
-from spark_rapids_tpu_torch.testing import check_match_starts, rows_equal
+from spark_rapids_tpu_torch.testing import (
+    GRID,
+    SPLIT_GRID,
+    check_match_starts,
+    grid_lengths,
+    rows_equal,
+)
 from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
 from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
 
@@ -25,12 +31,40 @@ def _need_gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W", [8, 16, 64, 128, 130, 256])
+@pytest.mark.parametrize("W", [W for W, _ in GRID + SPLIT_GRID])
 def test_match_starts_kernel_matches_plain(W):
     """Bytes past each row's length are noise, and some rows hold the
-    pattern across their end: the fit test must use the row's length."""
+    pattern across their end: the fit test must use the row's length. One
+    pattern length also runs on views at storage offsets W and 1, and each
+    launch takes the kernel path its shape and alignment ask for."""
     _need_gpu()
-    assert check_match_starts(W, 4099, seed=W) == len({1, 7, 17, W} & set(range(1, W + 1)))
+    assert check_match_starts(W, 4099 if W <= 2048 else 257, seed=W) == len(grid_lengths(W)) + 2
+
+
+@pytest.mark.gpu
+def test_match_starts_slice_shape_takes_vec16():
+    """The slice's plane shape (2^21 rows of W = 128, the last quarter
+    capacity padding of length 0) takes the 16-byte path and matches the
+    plain version."""
+    _need_gpu()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n, w, live = 1 << 21, 128, 1_500_000
+    data = torch.randint(
+        ord("a"), ord("z") + 1, (n, w), dtype=torch.uint8, device="cuda", generator=g
+    )
+    lens = torch.zeros(n, dtype=torch.int32, device="cuda")
+    lens[:live] = torch.randint(19, 95, (live,), dtype=torch.int32, device="cuda", generator=g)
+    pat = b"special"
+    rows = torch.arange(0, live, 97, device="cuda")
+    data[rows[:, None], 10 + torch.arange(len(pat), device="cuda")] = torch.tensor(
+        list(pat), dtype=torch.uint8, device="cuda"
+    )
+    before = dict(SK.LAUNCHES_BY_PATH)
+    got = SK.match_starts(data, lens, pat)
+    assert SK.LAUNCHES_BY_PATH["vec16"] == before["vec16"] + 1
+    assert SK.LAUNCHES_BY_PATH["bytes"] == before["bytes"]
+    assert torch.equal(got, SK.match_starts_plain(data, lens, pat))
+    assert int(got.sum()) >= rows.numel()
 
 
 @pytest.mark.gpu

@@ -6,9 +6,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's hand-written CUDA kernels from the sources in the
 checkout (into build/torch_kernels/), holds each kernel against its plain
-torch version on the card, then drives the port's main path — TPC-H q6 and
-the two ``contains`` queries at SF 1, through TorchSession → DataFrame →
-collect() — and holds every result against the port's own CPU engine. It
+torch version on the card, then drives the port's main path — TPC-H q1
+and q6, the two ``contains`` queries and ``orders_by_priority`` at SF 1,
+through TorchSession → DataFrame → collect() — and holds every result
+against the port's own CPU engine, then times q1 once more split into its
+group-by's sort, scans and gathers and its final sort. It
 exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
 
@@ -17,8 +19,9 @@ name and count); the build time and the ``-Xptxas -v`` report (a spill
 fails the run); the kernel phase, with the launches of each kernel path in
 the grid and at the slice's shape, the time of the bare mask write and of
 the ``.any(axis=1)`` that ``Contains`` applies to the mask; the kernel
-list; the slice phase, with the main path's launches per kernel path; one
-JSON line with each kernel's launches on the main path, error, times and
+list; the slice phase, one line per query with its device wall and the CPU
+engine's time, and the main path's launches per kernel path; q1's time
+split; one JSON line with each kernel's launches on the main path, error, times and
 bound; and last the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -168,7 +171,7 @@ def kernel_phase(orders):
 
 
 def slice_phase(tables) -> dict:
-    """The three queries on the card and on the port's CPU engine. Returns
+    """The slice's queries on the card and on the port's CPU engine. Returns
     the match_starts launches of the main path's run."""
     import torch
 
@@ -210,6 +213,93 @@ def slice_phase(tables) -> dict:
             "device but scans")
     log(f"slice phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)}")
     return {"match_starts": SK.LAUNCHES, "match_starts_by_path": dict(SK.LAUNCHES_BY_PATH)}
+
+
+class PhaseTimer:
+    """CUDA events around the port's functions, summed by phase. A call made
+    inside another timed call counts only in the outer one, so no device time
+    is counted twice; the stream runs the work in order, so the time between
+    a call's two events is the device time of what it launched."""
+
+    def __init__(self):
+        self.spans: dict = {}
+        self._depth = 0
+
+    def wrap(self, phase: str, fn):
+        import torch
+
+        self.spans.setdefault(phase, [])
+
+        def timed(*args, **kwargs):
+            if self._depth:
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self._depth += 1
+            start.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                end.record()
+                self._depth -= 1
+                self.spans[phase].append((start, end))
+
+        return timed
+
+    def totals_ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.spans.items()}
+
+
+def q1_split(tables) -> None:
+    """q1 on the card once more, its device time split into the group-by's
+    radix words and sort, its segmented scans, its gathers, and the final
+    GpuSortExec; the rest of the wall is upload, expressions, the result
+    projection and the download."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import gpu as G
+    from spark_rapids_tpu_torch.ops import aggregate as A
+    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+
+    timer = PhaseTimer()
+    patches = [
+        (A, "batch_radix_words", "words_and_sort"),
+        (A, "sort_permutation", "words_and_sort"),
+        (A, "segscan", "scans"),
+        (A, "first_k_positions", "scans"),
+        (A, "gather_column", "gathers"),
+        (A, "_take", "gathers"),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    real_sort_fn = G.device_sort_fn
+    try:
+        for mod, name, phase in patches:
+            setattr(mod, name, timer.wrap(phase, getattr(mod, name)))
+        G.device_sort_fn = lambda order: timer.wrap("final_sort", real_sort_fn(order))
+        gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
+        fn = SLICE_QUERIES["q1"][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(lambda t: gpu.create_dataframe(tables[t])).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn0 in saved:
+            setattr(mod, name, fn0)
+        G.device_sort_fn = real_sort_fn
+    ms = timer.totals_ms()
+    parts = ["words_and_sort", "scans", "gathers", "final_sort"]
+    if any(not timer.spans[p] for p in parts):
+        raise AssertionError(f"q1 split: a phase was never entered: {ms}")
+    rest = wall_ms - sum(ms[p] for p in parts)
+    log("q1 split: device wall {:.1f} ms = radix words + sort_permutation {:.3f} ms, "
+        "segmented scans (segscan, first_k_positions) {:.3f} ms, gathers {:.3f} ms, "
+        "final GpuSortExec {:.3f} ms, rest (upload, expressions, result projection, "
+        "download, host) {:.1f} ms".format(wall_ms, *(ms[p] for p in parts), rest))
 
 
 def main() -> int:
@@ -256,6 +346,7 @@ def main() -> int:
         f"replaces={record['replaces']} launches in the kernel phase {SK.LAUNCHES}")
 
     launches = slice_phase(tables)
+    q1_split(tables)
     record["launches"] = launches["match_starts"]
     record["launches_by_path"] = launches["match_starts_by_path"]
     if record["launches"] <= 0:

@@ -130,6 +130,17 @@ CAST_STRING_TO_TIMESTAMP = conf(
     "gated support (GpuCast.scala castStringToTimestamp)."
 ).boolean_conf(False)
 
+HAS_NANS = conf("spark.rapids.sql.hasNans").doc(
+    "Assume floating point values may contain NaNs (gates some operators, "
+    "matching the reference)."
+).boolean_conf(True)
+
+OUT_OF_CORE_SORT_THRESHOLD = conf("spark.rapids.tpu.sort.outOfCoreThresholdBytes").doc(
+    "Partition size above which GpuSortExec switches from single-batch sort "
+    "to sorted-run merge (reference: GpuSortExec.scala:212 out-of-core mode "
+    "gated by targetSize)."
+).bytes_conf(1 << 30)
+
 STRING_MAX_BYTES = conf("spark.rapids.tpu.string.maxBytes").doc(
     "Maximum per-value string width the fixed-width device representation "
     "pads to before the column falls back to the CPU."

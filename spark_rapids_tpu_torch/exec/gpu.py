@@ -3,8 +3,9 @@
 The port of ``spark_rapids_tpu/exec/tpu.py``, with the upstream
 spark-rapids names: the transitions (``HostToDeviceExec``,
 ``DeviceToHostExec``), ``GpuCoalesceBatchesExec``, ``GpuProjectExec``,
-``GpuFilterExec``, ``GpuHashAggregateExec`` (ungrouped; its filter-fusion
-decision is the JAX package's ``_fused_child``) and
+``GpuFilterExec``, ``GpuHashAggregateExec`` (sort-based group-by in the
+partial, final and complete modes; its filter-fusion decision is the JAX
+package's ``_fused_child``), ``GpuSortExec`` and
 ``GpuCoalescePartitionsExec``.
 
 Eager torch runs each operator's expression tree as it comes — there is no
@@ -21,7 +22,6 @@ from typing import List, Optional
 import torch
 
 from ..columnar.device import (
-    MIN_CAPACITY,
     DeviceBatch,
     DeviceColumn,
     dc_replace,
@@ -32,8 +32,10 @@ from ..columnar.device import (
 from ..expr import Expression, bind, output_name
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Ctx, Val
-from ..ops.aggregate import ungrouped_aggregate
-from ..ops.gather import compact, concat_device
+from ..ops.aggregate import group_aggregate
+from ..ops.gather import bulk_shrink, compact, concat_device, gather_batch
+from ..ops.sortkeys import column_radix_words, merge_permutation, sort_permutation
+from ..plan.logical import SortOrder
 from ..plan.physical import Exec, ExecContext, PartitionSet
 from ..types import Schema, StringType, StructField
 from ..xp import torch_dtype
@@ -301,9 +303,9 @@ class GpuCoalescePartitionsExec(Exec):
 # ── aggregate ───────────────────────────────────────────────────────────────
 
 
-def _buffer_ordinal(agg_fns, f: AggregateFunction, j: int) -> int:
-    """Ordinal of buffer ``j`` of ``f`` in the (keyless) buffers layout."""
-    base = 0
+def _buffer_ordinal(grouping, agg_fns, f: AggregateFunction, j: int) -> int:
+    """Ordinal of buffer ``j`` of ``f`` in the keys ++ buffers layout."""
+    base = len(grouping)
     for g in agg_fns:
         if g is f:
             return base + j
@@ -313,44 +315,59 @@ def _buffer_ordinal(agg_fns, f: AggregateFunction, j: int) -> int:
 
 def aggregate_fn(
     mode: str,
+    grouping: tuple,
     agg_fns: tuple,
     result_exprs,
     out_schema: Schema,
     child_schema: Schema,
     pre_filter: Optional[Expression] = None,
+    has_nans: bool = True,
 ):
-    """The ungrouped aggregate of one device batch (update or
-    merge+evaluate) — the keyless case of the JAX package's
-    ``aggregate_kernel``. ``pre_filter`` folds a child filter's predicate in
-    as a liveness mask: no compaction between the filter and the aggregate."""
+    """The group aggregate of one device batch (update or merge+evaluate) —
+    the JAX package's ``aggregate_kernel``. ``pre_filter`` folds a child
+    filter's predicate in as a liveness mask: no compaction between the
+    filter and the aggregate."""
 
     def _aggregate(batch: DeviceBatch) -> DeviceBatch:
         c = Ctx.for_device(batch)
-        xp = c.xp
         live = batch.row_mask()
         if pre_filter is not None:
             fv = pre_filter.eval(c)
             live = live & c.broadcast_bool(fv.data) & fv.full_valid(c)
+        # materialize grouping keys + agg inputs as columns
+        key_cols = [val_to_column(c, g.eval(c), g.data_type) for g in grouping]
+        key_cols = [dc_replace(k, validity=k.validity & live) for k in key_cols]
         in_cols: list = []
         ops: list = []
         for f in agg_fns:
             if mode in ("partial", "complete"):
                 exprs = [bind(e, child_schema) for e in f.update_exprs]
                 for e, op in zip(exprs, f.update_ops):
-                    in_cols.append(val_to_column(c, e.eval(c), e.data_type))
+                    col = val_to_column(c, e.eval(c), e.data_type)
+                    in_cols.append(dc_replace(col, validity=col.validity & live))
                     ops.append(op)
             else:
                 for j, op in enumerate(f.merge_ops):
-                    in_cols.append(batch.columns[_buffer_ordinal(agg_fns, f, j)])
+                    in_cols.append(batch.columns[_buffer_ordinal(grouping, agg_fns, f, j)])
                     ops.append(op)
-        out_aggs = ungrouped_aggregate(in_cols, ops, live, MIN_CAPACITY)
-        num_groups = torch.ones((), dtype=torch.int32, device=batch.device)
+        key_schema = Schema([StructField(f"k{i}", k.dtype, True) for i, k in enumerate(key_cols)])
+        work = DeviceBatch(key_schema, key_cols, batch.num_rows)
+        out_keys, out_aggs, num_groups = group_aggregate(
+            work,
+            list(range(len(key_cols))),
+            in_cols,
+            ops,
+            live_mask=live if pre_filter is not None else None,
+            has_nans=has_nans,
+        )
         if mode == "partial":
-            return DeviceBatch(out_schema, out_aggs, num_groups)
+            return DeviceBatch(out_schema, out_keys + out_aggs, num_groups)
         # final/complete: evaluate aggregates + result projection
+        cap = out_aggs[0].capacity if out_aggs else out_keys[0].capacity
+        keys_v = [Val(k.data, k.validity, k.lengths) for k in out_keys]
+        gctx = Ctx(c.xp, cap, True, keys_v, num_groups)
         agg_results: list = []
         i = 0
-        gctx = Ctx(xp, MIN_CAPACITY, True, [], num_groups)
         for f in agg_fns:
             nbuf = len(f.buffer_types)
             bufs = [
@@ -359,8 +376,8 @@ def aggregate_fn(
             ]
             agg_results.append(f.evaluate(gctx, bufs))
             i += nbuf
-        rctx = Ctx(xp, MIN_CAPACITY, True, agg_results, num_groups)
-        glive = torch.arange(MIN_CAPACITY, device=batch.device) < 1
+        rctx = Ctx(c.xp, cap, True, keys_v + agg_results, num_groups)
+        glive = torch.arange(cap, dtype=torch.int32, device=batch.device) < num_groups
         cols = []
         for e in result_exprs:
             col = val_to_column(rctx, e.eval(rctx), e.data_type)
@@ -370,10 +387,32 @@ def aggregate_fn(
     return _aggregate
 
 
+def aggregate_merge_fn(grouping: tuple, agg_fns: tuple, out_schema: Schema, has_nans: bool = True):
+    """Merge-mode aggregation over (concatenated) partial batches — the JAX
+    package's ``aggregate_merge_kernel``. The partial layout is keys ++
+    buffers, so key ordinals and ``_buffer_ordinal`` line up."""
+
+    def _merge(batch: DeviceBatch) -> DeviceBatch:
+        in_cols, ops = [], []
+        for f in agg_fns:
+            for j, op in enumerate(f.merge_ops):
+                in_cols.append(batch.columns[_buffer_ordinal(grouping, agg_fns, f, j)])
+                ops.append(op)
+        out_keys, out_aggs, num_groups = group_aggregate(
+            batch, list(range(len(grouping))), in_cols, ops, has_nans=has_nans
+        )
+        return DeviceBatch(out_schema, out_keys + out_aggs, num_groups)
+
+    return _merge
+
+
 class GpuHashAggregateExec(Exec):
-    """Aggregation on the device, one phase (partial|final|complete). This
-    slice of the port runs the ungrouped case; the overrides keep grouped
-    aggregation on the CPU engine."""
+    """Sort-based group-by on the device; one phase (partial|final|complete).
+
+    The reference's hot loop (aggregate.scala:406-468): per-batch update
+    aggregate → concat partials → merge aggregate. Update and merge are the
+    same group aggregate with different reduce ops. The JAX package's OOM
+    retry has no counterpart yet (ROADMAP Queue A item 11)."""
 
     def __init__(
         self,
@@ -385,17 +424,16 @@ class GpuHashAggregateExec(Exec):
         child: Exec,
     ):
         super().__init__([child])
-        if grouping:
-            raise NotImplementedError("grouped aggregation is not in the torch port yet")
         self.mode = mode
+        self.grouping = [bind(g, child.output) for g in grouping]
         self.agg_fns = list(agg_fns)
         self.result_exprs = None if result_exprs is None else list(result_exprs)
         self.result_names = None if result_names is None else list(result_names)
         self._schema = self._compute_schema()
 
     def _compute_schema(self) -> Schema:
+        fields = [StructField(output_name(g), g.data_type, g.nullable) for g in self.grouping]
         if self.mode == "partial":
-            fields = []
             for i, f in enumerate(self.agg_fns):
                 for j, bt in enumerate(f.buffer_types):
                     fields.append(StructField(f"buf{i}_{j}", bt, True))
@@ -428,23 +466,45 @@ class GpuHashAggregateExec(Exec):
         return child, None
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+
         child, pre_filter = self._fused_child()
         child_schema = child.output
+        has_nans = cfg.HAS_NANS.get(ctx.conf)
+        grouping = tuple(self.grouping)
+        agg_fns = tuple(self.agg_fns)
         fn = aggregate_fn(
             self.mode,
-            tuple(self.agg_fns),
+            grouping,
+            agg_fns,
             None if self.result_exprs is None else tuple(self.result_exprs),
             self._schema,
             child_schema,
             pre_filter,
+            has_nans,
         )
+        merge = aggregate_merge_fn(grouping, agg_fns, self._schema, has_nans)
         device = ctx.device
 
         def run(it):
-            # one update (or merge + evaluate) over the whole partition, as
-            # the JAX package's final/complete path does
+            if self.mode == "partial":
+                # per-batch update, then shrink + concat + merge of the
+                # partials (one row-count fetch for all of them)
+                partials = [fn(db) for db in it]
+                if not partials:
+                    if grouping:
+                        return
+                    partials = [fn(empty_batch(child_schema, device))]
+                if len(partials) == 1:
+                    yield partials[0]
+                else:
+                    yield merge(concat_device(*bulk_shrink(partials)))
+                return
+            # final/complete: one merge+evaluate over the whole partition
             batches = list(it)
             if not batches:
+                if grouping:
+                    return
                 batches = [empty_batch(child_schema, device)]
             yield fn(concat_device(batches))
 
@@ -452,6 +512,110 @@ class GpuHashAggregateExec(Exec):
 
     def node_string(self):
         return (
-            f"GpuHashAggregate({self.mode}) keys=[] "
+            f"GpuHashAggregate({self.mode}) keys={[str(g) for g in self.grouping]} "
             f"aggs={[str(a) for a in self.agg_fns]}"
         )
+
+
+# ── sort ────────────────────────────────────────────────────────────────────
+
+
+def _order_words(c: Ctx, order, live) -> list:
+    words = []
+    for o in order:
+        col = val_to_column(c, o.child.eval(c), o.child.data_type)
+        col = dc_replace(col, validity=col.validity & live)
+        words.extend(column_radix_words(col, o.ascending, o.resolved_nulls_first()))
+    return words
+
+
+def device_sort_fn(order: list):
+    """Whole-batch sort: radix words of the sort keys, one LSD permutation,
+    one gather — the JAX package's ``device_sort_fn``."""
+
+    def _sort(batch: DeviceBatch) -> DeviceBatch:
+        live = batch.row_mask()
+        perm = sort_permutation(_order_words(Ctx.for_device(batch), order, live), live)
+        return gather_batch(batch, perm, batch.num_rows)
+
+    return _sort
+
+
+def device_merge_fn(order: list):
+    """Two-run merge: concat the sorted runs (live segments land at [0, na)
+    and [na, na+nb)), rebuild the radix words and gather through
+    ``merge_permutation``'s binary-search ranks — the JAX package's
+    ``device_merge_fn`` (reference: GpuSortExec.scala:212-510)."""
+
+    def _merge(ba: DeviceBatch, bb: DeviceBatch) -> DeviceBatch:
+        na, nb = ba.num_rows, bb.num_rows
+        merged = concat_device([ba, bb])
+        words = _order_words(Ctx.for_device(merged), order, merged.row_mask())
+        return gather_batch(merged, merge_permutation(words, na, nb), na + nb)
+
+    return _merge
+
+
+class GpuSortExec(Exec):
+    """Per-partition sort (GpuSortExec.scala:36-42,212-510), the port of the
+    JAX package's ``TpuSortExec``:
+
+    * single-batch: coalesce the partition into one batch and sort it;
+    * out-of-core: once the partition's batches exceed
+      ``spark.rapids.tpu.sort.outOfCoreThresholdBytes``, sort each incoming
+      batch into a run, then merge runs pairwise.
+
+    The port has no spill catalog yet (ROADMAP Queue A item 11), so the
+    runs stay on the device and the JAX package's ``ensure_headroom`` and
+    ``with_oom_retry`` around each sort and merge are left out."""
+
+    def __init__(self, order: list, child: Exec):
+        super().__init__([child])
+        self.order = [
+            SortOrder(bind(o.child, child.output), o.ascending, o.nulls_first) for o in order
+        ]
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+
+        _sort = device_sort_fn(self.order)
+        _merge = device_merge_fn(self.order)
+        threshold = cfg.OUT_OF_CORE_SORT_THRESHOLD.get(ctx.conf)
+
+        def run(it):
+            # buffer small partitions for the single-batch path; past the
+            # threshold, sort each incoming batch into a run at once
+            pending, pending_bytes, runs = [], 0, None
+            for b in it:
+                if runs is None:
+                    pending.append(b)
+                    pending_bytes += b.size_bytes()
+                    if pending_bytes > threshold and len(pending) > 1:
+                        runs = [_sort(p) for p in pending]
+                        pending = []
+                else:
+                    runs.append(_sort(b))
+            if runs is None:
+                if pending:
+                    yield _sort(concat_device(pending))
+                return
+            # staged binary merge of sorted runs
+            while len(runs) > 1:
+                nxt = [_merge(runs[i], runs[i + 1]) for i in range(0, len(runs) - 1, 2)]
+                if len(runs) % 2:
+                    nxt.append(runs[-1])
+                runs = nxt
+            yield runs[0]
+
+        return self.children[0].execute(ctx).map_partitions(run)
+
+    def node_string(self):
+        return f"GpuSort [{', '.join(map(str, self.order))}]"

@@ -3,20 +3,19 @@ cudf's gather / Table.filter (reference: basicPhysicalOperators.scala
 GpuFilterExec; Table.filter applies a boolean-mask gather).
 
 The port of ``spark_rapids_tpu/ops/gather.py`` (``gather_column``,
-``gather_batch``, ``compact``) plus the batch concatenation of
-``spark_rapids_tpu/ops/concat.py``. ``shrink_one`` has no counterpart:
-``device_to_host`` reads the live prefix directly, so nothing re-buckets a
-batch before the download. Compaction keeps the input capacity
-and permutes kept rows to the front in their order, as in the JAX package;
-the permutation is the kept rows' indices followed by the dropped rows'
-(what the JAX package's stable argsort of ``~keep`` yields), built with two
-``nonzero`` calls instead of a sort.
+``gather_batch``, ``compact``, ``shrink_one``, ``bulk_shrink``) plus the
+batch concatenation of ``spark_rapids_tpu/ops/concat.py``. Compaction keeps
+the input capacity and permutes kept rows to the front in their order, as
+in the JAX package; the permutation is the kept rows' indices followed by
+the dropped rows' (what the JAX package's stable argsort of ``~keep``
+yields), built by ``scan.first_k_positions`` without a sort or a host sync.
 """
 from __future__ import annotations
 
 import torch
 
 from ..columnar.device import DeviceBatch, DeviceColumn, bucket_capacity, dc_replace
+from .scan import first_k_positions
 
 
 def gather_column(col: DeviceColumn, idx: torch.Tensor, idx_valid=None) -> DeviceColumn:
@@ -34,18 +33,10 @@ def gather_batch(batch: DeviceBatch, idx: torch.Tensor, new_num_rows) -> DeviceB
     return DeviceBatch(batch.schema, cols, n)
 
 
-def compact_permutation(keep: torch.Tensor) -> torch.Tensor:
-    """Stable compaction permutation: position k holds the row index of the
-    k-th kept row, then the dropped rows in order."""
-    return torch.cat(
-        [torch.nonzero(keep).reshape(-1), torch.nonzero(~keep).reshape(-1)]
-    )
-
-
 def compact(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
     """Stable-compact rows where ``keep`` (bool[cap]) into the prefix."""
     keep = keep & batch.row_mask()
-    perm = compact_permutation(keep)
+    perm = first_k_positions(keep)
     n = keep.sum().to(torch.int32)
     out = gather_batch(batch, perm, n)
     # zero validity in the tail so padding rows are inert and deterministic
@@ -54,12 +45,51 @@ def compact(batch: DeviceBatch, keep: torch.Tensor) -> DeviceBatch:
     return DeviceBatch(out.schema, cols, n)
 
 
-def concat_device(batches: list) -> DeviceBatch:
+def shrink_one(batch: DeviceBatch, n: int) -> DeviceBatch:
+    """Re-bucket a batch to the capacity its ``n`` live rows need (no-op when
+    already tight): the live prefix, as the JAX package's ``shrink_one``
+    with ``tight=True`` (the port's capacities have no shape-bucket floor)."""
+    cap2 = bucket_capacity(max(n, 1))
+    if cap2 >= batch.capacity:
+        return batch
+    cols = [
+        DeviceColumn(
+            c.dtype,
+            c.data[:cap2],
+            c.validity[:cap2],
+            None if c.lengths is None else c.lengths[:cap2],
+        )
+        for c in batch.columns
+    ]
+    return DeviceBatch(batch.schema, cols, batch.num_rows)
+
+
+def row_counts(batches: list) -> list:
+    """The live-row counts of device batches in ONE fetch: the work feeding
+    every batch is already queued, so the wait overlaps all of it instead
+    of serializing per batch."""
+    return [int(n) for n in torch.stack([b.num_rows for b in batches]).tolist()]
+
+
+def bulk_shrink(batches: list) -> tuple:
+    """Re-bucket batches whose live prefix is much smaller than capacity
+    (partial-aggregate outputs) after one row-count fetch. Returns the
+    batches and their counts, so a concat that follows need not fetch
+    them again."""
+    if not batches:
+        return batches, []
+    counts = row_counts(batches)
+    return [shrink_one(b, n) for b, n in zip(batches, counts)], counts
+
+
+def concat_device(batches: list, counts=None) -> DeviceBatch:
     """Concatenate the live rows of device batches into one batch of the
-    bucketed capacity; string planes widen to the widest input."""
+    bucketed capacity; string planes widen to the widest input. ``counts``
+    (the batches' live rows, if the caller has them) saves the one fetch."""
     if len(batches) == 1:
         return batches[0]
-    counts = [b.row_count() for b in batches]
+    if counts is None:
+        counts = row_counts(batches)
     total = sum(counts)
     cap = bucket_capacity(max(total, 1))
     device = batches[0].device

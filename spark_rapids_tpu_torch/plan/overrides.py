@@ -7,9 +7,9 @@ GpuTransitionOverrides.scala (transition insertion).
 The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
 tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
-pass, but its rules cover only what this slice of the port runs on the
-device — project, filter, ungrouped aggregation and the coalesce, over the
-expressions of TPC-H q6 and ``contains``. Every other node stays on the CPU
+pass, but its rules cover only what the port runs on the device so far —
+project, filter, grouped and ungrouped aggregation, sort and the coalesce,
+over the expressions of TPC-H q1, q6 and ``contains``. Every other node stays on the CPU
 engine with its reason in the explain, which is the system's own per-node
 fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
 shared.)
@@ -26,6 +26,7 @@ from ..exec import gpu as G
 from ..expr import Expression
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
+from ..expr import conditional as cond
 from ..expr import predicates as pred
 from ..expr import strings as st
 from ..expr.base import Alias, BoundReference, Literal
@@ -93,7 +94,9 @@ def _cast_check(e: Cast, conf: TpuConf) -> Optional[str]:
 
 
 def _minmax_check(e, conf: TpuConf) -> Optional[str]:
-    if not isinstance(e.child.data_type, _NUMERIC + (DateType, TimestampType, BooleanType)):
+    if not isinstance(
+        e.child.data_type, _NUMERIC + (DateType, TimestampType, BooleanType, StringType)
+    ):
         return (
             f"{type(e).__name__} input type {e.child.data_type.simple_string} is "
             "not in the torch port yet"
@@ -110,6 +113,12 @@ def _literal_pattern_check(e, conf: TpuConf) -> Optional[str]:
 def _no_decimal_arith(e, conf: TpuConf) -> Optional[str]:
     if isinstance(e.data_type, DecimalType):
         return f"decimal {type(e).__name__} is not in the torch port yet"
+    return None
+
+
+def _integral_only(e, conf: TpuConf) -> Optional[str]:
+    if not isinstance(e.data_type, _INTEGRAL):
+        return f"{type(e).__name__} over {e.data_type.simple_string} is not in the torch port yet"
     return None
 
 
@@ -141,6 +150,8 @@ for _cls in (
     _expr(_cls)
 for _cls in (ar.Add, ar.Subtract, ar.Multiply):
     _expr(_cls, check=_no_decimal_arith)
+_expr(ar.Remainder, check=_integral_only)
+_expr(cond.CaseWhen)
 _expr(agg.Sum, check=_float_agg_check)
 _expr(agg.Average, check=_float_agg_check)
 _expr(agg.Min, check=_minmax_check)
@@ -213,9 +224,12 @@ def _conv_agg(e: C.CpuHashAggregateExec, ch):
     return g
 
 
-def _ungrouped_only(e: C.CpuHashAggregateExec, conf: TpuConf) -> Optional[str]:
-    if e.grouping:
-        return "grouped aggregation is not in the torch port yet"
+def _no_collect(e: C.CpuHashAggregateExec, conf: TpuConf) -> Optional[str]:
+    if any(isinstance(f, (agg.CollectList, agg.MergeLists)) for f in e.agg_fns):
+        return (
+            "the collect family (collect_list, collect_set) is not in the torch "
+            "port yet"
+        )
     return None
 
 
@@ -236,7 +250,13 @@ _rule(
     "HashAggregateExec",
     _conv_agg,
     lambda e: e.grouping + list(e.agg_fns) + (e.result_exprs or []),
-    check=_ungrouped_only,
+    check=_no_collect,
+)
+_rule(
+    C.CpuSortExec,
+    "SortExec",
+    lambda e, ch: G.GpuSortExec(e.order, ch[0]),
+    lambda e: [o.child for o in e.order],
 )
 _rule(
     C.CpuCoalescePartitionsExec,

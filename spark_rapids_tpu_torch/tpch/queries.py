@@ -1,13 +1,15 @@
-"""TPC-H queries as DataFrame functions, and the string-search queries of the
-port's first slice.
+"""TPC-H queries as DataFrame functions, and the port's own slice queries.
 
-Copied from ``spark_rapids_tpu/tpch/queries.py``: ``q6`` as the JAX package
-writes it. The other 21 need joins, grouped aggregation and sorts on the
-device and come with later slices of the port (ROADMAP.md, Queue A).
-``contains_agg`` and ``contains_rows`` are the slice's own queries: they put
-``Column.contains`` — and with it the hand-written ``match_starts`` kernel —
-on the main path, once fused into an aggregate and once as a standalone
-filter whose rows (strings included) come back to the host.
+Copied from ``spark_rapids_tpu/tpch/queries.py``: ``q1`` and ``q6`` as the
+JAX package writes them. The other 20 need joins and top-N on the device
+and come with later slices of the port (ROADMAP.md, Queue A).
+``contains_agg`` and ``contains_rows`` put ``Column.contains`` — and with it
+the hand-written ``match_starts`` kernel — on the main path, once fused into
+an aggregate and once as a standalone filter whose rows (strings included)
+come back to the host. ``orders_by_priority`` sorts all of ``orders`` by a
+string, a descending double and a long key: q1's own sort sees only its
+four groups, so this query is what puts the device sort to work at full
+size.
 
 Each function takes ``t`` — a ``name -> DataFrame`` accessor — and returns an
 un-collected DataFrame.
@@ -18,6 +20,26 @@ from datetime import date as D
 
 from .. import functions as F
 from ..functions import col, count, lit
+
+
+def q1(t):
+    li = t("lineitem")
+    disc_price = col("l_extendedprice") * (1 - col("l_discount"))
+    return (
+        li.filter(col("l_shipdate") <= D(1998, 9, 2))
+        .group_by("l_returnflag", "l_linestatus")
+        .agg(
+            F.sum(col("l_quantity")).alias("sum_qty"),
+            F.sum(col("l_extendedprice")).alias("sum_base_price"),
+            F.sum(disc_price).alias("sum_disc_price"),
+            F.sum(disc_price * (1 + col("l_tax"))).alias("sum_charge"),
+            F.avg(col("l_quantity")).alias("avg_qty"),
+            F.avg(col("l_extendedprice")).alias("avg_price"),
+            F.avg(col("l_discount")).alias("avg_disc"),
+            count("*").alias("count_order"),
+        )
+        .order_by("l_returnflag", "l_linestatus")
+    )
 
 
 def q6(t):
@@ -52,9 +74,21 @@ def contains_rows(t):
     )
 
 
+def orders_by_priority(t):
+    """Every order's key, priority and price, by priority, then the dearest
+    first, then by key."""
+    return (
+        t("orders")
+        .select("o_orderkey", "o_orderpriority", "o_totalprice")
+        .order_by(col("o_orderpriority"), col("o_totalprice").desc(), col("o_orderkey"))
+    )
+
+
 #: the slice's queries, by name, with the tables each reads
 SLICE_QUERIES = {
+    "q1": (q1, ("lineitem",)),
     "q6": (q6, ("lineitem",)),
     "contains_agg": (contains_agg, ("orders",)),
     "contains_rows": (contains_rows, ("orders",)),
+    "orders_by_priority": (orders_by_priority, ("orders",)),
 }

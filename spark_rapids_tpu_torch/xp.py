@@ -90,6 +90,9 @@ class TorchNamespace:
     def ones(self, shape, dtype=float):
         return torch.ones(shape, dtype=torch_dtype(dtype), device=self.device)
 
+    def ones_like(self, x):
+        return torch.ones_like(self.asarray(x))
+
     def arange(self, *args, dtype=None):
         td = torch.int64 if dtype is None else torch_dtype(dtype)
         return torch.arange(*args, dtype=td, device=self.device)

@@ -1,8 +1,10 @@
-"""The port's first slice end to end: TPC-H q6 and the two ``contains``
-queries through TorchSession (device="cpu"), held against the JAX package's
-device engine on JAX-CPU and its CPU engine, rows within the harness's
-tolerance (rel 1e-9, abs 1e-11), with no compute fallback in the port's
-plan. Also the port's import and device rules."""
+"""The port's slices end to end: TPC-H q1 and q6, the two ``contains``
+queries and ``orders_by_priority`` through TorchSession (device="cpu"), held
+against the JAX package's device engine on JAX-CPU and its CPU engine, rows
+within the harness's tolerance (rel 1e-9, abs 1e-11), with no compute
+fallback in the port's plan but the hash exchange (the port's next slice).
+Also the partial aggregate's merge of several batches, the out-of-core
+sort, and the port's import and device rules."""
 from __future__ import annotations
 
 import pathlib
@@ -54,22 +56,31 @@ def _assert_rows_equal(a, b, what):
             assert _values_equal(x, y, approx_float=True), f"{what} row {i} col {j}: {x!r} vs {y!r}"
 
 
-def _no_compute_fallback(session):
+def _no_compute_fallback(session, allowed=("CpuScan",)):
     bad = [
         (e.node, e.reasons)
         for e in session._last_overrides.explain
-        if not e.on_device and not e.node.startswith("CpuScan")
+        if not e.on_device and not e.node.startswith(allowed)
     ]
     assert not bad, f"compute fallbacks: {bad}"
+
+
+def _explain(session) -> dict:
+    """The last plan's explain entries by node name."""
+    return {e.node.split(" ")[0].split("[")[0]: e for e in session._last_overrides.explain}
 
 
 def _jax_query(name):
     """The slice's queries written against the JAX package's functions."""
     col, count, lit = JF.col, JF.count, JF.lit
-    if name == "q6":
-        from spark_rapids_tpu.tpch.queries import q6
+    if name in ("q1", "q6"):
+        from spark_rapids_tpu.tpch import queries
 
-        return q6
+        return getattr(queries, name)
+    if name == "orders_by_priority":
+        return lambda t: t("orders").select("o_orderkey", "o_orderpriority", "o_totalprice").order_by(
+            col("o_orderpriority"), col("o_totalprice").desc(), col("o_orderkey")
+        )
     if name == "contains_agg":
         return lambda t: t("orders").filter(col("o_comment").contains("special")).agg(
             count(lit(1)), JF.sum(col("o_totalprice"))
@@ -80,10 +91,10 @@ def _jax_query(name):
 
 
 @pytest.mark.parametrize("parts", [1, 3])
-@pytest.mark.parametrize("name", list(SLICE_QUERIES))
+@pytest.mark.parametrize("name", ["q6", "contains_agg", "contains_rows"])
 def test_slice_query_matches_both_jax_engines(name, parts, tables, jax_tables):
-    """One partition plans the aggregate complete; three plan it partial →
-    coalesce → final, all on the device."""
+    """The first slice's queries. One partition plans the aggregate
+    complete; three plan it partial → coalesce → final, all on the device."""
     fn, used = SLICE_QUERIES[name]
     port = _port_session()
     port_rows = fn(lambda t: port.create_dataframe(tables[t], num_partitions=parts)).collect()
@@ -141,7 +152,7 @@ def test_device_aggregates_and_predicates_match_cpu_engine(tables):
 
 
 def test_unported_nodes_fall_back_with_a_reason(tables):
-    """Grouped aggregation and sort stay on the CPU engine, say why in the
+    """The collect family and top-N stay on the CPU engine, say why in the
     explain, and still give the CPU engine's rows."""
     col = PF.col
     dev = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
@@ -151,16 +162,21 @@ def test_unported_nodes_fall_back_with_a_reason(tables):
             s.create_dataframe(tables["orders"])
             .filter(col("o_comment").contains("special"))
             .group_by("o_orderpriority")
-            .agg(PF.count(col("o_orderkey")).alias("n"))
+            .agg(
+                PF.size(PF.collect_list(col("o_orderstatus"))).alias("st"),
+                PF.count(col("o_orderkey")).alias("n"),
+            )
             .order_by("o_orderpriority")
+            .limit(3)
         )
 
     got = build(dev).collect()
     reasons = [r for e in dev._last_overrides.explain for r in e.reasons]
-    assert "grouped aggregation is not in the torch port yet" in reasons
-    assert any("CpuSortExec has no device implementation" in r for r in reasons)
+    assert "the collect family (collect_list, collect_set) is not in the torch port yet" in reasons
+    assert any("CpuTakeOrderedAndProjectExec has no device implementation" in r for r in reasons)
+    assert _explain(dev)["CpuFilter"].on_device
     want = build(_port_session(enabled=False)).collect()
-    assert got == want and len(got) == 5
+    assert got == want and len(got) == 3
 
 
 def test_torch_session_without_a_card_raises():
@@ -210,46 +226,115 @@ def test_cpu_run_launches_no_kernel(tables):
     assert SK.LAUNCHES == before
 
 
-def _q1(F, t):
-    """TPC-H q1 as spark_rapids_tpu/tpch/queries.py writes it, over the
-    functions module ``F`` of either package."""
-    col, count = F.col, F.count
-    from datetime import date
-
-    li = t("lineitem")
-    disc_price = col("l_extendedprice") * (1 - col("l_discount"))
-    return (
-        li.filter(col("l_shipdate") <= date(1998, 9, 2))
-        .group_by("l_returnflag", "l_linestatus")
-        .agg(
-            F.sum(col("l_quantity")).alias("sum_qty"),
-            F.sum(col("l_extendedprice")).alias("sum_base_price"),
-            F.sum(disc_price).alias("sum_disc_price"),
-            F.sum(disc_price * (1 + col("l_tax"))).alias("sum_charge"),
-            F.avg(col("l_quantity")).alias("avg_qty"),
-            F.avg(col("l_extendedprice")).alias("avg_price"),
-            F.avg(col("l_discount")).alias("avg_disc"),
-            count("*").alias("count_order"),
-        )
-        .order_by("l_returnflag", "l_linestatus")
-    )
-
-
 def test_q1_falls_back_per_node_and_matches_jax(tables, jax_tables):
-    """q1 is not in this slice: its filter runs on the device, its grouped
-    aggregate and sort on the CPU engine, each with a reason, and the rows
-    are the JAX engines' — in order, as the sort gives them."""
-    port = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
-    got = _q1(PF, lambda t: port.create_dataframe(tables[t])).collect()
-    explain = {e.node.split(" ")[0].split("[")[0]: e for e in port._last_overrides.explain}
-    assert explain["CpuFilter"].on_device
-    assert not explain["CpuHashAggregate(complete)"].on_device
-    assert not explain["CpuSortExec"].on_device
+    """q1 runs on the device end to end: the filter fused into the complete
+    aggregate, the sort on the device, nothing off it but the scan; the rows
+    are the JAX engines', in order, as the sort gives them."""
+    port = _port_session()
+    df = SLICE_QUERIES["q1"][0](lambda t: port.create_dataframe(tables[t]))
+    got = df.collect()
+    _no_compute_fallback(port)
+    explain = _explain(port)
+    assert explain["CpuHashAggregate(complete)"].on_device and explain["CpuSortExec"].on_device
+    plan = df.explain()
+    assert "GpuSort" in plan and "GpuHashAggregate(complete)" in plan
     for session in (tpu_session(), cpu_session()):
-        want = _q1(JF, lambda t: session.create_dataframe(jax_tables[t])).collect()
+        want = _jax_query("q1")(lambda t: session.create_dataframe(jax_tables[t])).collect()
         assert len(got) == len(want) == 4
-        for ra, rb in zip(got, want):
-            assert all(_values_equal(x, y, approx_float=True) for x, y in zip(ra, rb)), (ra, rb)
+        _assert_rows_equal(got, want, "q1 port vs JAX")
+
+
+def test_orders_by_priority_matches_both_jax_engines(tables, jax_tables):
+    """All of orders sorted on the device by a string, a descending double
+    and a long key, rows in order."""
+    port = _port_session()
+    got = SLICE_QUERIES["orders_by_priority"][0](lambda t: port.create_dataframe(tables[t])).collect()
+    _no_compute_fallback(port)
+    assert len(got) == tables["orders"].num_rows
+    for session in (tpu_session(), cpu_session()):
+        want = _jax_query("orders_by_priority")(
+            lambda t: session.create_dataframe(jax_tables[t])
+        ).collect()
+        _assert_rows_equal(got, want, "orders_by_priority port vs JAX")
+
+
+def _q1_rows(tables, conf, parts):
+    port = TorchSession(
+        {
+            "spark.rapids.sql.enabled": True,
+            "spark.rapids.sql.test.enabled": True,
+            "spark.rapids.sql.test.allowedNonGpu": "CpuShuffleExchange",
+            **conf,
+        },
+        device="cpu",
+    )
+    rows = SLICE_QUERIES["q1"][0](
+        lambda t: port.create_dataframe(tables[t], num_partitions=parts)
+    ).collect()
+    return port, rows
+
+
+def test_q1_two_partitions_partial_and_final_on_device(tables, jax_tables):
+    """Two input partitions plan partial → hash exchange → final: both
+    aggregates run on the device, the exchange on the CPU engine with its
+    reason (the port's next slice)."""
+    port, got = _q1_rows(tables, {}, parts=2)
+    _no_compute_fallback(port, allowed=("CpuScan", "CpuShuffleExchange"))
+    explain = _explain(port)
+    assert explain["CpuHashAggregate(partial)"].on_device
+    assert explain["CpuHashAggregate(final)"].on_device
+    assert explain["CpuShuffleExchange"].reasons == [
+        "exec CpuShuffleExchangeExec has no device implementation"
+    ]
+    want = _jax_query("q1")(
+        lambda t: cpu_session().create_dataframe(jax_tables[t], num_partitions=2)
+    ).collect()
+    _assert_rows_equal(got, want, "q1 at 2 partitions vs the JAX CPU engine")
+
+
+def test_q1_several_batches_per_partition_merge_on_device(tables, jax_tables, monkeypatch):
+    """A batch size of a few hundred rows cuts each partition into many
+    batches: the partial aggregate updates each, shrinks the partials with
+    one row-count fetch, concatenates and merges them."""
+    from spark_rapids_tpu_torch.exec import gpu as G
+
+    shrunk = []
+    real = G.bulk_shrink
+    monkeypatch.setattr(G, "bulk_shrink", lambda bs: shrunk.append(len(bs)) or real(bs))
+    _, got = _q1_rows(tables, {"spark.rapids.sql.batchSizeBytes": 32 << 10}, parts=2)
+    assert len(shrunk) == 2 and min(shrunk) > 10, shrunk
+    want = _jax_query("q1")(lambda t: cpu_session().create_dataframe(jax_tables[t])).collect()
+    _assert_rows_equal(got, want, "q1 from many batches vs the JAX CPU engine")
+
+
+def test_sort_out_of_core_equals_single_batch_sort(tables, jax_tables, monkeypatch):
+    """Past a tiny out-of-core threshold the sort makes a run of each batch
+    and merges runs pairwise; the rows equal the single-batch sort's."""
+    from spark_rapids_tpu_torch.exec import gpu as G
+
+    merges = []
+    real = G.device_merge_fn
+
+    def counting(order):
+        merge = real(order)
+        return lambda a, b: merges.append(1) or merge(a, b)
+
+    fn = SLICE_QUERIES["orders_by_priority"][0]
+    single = fn(lambda t: _port_session().create_dataframe(tables[t])).collect()
+    assert not merges
+    monkeypatch.setattr(G, "device_merge_fn", counting)
+    port = TorchSession(
+        {
+            "spark.rapids.sql.enabled": True,
+            "spark.rapids.sql.test.enabled": True,
+            "spark.rapids.sql.batchSizeBytes": 16 << 10,
+            "spark.rapids.tpu.sort.outOfCoreThresholdBytes": 1,
+        },
+        device="cpu",
+    )
+    runs = fn(lambda t: port.create_dataframe(tables[t])).collect()
+    assert len(merges) >= 3  # at least four runs
+    assert runs == single
 
 
 _EDGE = {

@@ -6,12 +6,20 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's hand-written CUDA kernels from the sources in the
 checkout (into build/torch_kernels/), holds each kernel against its plain
-torch version on the card, then drives the port's main path — TPC-H q1
-and q6, the two ``contains`` queries and ``orders_by_priority`` at SF 1,
-through TorchSession → DataFrame → collect() — and holds every result
-against the port's own CPU engine, then times q1 once more split into its
-group-by's sort, scans and gathers and its final sort. It
-exits non-zero, printing no result, where no CUDA device is present, and
+torch version on the card, then drives the port's main paths through
+TorchSession → DataFrame → collect() at TPC-H SF 1 and holds every result
+against the port's own CPU engine:
+
+* the single-partition path: q1, q6, the two ``contains`` queries,
+  ``orders_by_priority``, ``q18_big_orders`` and ``union_limit``; then q1
+  once more, timed split into its group-by's sort, scans and gathers and
+  its final sort;
+* the partitioned path: q1, q6, ``orders_by_priority``, ``q18_big_orders``
+  and ``union_limit`` from 4 input partitions at 8 shuffle partitions,
+  each twice, through the device exchange and the upload cache (the second
+  run of each must upload nothing).
+
+It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
 
 Output, in order: the card (nvidia-smi name and power limit, torch's device
@@ -19,13 +27,20 @@ name and count); the build time and the ``-Xptxas -v`` report (a spill
 fails the run); the kernel phase, with the launches of each kernel path in
 the grid and at the slice's shape, the time of the bare mask write and of
 the ``.any(axis=1)`` that ``Contains`` applies to the mask; the kernel
-list; the slice phase, one line per query with its device wall and the CPU
-engine's time, and the main path's launches per kernel path; q1's time
-split; one JSON line with each kernel's launches on the main path, error, times and
-bound; and last the line ``{"ok": true, "device": {...}}``.
+list; the slice phase, one line per query with its device wall, the bytes
+it uploaded and the CPU engine's time, and the main path's launches per
+kernel path; q1's time split; the partitioned phase, one line per query and
+run with its device wall, bytes uploaded and peak device memory, the time
+of the exchanges' murmur3 calls, and the phase's kernel launches; a
+torch.profiler run of the partitioned q1 (device busy time against the
+wall, the kernels that took the most); the time
+of murmur3 over a wide string key; one JSON line with each kernel's
+launches on the main path, error, times and bound; and last the line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ast
 import json
 import re
 import subprocess
@@ -170,9 +185,27 @@ def kernel_phase(orders):
     }
 
 
+def _off_device(session) -> list:
+    return [
+        (e.node, e.reasons)
+        for e in session._last_overrides.explain
+        if not e.on_device and not e.node.startswith("CpuScan")
+    ]
+
+
+def _scan_widths(session) -> list:
+    """The number of columns each scan of the last plan reads."""
+    return [
+        len(ast.literal_eval(e.node[len("CpuScan"):]))
+        for e in session._last_overrides.explain
+        if e.node.startswith("CpuScan")
+    ]
+
+
 def slice_phase(tables) -> dict:
-    """The slice's queries on the card and on the port's CPU engine. Returns
-    the match_starts launches of the main path's run."""
+    """The slice's queries on the card and on the port's CPU engine, one
+    partition each. Returns the match_starts launches of the main path's
+    run and the CPU engine's rows by query."""
     import torch
 
     from spark_rapids_tpu_torch import TorchSession
@@ -184,6 +217,7 @@ def slice_phase(tables) -> dict:
     cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.LAUNCHES = 0  # counts from here on are the main path's
     SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
+    cpu_rows = {}
     for name, (fn, used) in SLICE_QUERIES.items():
         before = SK.LAUNCHES
         t0 = time.perf_counter()
@@ -191,15 +225,15 @@ def slice_phase(tables) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = SK.LAUNCHES - before
-        off = [
-            (e.node, e.reasons)
-            for e in gpu._last_overrides.explain
-            if not e.on_device and not e.node.startswith("CpuScan")
-        ]
+        uploaded = gpu._last_metrics["hostToDeviceBytes"]
+        off = _off_device(gpu)
         if off:
             raise AssertionError(f"{name}: nodes off the device: {off}")
+        widths = _scan_widths(gpu)
+        if name in ("q1", "q6") and widths != [7 if name == "q1" else 4]:
+            raise AssertionError(f"{name}: the scan reads {widths} columns after pruning")
         t0 = time.perf_counter()
-        want = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
+        want = cpu_rows[name] = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
         cpu_ms = (time.perf_counter() - t0) * 1e3
         ok, msg = rows_equal(got, want)
         if not ok or not want:
@@ -208,11 +242,146 @@ def slice_phase(tables) -> dict:
             raise AssertionError(f"{name}: match_starts was not launched")
         rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
         log(f"slice phase: {name} at SF {SF} over {'+'.join(used)}: device wall "
-            f"{wall_ms:.1f} ms, CPU engine {cpu_ms:.1f} ms, match_starts launches "
+            f"{wall_ms:.1f} ms, uploaded {uploaded} bytes ({'+'.join(map(str, widths))} "
+            f"columns), CPU engine {cpu_ms:.1f} ms, match_starts launches "
             f"{launches}, result {rows}; equal to the CPU engine, nothing off the "
             "device but scans")
     log(f"slice phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)}")
-    return {"match_starts": SK.LAUNCHES, "match_starts_by_path": dict(SK.LAUNCHES_BY_PATH)}
+    return {
+        "match_starts": SK.LAUNCHES,
+        "match_starts_by_path": dict(SK.LAUNCHES_BY_PATH),
+        "cpu_rows": cpu_rows,
+    }
+
+
+#: the partitioned phase's queries; all but union_limit exchange their rows
+PARTITIONED = ("q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit")
+INPUT_PARTITIONS = 4
+SHUFFLE_PARTITIONS = 8
+
+
+def partitioned_phase(tables, cpu_rows) -> None:
+    """The partitioned path: each query from 4 input partitions at 8
+    shuffle partitions, twice, on one session — the first run uploads its
+    pruned columns, the second must find them in the upload cache. Each
+    run is held against the CPU engine's rows (a result does not depend on
+    partitioning), must keep everything but the scans on the device, and
+    must exchange through GpuShuffleExchange (union_limit has no exchange).
+    The exchanges' murmur3 calls are timed with CUDA events in the first
+    run of each query."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import gpu as G
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+
+    gpu = TorchSession(
+        {"spark.rapids.sql.enabled": True, "spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS},
+        device="cuda",
+    )
+    SK.LAUNCHES = 0  # this path's own counts
+    SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
+    real_hash = G.murmur3_rows
+    for name in PARTITIONED:
+        fn, used = SLICE_QUERIES[name]
+        for run in (1, 2):
+            timer = PhaseTimer()
+            shapes = []
+
+            def hashed(xp, cols, n, _timed=timer.wrap("murmur3", real_hash)):
+                shapes.append((n, [str(c[0]) + (f"[W={c[1].shape[1]}]" if c[1].ndim == 2 else "")
+                                   for c in cols]))
+                return _timed(xp, cols, n)
+
+            G.murmur3_rows = hashed
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                df = fn(lambda t: gpu.create_dataframe(tables[t], num_partitions=INPUT_PARTITIONS))
+                got = df.collect()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                G.murmur3_rows = real_hash
+            peak = torch.cuda.max_memory_allocated()
+            uploaded = gpu._last_metrics["hostToDeviceBytes"]
+            off = _off_device(gpu)
+            if off:
+                raise AssertionError(f"partitioned {name}: nodes off the device: {off}")
+            plan = gpu._physical_plan(df._plan)[0].tree_string()
+            if ("GpuShuffleExchange" in plan) != (name != "union_limit"):
+                raise AssertionError(f"partitioned {name}: unexpected exchanges in\n{plan}")
+            ok, msg = rows_equal(got, cpu_rows[name])
+            if not ok:
+                raise AssertionError(f"partitioned {name} run {run}: rows differ from the CPU engine: {msg}")
+            if run == 2 and uploaded != 0:
+                raise AssertionError(f"partitioned {name}: the second run uploaded {uploaded} bytes")
+            hash_ms = timer.totals_ms()["murmur3"]
+            log(f"partitioned phase: {name} run {run} ({INPUT_PARTITIONS} input partitions, "
+                f"{SHUFFLE_PARTITIONS} shuffle partitions): device wall {wall_ms:.1f} ms, uploaded "
+                f"{uploaded} bytes, peak device memory {peak} bytes, {len(got)} rows equal to the "
+                f"CPU engine; exchanges' murmur3 {hash_ms:.3f} ms over {len(shapes)} calls "
+                f"{json.dumps(sorted(set((n, tuple(k)) for n, k in shapes)))}")
+    log(f"partitioned phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)} "
+        "(this path's queries hold no string search)")
+    profile_partitioned_q1(gpu, tables)
+
+
+def profile_partitioned_q1(gpu, tables) -> None:
+    """One more warm run of the partitioned q1 under torch.profiler: the
+    device's busy time (the sum of its kernels' times) against the wall,
+    the kernels launched, and the kernels that took the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+
+    fn = SLICE_QUERIES["q1"][0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(lambda t: gpu.create_dataframe(tables[t], num_partitions=INPUT_PARTITIONS)).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"partitioned q1 profile: wall {wall_ms:.1f} ms; the profiler saw no device "
+            "time (device busy share not measured)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"partitioned q1 profile (warm, under torch.profiler): wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of the wall) over "
+        f"{len(kernels)} kernels; most time: "
+        + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top))
+
+
+def wide_string_hash(orders) -> None:
+    """murmur3 over the widest string key at hand, the o_comment plane of
+    orders (W = 128): the torch loop runs 1.25·W steps."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.device import host_to_device
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    from spark_rapids_tpu_torch.ops.hash import murmur3_rows
+    from spark_rapids_tpu_torch.types import Schema
+    from spark_rapids_tpu_torch.xp import namespace
+
+    i = orders.schema.index_of("o_comment")
+    one = HostBatch(Schema([orders.schema[i]]), [orders.columns[i]], orders.num_rows)
+    c = host_to_device(one, "cuda").columns[0]
+    cols = [(c.dtype, c.data, c.validity, c.lengths)]
+    xp = namespace(c.data.device)
+    ms = time_ms(lambda: murmur3_rows(xp, cols, c.capacity), reps=3)
+    log(f"murmur3 over o_comment: [{c.capacity}, {c.str_width}] plane, {ms:.3f} ms")
+    del c, cols
+    torch.cuda.empty_cache()
 
 
 class PhaseTimer:
@@ -287,6 +456,7 @@ def q1_split(tables) -> None:
         fn(lambda t: gpu.create_dataframe(tables[t])).collect()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        uploaded = gpu._last_metrics["hostToDeviceBytes"]
     finally:
         for mod, name, fn0 in saved:
             setattr(mod, name, fn0)
@@ -298,8 +468,9 @@ def q1_split(tables) -> None:
     rest = wall_ms - sum(ms[p] for p in parts)
     log("q1 split: device wall {:.1f} ms = radix words + sort_permutation {:.3f} ms, "
         "segmented scans (segscan, first_k_positions) {:.3f} ms, gathers {:.3f} ms, "
-        "final GpuSortExec {:.3f} ms, rest (upload, expressions, result projection, "
-        "download, host) {:.1f} ms".format(wall_ms, *(ms[p] for p in parts), rest))
+        "final GpuSortExec {:.3f} ms, rest (upload of {} bytes, expressions, result "
+        "projection, download, host) {:.1f} ms".format(
+            wall_ms, *(ms[p] for p in parts), uploaded, rest))
 
 
 def main() -> int:
@@ -347,6 +518,8 @@ def main() -> int:
 
     launches = slice_phase(tables)
     q1_split(tables)
+    partitioned_phase(tables, launches["cpu_rows"])
+    wide_string_hash(orders)
     record["launches"] = launches["match_starts"]
     record["launches_by_path"] = launches["match_starts_by_path"]
     if record["launches"] <= 0:

@@ -101,6 +101,25 @@ class HostBatch:
         n = max(0, min(n, self.num_rows - off))
         return HostBatch(self.schema, [c.slice(off, n) for c in self.columns], n)
 
+    def select(self, names) -> "HostBatch":
+        """The named columns, in the given order; the arrays are shared,
+        not copied."""
+        idx = [self.schema.index_of(n) for n in names]
+        return HostBatch(
+            Schema([self.schema[i] for i in idx]), [self.columns[i] for i in idx], self.num_rows
+        )
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the host arrays (data, validity, offsets) — what an upload
+        of the whole batch moves, as Arrow's ``nbytes`` counts a batch."""
+        total = 0
+        for c in self.columns:
+            total += c.data.nbytes + c.validity.nbytes
+            if c.offsets is not None:
+                total += c.offsets.nbytes
+        return total
+
 
 # ── strings ─────────────────────────────────────────────────────────────────
 

@@ -158,6 +158,27 @@ DEVICE_POOL_LIMIT = conf("spark.rapids.tpu.memory.deviceLimitBytes").doc(
 ).bytes_conf(0)
 
 
+UPLOAD_CACHE_MAX_BYTES = conf("spark.rapids.tpu.uploadCache.maxBytes").doc(
+    "Byte budget for the session's device-upload (H2D) cache of in-memory "
+    "relations — the LRU bound standing between many-table sessions and "
+    "pinned-HBM OOM. 0 (default) sizes automatically from device memory "
+    "stats (a quarter of the device's byte limit) with a 4 GiB fallback "
+    "when no stats are available."
+).bytes_conf(0)
+
+ADAPTIVE_ENABLED = conf("spark.sql.adaptive.enabled").doc(
+    "Adaptive query execution (Spark's key, honored here): exchanges "
+    "coalesce small output partitions at runtime from measured sizes "
+    "(the GpuCustomShuffleReaderExec analogue)."
+).boolean_conf(False)
+
+SHUFFLE_MANAGER_ENABLED = conf("spark.rapids.shuffle.manager.enabled").doc(
+    "Route exchanges through the accelerated shuffle manager (device-"
+    "resident spillable map output + transport fetches) instead of the "
+    "in-process default path (reference: RapidsShuffleManager)."
+).boolean_conf(False)
+
+
 class TpuConf:
     """An immutable-ish view over a key→string dict, with typed access.
 

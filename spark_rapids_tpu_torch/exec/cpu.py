@@ -9,9 +9,8 @@ plays in the reference (tests/.../SparkQueryCompareTestSuite.scala:339).
 Copied from ``spark_rapids_tpu/exec/cpu.py`` with the host currency changed
 from ``pyarrow.RecordBatch`` to the port's numpy ``HostBatch``. The operators
 the port's planner emits are carried over: scan, project, filter, the
-aggregate, coalesce, the hash/round-robin/single exchange, sort, top-N and
-limit. Range partitioning, range, generate, expand and union come with later
-slices.
+aggregate, coalesce, union, the hash/range/round-robin/single exchange,
+sort, top-N and limit. Range, generate and expand come with later slices.
 """
 from __future__ import annotations
 
@@ -71,13 +70,18 @@ def _val_to_np(ctx: Ctx, val) -> tuple[np.ndarray, np.ndarray]:
 
 
 class CpuScanExec(Exec):
-    """In-memory table scan (LocalRelation) over one ``HostBatch``."""
+    """In-memory table scan (LocalRelation) over one ``HostBatch``.
+    ``source`` is the batch the user gave, before column pruning: the
+    session's upload cache keys on it."""
 
-    def __init__(self, table: HostBatch, schema: Schema, num_partitions: int = 1):
+    def __init__(
+        self, table: HostBatch, schema: Schema, num_partitions: int = 1, source=None
+    ):
         super().__init__([])
         self.table = table
         self._schema = schema
         self.num_partitions = num_partitions
+        self.source = source if source is not None else table
 
     @property
     def output(self) -> Schema:
@@ -197,11 +201,25 @@ class CpuCoalescePartitionsExec(Exec):
         return PartitionSet([it])
 
 
+class CpuUnionExec(Exec):
+    def __init__(self, children: List[Exec]):
+        super().__init__(children)
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        parts = []
+        for c in self.children:
+            parts.extend(c.execute(ctx).parts)
+        return PartitionSet(parts)
+
+
 class CpuShuffleExchangeExec(Exec):
-    """Partitioned exchange (CPU path): hash (murmur3 pmod n), round-robin
-    and single — GpuShuffleExchangeExec + the GpuPartitioning impls. Range
-    partitioning is not in the port yet; the port's planner sorts a
-    multi-partition input after coalescing it to one partition."""
+    """Partitioned exchange (CPU path) over the four partitionings:
+    hash (murmur3 pmod n), range (sampled radix-word bounds), round-robin,
+    single — GpuShuffleExchangeExec + the GpuPartitioning impls."""
 
     def __init__(self, partitioning, child: Exec):
         super().__init__([child])
@@ -215,8 +233,30 @@ class CpuShuffleExchangeExec(Exec):
     def output(self) -> Schema:
         return self.children[0].output
 
+    def _np_word_groups(self, rb: HostBatch, schema: Schema):
+        from ..ops.sortkeys import np_column_radix_words
+
+        c = _cpu_ctx(rb, schema)
+        groups = []
+        for o in self.partitioning.order:
+            d, v = _val_to_np(c, o.child.eval(c))
+            groups.append(
+                np_column_radix_words(
+                    o.child.data_type, d, v, None, o.ascending, o.resolved_nulls_first()
+                )
+            )
+        return groups
+
     def execute(self, ctx: ExecContext) -> PartitionSet:
-        from ..plan.partitioning import HashPartitioning, RoundRobinPartitioning
+        from ..plan.partitioning import (
+            SAMPLE_PER_BATCH,
+            HashPartitioning,
+            RangePartitioning,
+            RoundRobinPartitioning,
+            align_word_groups,
+            compute_range_bounds,
+            words_partition_ids,
+        )
 
         schema = self.children[0].output
         inputs = self.children[0].execute(ctx)
@@ -230,27 +270,53 @@ class CpuShuffleExchangeExec(Exec):
                 if mask.any():
                     buckets[p].append(rb.filter(mask))
 
-        for pi, thunk in enumerate(inputs.parts):
-            offset = 0
-            for rb in thunk():
-                if rb.num_rows == 0:
-                    continue
-                if isinstance(part, HashPartitioning) and part.keys:
-                    c = _cpu_ctx(rb, schema)
-                    cols = []
-                    for k in part.keys:
-                        d, val = _val_to_np(c, k.eval(c))
-                        cols.append((k.data_type, d, val, None))
-                    h = murmur3_rows(np, cols, rb.num_rows)
-                    scatter(rb, partition_ids(np, h, nparts))
-                elif isinstance(part, RoundRobinPartitioning):
-                    # deterministic start per input partition (the
-                    # reference seeds with the partition index)
-                    pids = (pi + offset + np.arange(rb.num_rows)) % nparts
-                    offset += rb.num_rows
-                    scatter(rb, pids)
-                else:  # single partition
+        if isinstance(part, RangePartitioning):
+            batches, group_lists = [], []
+            for thunk in inputs.parts:
+                for rb in thunk():
+                    if rb.num_rows == 0:
+                        continue
+                    batches.append(rb)
+                    group_lists.append(self._np_word_groups(rb, schema))
+            # align per-batch string word counts (see align_word_groups)
+            all_words, _targets = align_word_groups(group_lists, part.order)
+            samples = []
+            for rb, words in zip(batches, all_words):
+                idx = np.arange(0, rb.num_rows, max(1, rb.num_rows // SAMPLE_PER_BATCH))
+                samples.append([w[idx] for w in words])
+            bounds = None
+            if samples:
+                sample_words = [
+                    np.concatenate([s[i] for s in samples]) for i in range(len(samples[0]))
+                ]
+                bounds = compute_range_bounds(sample_words, nparts)
+            for rb, words in zip(batches, all_words):
+                if bounds is None:
                     buckets[0].append(rb)
+                else:
+                    scatter(rb, words_partition_ids(words, bounds))
+        else:
+            for pi, thunk in enumerate(inputs.parts):
+                offset = 0
+                for rb in thunk():
+                    if rb.num_rows == 0:
+                        continue
+                    if isinstance(part, HashPartitioning) and part.keys:
+                        c = _cpu_ctx(rb, schema)
+                        cols = []
+                        for k in part.keys:
+                            d, val = _val_to_np(c, k.eval(c))
+                            cols.append((k.data_type, d, val, None))
+                        h = murmur3_rows(np, cols, rb.num_rows)
+                        scatter(rb, partition_ids(np, h, nparts))
+                    elif isinstance(part, RoundRobinPartitioning):
+                        # deterministic start per input partition (the
+                        # reference seeds with the partition index)
+                        pids = (pi + offset + np.arange(rb.num_rows)) % nparts
+                        offset += rb.num_rows
+                        scatter(rb, pids)
+                    else:  # single partition
+                        buckets[0].append(rb)
 
         def make(p):
             def it():
@@ -273,7 +339,13 @@ def _bind_partitioning(part, schema: Schema):
     if isinstance(part, P.HashPartitioning):
         return _dc.replace(part, keys=[bind(k, schema) for k in part.keys])
     if isinstance(part, P.RangePartitioning):
-        raise NotImplementedError("range partitioning is not in the torch port yet")
+        return _dc.replace(
+            part,
+            order=[
+                SortOrder(bind(o.child, schema), o.ascending, o.nulls_first)
+                for o in part.order
+            ],
+        )
     return part
 
 

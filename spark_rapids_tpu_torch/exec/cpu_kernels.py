@@ -170,16 +170,21 @@ def reduce_groups(
         if np.issubdtype(data.dtype, np.floating):
             fill = np.inf if op == "min" else -np.inf
             x = np.where(valid, data, fill)
-            # Spark NaN ordering: NaN greatest
-            had_nan = np.zeros(G, dtype=bool)
-            np.logical_or.at(had_nan, inv, valid & np.isnan(data))
-            x = np.where(np.isnan(x), np.inf, x)
+            # Spark NaN ordering: NaN greatest. max is NaN where a NaN was
+            # seen; min is NaN only where every valid value was NaN, and
+            # otherwise the minimum of the others (+inf included)
+            is_nan = valid & np.isnan(data)
+            x = np.where(np.isnan(x), fill, x)
             out = np.full(G, fill, dtype=data.dtype)
             (np.minimum if op == "min" else np.maximum).at(out, inv, x)
             if op == "max":
+                had_nan = np.zeros(G, dtype=bool)
+                np.logical_or.at(had_nan, inv, is_nan)
                 out = np.where(had_nan, np.nan, out)
             else:
-                out = np.where(had_nan & (out == np.inf), np.nan, out)
+                had_number = np.zeros(G, dtype=bool)
+                np.logical_or.at(had_number, inv, valid & ~is_nan)
+                out = np.where(any_valid & ~had_number, np.nan, out)
             return out, any_valid
         info = np.iinfo(data.dtype)
         fill = info.max if op == "min" else info.min

@@ -1,22 +1,29 @@
 """Device physical operators — the GpuExec family, in torch.
 
 The port of ``spark_rapids_tpu/exec/tpu.py``, with the upstream
-spark-rapids names: the transitions (``HostToDeviceExec``,
-``DeviceToHostExec``), ``GpuCoalesceBatchesExec``, ``GpuProjectExec``,
-``GpuFilterExec``, ``GpuHashAggregateExec`` (sort-based group-by in the
-partial, final and complete modes; its filter-fusion decision is the JAX
-package's ``_fused_child``), ``GpuSortExec`` and
-``GpuCoalescePartitionsExec``.
+spark-rapids names: the transitions (``HostToDeviceExec``, with the
+session's upload cache, and ``DeviceToHostExec``),
+``GpuCoalesceBatchesExec``, ``GpuProjectExec``, ``GpuFilterExec``,
+``GpuHashAggregateExec`` (sort-based group-by in the partial, final and
+complete modes; its filter-fusion decision is the JAX package's
+``_fused_child``), ``GpuSortExec``, ``GpuUnionExec``,
+``GpuCoalescePartitionsExec``, ``GpuShuffleExchangeExec`` and
+``GpuLimitExec``.
 
 Eager torch runs each operator's expression tree as it comes — there is no
 per-shape program to compile — so the JAX package's kernel cache, compile
-guards, upload cache, OOM retry, ledger and pipelining have no counterpart
-here yet. The expression library evaluates against the batch's torch
-namespace (``xp.py``), and string search runs the hand-written kernel of
+guards, OOM retry, ledger and pipelining have no counterpart here yet. The
+expression library evaluates against the batch's torch namespace
+(``xp.py``), and string search runs the hand-written kernel of
 ``ops/strings_kernels.py``.
+
+The upload cache hands the same device tensors to every later query over
+the same table, so no operator here writes into a tensor of a batch it did
+not create.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 import torch
@@ -33,9 +40,20 @@ from ..expr import Expression, bind, output_name
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Ctx, Val
 from ..ops.aggregate import group_aggregate
-from ..ops.gather import bulk_shrink, compact, concat_device, gather_batch
+from ..ops.concat import concat_device
+from ..ops.gather import bulk_shrink, compact, gather_batch, partition_slices, slice_head
+from ..ops.hash import murmur3_rows, partition_ids
 from ..ops.sortkeys import column_radix_words, merge_permutation, sort_permutation
 from ..plan.logical import SortOrder
+from ..plan.partitioning import (
+    SAMPLE_PER_BATCH,
+    HashPartitioning,
+    RangePartitioning,
+    RoundRobinPartitioning,
+    align_word_groups,
+    compute_range_bounds,
+    words_partition_ids,
+)
 from ..plan.physical import Exec, ExecContext, PartitionSet
 from ..types import Schema, StringType, StructField
 from ..xp import torch_dtype
@@ -79,12 +97,36 @@ def _row_bytes(schema: Schema) -> int:
     return max(total, 1)
 
 
+def _upload_cache_budget(conf, device: torch.device) -> int:
+    """H2D upload-cache byte budget (spark.rapids.tpu.uploadCache.maxBytes):
+    explicit when set; else a quarter of the card's memory; else (on the
+    CPU) the JAX package's 4 GiB fallback."""
+    from .. import config as cfg
+
+    b = cfg.UPLOAD_CACHE_MAX_BYTES.get(conf)
+    if b > 0:
+        return b
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1]) // 4
+    return 4 << 30
+
+
+def _schema_key(schema: Schema) -> tuple:
+    return tuple((f.name, repr(f.data_type), f.nullable) for f in schema)
+
+
 class HostToDeviceExec(Exec):
     """Host batches → device batches (HostColumnarToGpu analogue).
 
     Incoming batches are re-chunked to ``spark.rapids.sql.batchSizeBytes``
     (the CoalesceGoal TargetSize contract — GpuExec.scala:173-188) so one
-    oversized host batch cannot blow the device working set."""
+    oversized host batch cannot blow the device working set.
+
+    Over an in-memory scan the uploads go through the session's upload
+    cache, as in the JAX package: repeated queries over the same table
+    (and the same pruned columns) reuse the device batches. Each upload
+    adds the host bytes it moves to the query's ``hostToDeviceBytes``
+    counter, so a cache hit counts 0."""
 
     def __init__(self, child: Exec):
         super().__init__([child])
@@ -99,21 +141,90 @@ class HostToDeviceExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         from .. import config as cfg
+        from .cpu import CpuScanExec
 
         schema = self.output
         max_rows = max(1, cfg.BATCH_SIZE_BYTES.get(ctx.conf) // _row_bytes(schema))
         max_str = cfg.STRING_MAX_BYTES.get(ctx.conf)
         device = ctx.device
+        metrics = ctx.metrics
 
         def fn(it):
             for rb in it:
                 if rb.num_rows == 0:
                     continue
+                metrics["hostToDeviceBytes"] += rb.nbytes
                 for off in range(0, rb.num_rows, max_rows):
                     chunk = rb if rb.num_rows <= max_rows else rb.slice(off, max_rows)
                     yield host_to_device(chunk, device, max_str_bytes=max_str)
 
-        return self.children[0].execute(ctx).map_partitions(fn)
+        child = self.children[0]
+        if not isinstance(child, CpuScanExec) or ctx.session is None:
+            return child.execute(ctx).map_partitions(fn)
+        entry = self._cache_entry(ctx, child, (max_rows, max_str))
+        child_parts = child.execute(ctx)
+
+        def make_cached(p, thunk):
+            def it():
+                # single-flight per partition: one builder uploads, the rest
+                # wait on its event and replay; a failed builder clears its
+                # event so a waiter takes over
+                while True:
+                    with entry["lock"]:
+                        built = entry["parts"][p]
+                        ev = entry["building"][p]
+                        builder = built is None and ev is None
+                        if builder:
+                            ev = entry["building"][p] = threading.Event()
+                    if built is not None:
+                        yield from built
+                        return
+                    if builder:
+                        try:
+                            out = list(fn(thunk()))
+                            with entry["lock"]:
+                                entry["parts"][p] = out
+                        finally:
+                            with entry["lock"]:
+                                entry["building"][p] = None
+                            ev.set()
+                        yield from out
+                        return
+                    # another query is uploading this partition: wait for it
+                    ev.wait()
+
+            return it
+
+        return PartitionSet([make_cached(p, t) for p, t in enumerate(child_parts.parts)])
+
+    def _cache_entry(self, ctx: ExecContext, scan, geometry: tuple) -> dict:
+        """The session's cache entry for this scan, created (and the LRU
+        trimmed to its byte budget) on a miss. The key is the SOURCE batch's
+        id — pruning builds a new batch every query — and the entry pins
+        both the source (so the id is never reused) and the pruned batch
+        the uploads come from."""
+        session = ctx.session
+        key = ("h2d", id(scan.source), scan.num_partitions, _schema_key(self.output), geometry)
+        with session._h2d_lock:
+            cache = session._h2d_cache
+            entry = cache.pop(key, None)
+            if entry is None:
+                nparts = scan.num_partitions
+                entry = {
+                    "table": (scan.source, scan.table),
+                    "parts": [None] * nparts,
+                    "building": [None] * nparts,
+                    "lock": threading.Lock(),
+                    # host bytes underestimate the padded device footprint;
+                    # ~2x covers the power-of-two row padding
+                    "est_bytes": 2 * scan.table.nbytes,
+                }
+                budget = _upload_cache_budget(ctx.conf, ctx.device)
+                held = sum(c["est_bytes"] for c in cache.values())
+                while cache and held + entry["est_bytes"] > budget:
+                    held -= cache.pop(next(iter(cache)))["est_bytes"]  # LRU head
+            cache[key] = entry  # (re)inserted last: most recently used
+        return entry
 
 
 class DeviceToHostExec(Exec):
@@ -498,7 +609,8 @@ class GpuHashAggregateExec(Exec):
                 if len(partials) == 1:
                     yield partials[0]
                 else:
-                    yield merge(concat_device(*bulk_shrink(partials)))
+                    shrunk, counts = bulk_shrink(partials)
+                    yield merge(concat_device(shrunk, counts=counts))
                 return
             # final/complete: one merge+evaluate over the whole partition
             batches = list(it)
@@ -619,3 +731,275 @@ class GpuSortExec(Exec):
 
     def node_string(self):
         return f"GpuSort [{', '.join(map(str, self.order))}]"
+
+
+# ── union, exchange, limit ──────────────────────────────────────────────────
+
+
+class GpuUnionExec(Exec):
+    """The children's partitions, concatenated in order (the JAX package's
+    ``TpuUnionExec``)."""
+
+    def __init__(self, children: List[Exec]):
+        super().__init__(children)
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        parts = []
+        for c in self.children:
+            parts.extend(c.execute(ctx).parts)
+        return PartitionSet(parts)
+
+
+class GpuShuffleExchangeExec(Exec):
+    """Partitioned exchange with on-device bucketing and device-side slicing
+    (GpuShuffleExchangeExec + the four GpuPartitioning impls), the port of
+    the JAX package's ``TpuShuffleExchangeExec`` in its single-process,
+    in-memory form. Hash = murmur3 pmod; range = radix-word compare against
+    bounds from one fetch of sampled words; round-robin from a device-
+    resident running offset; single = all batches, shrunk, into partition 0.
+    Every partition's batches stay on the device.
+
+    Left out of the port so far, each with its place in ROADMAP.md:
+
+    * the mesh (SPMD all_to_all) path, the multi-process exchange and the
+      shuffle manager (Queue A item 13) — the overrides keep an exchange on
+      the CPU engine while ``spark.rapids.shuffle.manager.enabled`` is set;
+    * AQE partition coalescing and skew splitting, and exchange reuse
+      (Queue A item 16) — the overrides keep an exchange on the CPU engine
+      while ``spark.sql.adaptive.enabled`` is set;
+    * ``with_oom_retry`` around each bucketing step (Queue A item 11)."""
+
+    def __init__(self, partitioning, child: Exec):
+        super().__init__([child])
+        from .cpu import _bind_partitioning
+
+        self.partitioning = _bind_partitioning(partitioning, child.output)
+
+    @property
+    def num_partitions(self) -> int:
+        return self.partitioning.num_partitions
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def _kind(self) -> str:
+        part = self.partitioning
+        if isinstance(part, HashPartitioning) and part.keys:
+            return "hash"
+        if isinstance(part, RoundRobinPartitioning):
+            return "roundrobin"
+        if isinstance(part, RangePartitioning):
+            return "range"
+        return "single"
+
+    def _scatter_fn(self, kind: str, nparts: int, pre_filter=None):
+        """The bucketing of one batch into ``nparts`` slices for ``kind``
+        (None for "single").
+        ``pre_filter`` fuses a child filter's predicate in as a liveness
+        mask: dead rows fall out during bucketing, skipping the filter's own
+        compaction."""
+
+        def live_of(c: Ctx):
+            if pre_filter is None:
+                return None
+            fv = pre_filter.eval(c)
+            return c.broadcast_bool(fv.data) & fv.full_valid(c)
+
+        if kind == "hash":
+            keys = tuple(self.partitioning.keys)
+
+            def hash_slice(batch: DeviceBatch) -> list:
+                c = Ctx.for_device(batch)
+                cols = []
+                for k in keys:
+                    col = val_to_column(c, k.eval(c), k.data_type)
+                    cols.append((k.data_type, col.data, col.validity, col.lengths))
+                pids = partition_ids(c.xp, murmur3_rows(c.xp, cols, batch.capacity), nparts)
+                return partition_slices(batch, pids, nparts, live_of(c))
+
+            return hash_slice
+        if kind == "roundrobin":
+
+            def rr_slice(batch: DeviceBatch, start: torch.Tensor) -> list:
+                iota = torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
+                return partition_slices(batch, (start + iota) % nparts, nparts)
+
+            return rr_slice
+        if kind == "single":
+            return None  # no bucketing: every batch goes to partition 0
+
+        def range_slice(batch: DeviceBatch, words: list, bounds: list) -> list:
+            pids = words_partition_ids(words, bounds)
+            return partition_slices(batch, pids, nparts, live_of(Ctx.for_device(batch)))
+
+        return range_slice
+
+    def _range_words(self, batch: DeviceBatch) -> list:
+        """Per-order-column radix word lists of one batch (aligned later)."""
+        c = Ctx.for_device(batch)
+        return [
+            column_radix_words(
+                val_to_column(c, o.child.eval(c), o.child.data_type),
+                o.ascending,
+                o.resolved_nulls_first(),
+            )
+            for o in self.partitioning.order
+        ]
+
+    def _materialize(self, kind: str, fn, child_parts: PartitionSet) -> list:
+        """Every input batch bucketed into its output partitions."""
+        nparts = self.num_partitions
+        buckets = [[] for _ in range(nparts)]
+        if kind == "range":
+            order = self.partitioning.order
+            batches, group_lists = [], []
+            for t in child_parts.parts:
+                for db in t():
+                    batches.append(db)
+                    group_lists.append(self._range_words(db))
+            # string columns may encode to different word counts per batch
+            # (bucketed widths) — align before sampling/bucketing
+            all_words, _ = align_word_groups(group_lists, order)
+            del group_lists
+            if not batches:
+                return buckets
+            # sample on the device, then fetch every sample in ONE transfer
+            device = batches[0].device
+            samples = []
+            for db, words in zip(batches, all_words):
+                s_idx = (
+                    torch.arange(SAMPLE_PER_BATCH, dtype=torch.int64, device=device)
+                    * torch.clamp(db.num_rows, min=1)
+                ) // SAMPLE_PER_BATCH
+                # duplicates (n < SAMPLE_PER_BATCH) just weight the sample;
+                # only an empty batch is left out, by its flag row
+                flag = (db.num_rows > 0).to(torch.int64).expand(SAMPLE_PER_BATCH)
+                samples.append(torch.stack([flag] + [w[s_idx] for w in words]))
+            host = torch.stack(samples).cpu().numpy()  # [batches, 1 + words, S]
+            keep = host[:, 0, :].astype(bool)
+            sample_words = [host[:, 1 + i, :][keep] for i in range(host.shape[1] - 1)]
+            bounds = compute_range_bounds(sample_words, nparts)
+            if bounds is None:
+                buckets[0].extend(batches)
+                return buckets
+            dev_bounds = [torch.from_numpy(b).to(device) for b in bounds]
+            for db, words in zip(batches, all_words):
+                for p, s in enumerate(fn(db, words, dev_bounds)):
+                    buckets[p].append(s)
+        elif kind == "hash":
+            # drain every partition first (queues all upstream work), then
+            # ONE row-count fetch for the shrink, then slice
+            drained, _ = bulk_shrink([db for t in child_parts.parts for db in t()])
+            drained.reverse()
+            while drained:  # slices consume the list, so inputs free as we go
+                for p, s in enumerate(fn(drained.pop())):
+                    buckets[p].append(s)
+        elif kind == "single":
+            # coalesce to one partition; shrink sparse batches (e.g.
+            # ungrouped partial aggregates: 1 live row in a large capacity)
+            drained, _ = bulk_shrink([db for t in child_parts.parts for db in t()])
+            buckets[0].extend(drained)
+        else:  # roundrobin
+            for pi, t in enumerate(child_parts.parts):
+                # device-resident running offset: no host sync per batch
+                offset = None
+                for db in t():
+                    if offset is None:
+                        offset = torch.tensor(pi % nparts, dtype=torch.int64, device=db.device)
+                    for p, s in enumerate(fn(db, offset % nparts)):
+                        buckets[p].append(s)
+                    offset = offset + db.num_rows
+        return buckets
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        nparts = self.num_partitions
+        kind = self._kind()
+        exchange_child = self.children[0]
+        pre_filter = None
+        if isinstance(exchange_child, GpuFilterExec) and kind in ("hash", "range"):
+            # fuse the filter into the bucketing: its rows fall out during
+            # the partition sort, skipping the filter's own compaction.
+            # Round-robin balances by row position, so a fused filter would
+            # skew it; hash/range pids are value-based. (The port's
+            # overrides keep task-dependent and error-raising filters off
+            # the device.)
+            pre_filter = exchange_child.condition
+            exchange_child = exchange_child.children[0]
+        fn = self._scatter_fn(kind, nparts, pre_filter)
+        child_parts = exchange_child.execute(ctx)
+        state: dict = {}
+        lock = threading.Lock()
+
+        def buckets() -> list:
+            with lock:
+                if "buckets" not in state:
+                    state["buckets"] = self._materialize(kind, fn, child_parts)
+                return state["buckets"]
+
+        def make(p):
+            def it():
+                yield from buckets()[p]
+
+            return it
+
+        return PartitionSet([make(p) for p in range(nparts)])
+
+    def node_string(self):
+        return f"GpuShuffleExchange {self.partitioning} p={self.num_partitions}"
+
+
+class GpuLimitExec(Exec):
+    """CollectLimit on the device: one partition, the first ``n`` rows of
+    the children's partitions in order (the JAX package's ``TpuLimitExec``).
+    It fetches each batch's row count after the slice, to know when to stop
+    — the JAX package's one sync per batch. The JAX package hides those
+    syncs behind a prefetch of the upstream stream (``exec/pipeline.py``);
+    the port has no pipeline yet (ROADMAP Queue A item 12)."""
+
+    def __init__(self, n: int, child: Exec):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        limit = self.n
+        child_parts = self.children[0].execute(ctx)
+
+        def it():
+            remaining = limit
+            for t in child_parts.parts:
+                for db in t():
+                    if remaining <= 0:
+                        break
+                    out = slice_head(db, remaining)
+                    n = out.row_count()
+                    remaining -= n
+                    if n:
+                        yield out
+                if remaining <= 0:
+                    return
+
+        return PartitionSet([it])
+
+    def node_string(self):
+        return f"GpuLimit n={self.n}"

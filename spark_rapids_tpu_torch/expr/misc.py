@@ -94,8 +94,8 @@ class Murmur3Hash(Expression):
     def eval(self, ctx: Ctx) -> Val:
         vals = [(e.data_type, e.eval(ctx)) for e in self.exprs]
         cols = _child_cols(ctx, vals)
-        h = murmur3_rows(ctx.xp, cols, ctx.n, seed=self.seed)
-        return Val(h.astype(ctx.xp.int32), ctx.xp.asarray(True))
+        h = murmur3_rows(ctx.xp, cols, ctx.n, seed=self.seed)  # int32 in both paths
+        return Val(h, ctx.xp.asarray(True))
 
 
 @dataclass(frozen=True)

@@ -3,8 +3,9 @@ cudf's gather / Table.filter (reference: basicPhysicalOperators.scala
 GpuFilterExec; Table.filter applies a boolean-mask gather).
 
 The port of ``spark_rapids_tpu/ops/gather.py`` (``gather_column``,
-``gather_batch``, ``compact``, ``shrink_one``, ``bulk_shrink``) plus the
-batch concatenation of ``spark_rapids_tpu/ops/concat.py``. Compaction keeps
+``gather_batch``, ``compact``, ``shrink_one``, ``bulk_shrink``,
+``partition_slices``) and of ``slice_head`` (``spark_rapids_tpu/exec/tpu.py``,
+shared by the limit and, later, top-N). Compaction keeps
 the input capacity and permutes kept rows to the front in their order, as
 in the JAX package; the permutation is the kept rows' indices followed by
 the dropped rows' (what the JAX package's stable argsort of ``~keep``
@@ -82,36 +83,40 @@ def bulk_shrink(batches: list) -> tuple:
     return [shrink_one(b, n) for b, n in zip(batches, counts)], counts
 
 
-def concat_device(batches: list, counts=None) -> DeviceBatch:
-    """Concatenate the live rows of device batches into one batch of the
-    bucketed capacity; string planes widen to the widest input. ``counts``
-    (the batches' live rows, if the caller has them) saves the one fetch."""
-    if len(batches) == 1:
-        return batches[0]
-    if counts is None:
-        counts = row_counts(batches)
-    total = sum(counts)
-    cap = bucket_capacity(max(total, 1))
-    device = batches[0].device
-    cols = []
-    for i in range(len(batches[0].schema)):
-        parts = [b.columns[i] for b in batches]
-        first = parts[0]
-        validity = torch.zeros(cap, dtype=torch.bool, device=device)
-        validity[:total] = torch.cat([p.validity[:k] for p, k in zip(parts, counts)])
-        if first.is_string:
-            width = max(p.str_width for p in parts)
-            data = torch.zeros((cap, width), dtype=torch.uint8, device=device)
-            lengths = torch.zeros(cap, dtype=torch.int32, device=device)
-            off = 0
-            for p, k in zip(parts, counts):
-                data[off : off + k, : p.str_width] = p.data[:k]
-                lengths[off : off + k] = p.lengths[:k]
-                off += k
-            cols.append(DeviceColumn(first.dtype, data, validity, lengths))
-            continue
-        data = torch.zeros(cap, dtype=first.data.dtype, device=device)
-        data[:total] = torch.cat([p.data[:k] for p, k in zip(parts, counts)])
-        cols.append(DeviceColumn(first.dtype, data, validity))
-    n = torch.tensor(total, dtype=torch.int32, device=device)
-    return DeviceBatch(batches[0].schema, cols, n)
+def partition_slices(batch: DeviceBatch, pids: torch.Tensor, nparts: int, live=None) -> list:
+    """Slice a batch into per-partition batches with ONE stable sort by
+    partition id instead of ``nparts`` compaction sorts (the exchange's
+    hot path; a fused filter predicate rides in as ``live``). Sorted rows
+    for partition p occupy [bounds[p], bounds[p+1]); each slice gathers
+    its shifted window at full capacity, as the JAX package does. Bounds
+    and counts stay on the device: no host sync."""
+    cap = batch.capacity
+    device = batch.device
+    live = batch.row_mask() if live is None else live & batch.row_mask()
+    key = torch.where(live, pids.to(torch.int32), nparts)
+    order = torch.sort(key, stable=True).indices
+    bounds = torch.searchsorted(
+        key[order], torch.arange(nparts + 1, dtype=torch.int32, device=device)
+    ).to(torch.int32)
+    iota = torch.arange(cap, dtype=torch.int64, device=device)
+    outs = []
+    for p in range(nparts):
+        start = bounds[p]
+        cnt = bounds[p + 1] - start
+        # compose through the int64 permutation: ONE wide gather per slice
+        # straight from the input, no intermediate sorted copy
+        row_idx = order[torch.clamp(start + iota, 0, cap - 1)]
+        sb = gather_batch(batch, row_idx, cnt)
+        live_p = iota < cnt
+        cols = [dc_replace(c, validity=c.validity & live_p) for c in sb.columns]
+        outs.append(DeviceBatch(sb.schema, cols, cnt))
+    return outs
+
+
+def slice_head(batch: DeviceBatch, take: int) -> DeviceBatch:
+    """First min(num_rows, take) rows (the JAX package's ``_slice_head_impl``):
+    the tail's validity cleared, the count a device scalar."""
+    take = torch.clamp(batch.num_rows, max=take).to(torch.int32)
+    live = torch.arange(batch.capacity, dtype=torch.int32, device=batch.device) < take
+    cols = [dc_replace(c, validity=c.validity & live) for c in batch.columns]
+    return DeviceBatch(batch.schema, cols, take)

@@ -13,16 +13,23 @@ seed for the next column. Per type (HashExpression in Spark):
   remaining tail bytes one at a time (sign-extended)
 * NULL → hash unchanged
 
-Implemented over the array-module seam in uint32 lanes. Copied from
-``spark_rapids_tpu/ops/hash.py``: only its numpy path is carried over (the
-CPU engine's exchange); the device path and the native host plane come with
-the exchange slice of the port.
+Copied from ``spark_rapids_tpu/ops/hash.py``. Each function takes the
+array module first, as there: ``numpy`` (the CPU engine, in uint32 lanes,
+as the JAX package computes it) or the port's torch namespace (``xp.py``),
+for torch tensors on the device. Torch has no ``+``, ``*`` or ``<<`` on
+uint32, so the torch path holds each 32-bit value in an int64 lane and masks
+it to 32 bits after every step. A 32-bit product would reach 2**64, past
+int64, so each multiplier constant is split into 16-bit halves and no
+product exceeds 2**48; a rotate stays below 2**47. The result is turned into
+int32 by the two's-complement rule. The JAX package's native host plane
+(``native/``) is not carried over: the numpy path is its reference.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..types import (
     BooleanType,
@@ -46,8 +53,51 @@ _M5 = np.uint32(0xE6546B64)
 DEFAULT_SEED = 42
 
 
+_MASK = 0xFFFFFFFF
+
+
 def _u32(xp, x):
     return xp.asarray(x).astype(xp.uint32)
+
+
+# ── torch lanes: int64 tensors holding values in [0, 2**32) ────────────────
+
+
+def _t_mul(x, c: int):
+    """``x * c`` mod 2**32 for a lane ``x`` and a 32-bit constant ``c``, as
+    two products below 2**48."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK
+
+
+def _t_rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def _t_mix_k1(k1):
+    return _t_mul(_t_rotl(_t_mul(k1, int(_C1)), 15), int(_C2))
+
+
+def _t_mix_h1(h1, k1):
+    h1 = _t_rotl(h1 ^ k1, 13)
+    return (h1 * 5 + int(_M5)) & _MASK
+
+
+def _t_fmix(h1, length):
+    h1 = h1 ^ length
+    h1 = h1 ^ (h1 >> 16)
+    h1 = _t_mul(h1, 0x85EBCA6B)
+    h1 = h1 ^ (h1 >> 13)
+    h1 = _t_mul(h1, 0xC2B2AE35)
+    return h1 ^ (h1 >> 16)
+
+
+def _t_lanes(seed, like: torch.Tensor):
+    """A seed (python int, numpy scalar or lane tensor) as lanes shaped like
+    ``like``'s rows."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(torch.int64)
+    return torch.full(like.shape[:1], int(seed) & _MASK, dtype=torch.int64, device=like.device)
 
 
 def _rotl(xp, x, r):
@@ -77,12 +127,20 @@ def _fmix(xp, h1, length):
 
 
 def hash_int(xp, x_i32, seed_u32):
+    if xp is not np:
+        x = x_i32.to(torch.int64) & _MASK  # two's complement low 32 bits
+        return _t_fmix(_t_mix_h1(_t_lanes(seed_u32, x), _t_mix_k1(x)), 4)
     k1 = _mix_k1(xp, _u32(xp, x_i32))
     h1 = _mix_h1(xp, _u32(xp, seed_u32), k1)
     return _fmix(xp, h1, 4)
 
 
 def hash_long(xp, x_i64, seed_u32):
+    if xp is not np:
+        x = x_i64.to(torch.int64)
+        h1 = _t_mix_h1(_t_lanes(seed_u32, x), _t_mix_k1(x & _MASK))
+        h1 = _t_mix_h1(h1, _t_mix_k1((x >> 32) & _MASK))
+        return _t_fmix(h1, 8)
     x = xp.asarray(x_i64).astype(xp.int64)
     low = _u32(xp, x & xp.asarray(0xFFFFFFFF, dtype=xp.int64))
     high = _u32(xp, (x >> 32) & xp.asarray(0xFFFFFFFF, dtype=xp.int64))
@@ -97,9 +155,12 @@ def hash_bytes_padded(xp, data_u8, lengths, seed_u32):
     """hashUnsafeBytes over padded byte rows [n, width] with per-row lengths.
 
     Words are consumed 4 bytes at a time little-endian; the tail is consumed
-    byte-by-byte sign-extended. The python loop is over the static width, so
-    on device it unrolls into one fused kernel.
+    byte-by-byte sign-extended. The python loop is over the static width
+    (under jit in the JAX package one fused program; in torch about 1.25·W
+    steps of a few launches each).
     """
+    if xp is not np:
+        return _t_hash_bytes_padded(data_u8, lengths, seed_u32)
     n, width = data_u8.shape
     lengths = xp.asarray(lengths).astype(xp.int32)
     h1 = xp.broadcast_to(_u32(xp, seed_u32), (n,)).astype(xp.uint32)
@@ -123,9 +184,36 @@ def hash_bytes_padded(xp, data_u8, lengths, seed_u32):
     return _fmix(xp, h1, lengths.astype(xp.uint32))
 
 
+def _t_hash_bytes_padded(data_u8, lengths, seed):
+    lengths = lengths.to(torch.int64)
+    h1 = _t_lanes(seed, lengths)
+    d = data_u8.to(torch.int64)
+    width = d.shape[1]
+    for w in range(width // 4):
+        word = (
+            d[:, 4 * w]
+            | (d[:, 4 * w + 1] << 8)
+            | (d[:, 4 * w + 2] << 16)
+            | (d[:, 4 * w + 3] << 24)
+        )
+        use = lengths >= (4 * w + 4)
+        h1 = torch.where(use, _t_mix_h1(h1, _t_mix_k1(word)), h1)
+    # tail bytes (position >= last full word, < length), sign-extended
+    tail = (lengths // 4) * 4
+    for i in range(width):
+        b = d[:, i]
+        b = torch.where(b >= 128, b - 256, b) & _MASK
+        use = (i >= tail) & (i < lengths)
+        h1 = torch.where(use, _t_mix_h1(h1, _t_mix_k1(b)), h1)
+    return _t_fmix(h1, lengths & _MASK)
+
+
 def _float_norm(xp, x, is_double: bool):
     # Spark normalizes -0.0 to 0.0 before hashing; NaN is canonical already
     # in the JVM (Float.floatToIntBits collapses NaNs).
+    if xp is not np:
+        x = torch.where(x == 0, 0.0, x)
+        return torch.where(torch.isnan(x), float("nan"), x)
     zero = xp.zeros_like(x)
     x = xp.where(x == 0, zero, x)
     if is_double:
@@ -198,7 +286,7 @@ def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
                 out[i] = _hash_scalar_np(dt, data[i], seeds[i])
         return out
     if xp is not np:
-        raise NotImplementedError("device murmur3 has no device implementation in the torch port yet")
+        return _t_hash_column(dt, data, valid, lengths, seed_u32)
     if isinstance(dt, StringType):
         if xp is np and (getattr(data, "ndim", 1) != 2 or lengths is None):
             data, lengths = np_strings_to_padded(data, np.asarray(valid).astype(bool))
@@ -226,15 +314,48 @@ def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
     return xp.where(xp.asarray(valid).astype(bool), h, seed_b)
 
 
+def _t_hash_column(dt: DataType, data, valid, lengths, seed):
+    """The torch path of :func:`hash_column` (flat types; complex keys are
+    gated off the device)."""
+    if isinstance(dt, StringType):
+        h = _t_hash_bytes_padded(data, lengths, seed)
+    elif isinstance(dt, BooleanType):
+        h = hash_int(torch, data.to(torch.int64), seed)
+    elif isinstance(dt, (LongType, TimestampType)):
+        h = hash_long(torch, data, seed)
+    elif isinstance(dt, DecimalType):
+        if dt.precision > 18:  # pragma: no cover - DECIMAL64 gate prevents this
+            raise NotImplementedError
+        h = hash_long(torch, data, seed)
+    elif isinstance(dt, FloatType):
+        x = _float_norm(torch, data.to(torch.float32), False)
+        h = hash_int(torch, x.view(torch.int32), seed)
+    elif isinstance(dt, DoubleType):
+        x = _float_norm(torch, data.to(torch.float64), True)
+        h = hash_long(torch, x.view(torch.int64), seed)
+    else:  # byte/short/int/date
+        h = hash_int(torch, data.to(torch.int32), seed)
+    return torch.where(valid.to(torch.bool), h, _t_lanes(seed, h))
+
+
 def murmur3_rows(xp, cols: list[tuple[DataType, Any, Any, Any]], n: int, seed: int = DEFAULT_SEED):
     """Row hash over columns [(dtype, data, valid, lengths)] → int32[n]."""
+    if xp is not np:
+        h = torch.full((n,), seed & _MASK, dtype=torch.int64, device=xp.device)
+        for dt, data, valid, lengths in cols:
+            h = hash_column(xp, dt, data, valid, lengths, h)
+        # two's complement: lanes >= 2**31 are the negative int32s
+        return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
     h = xp.broadcast_to(_u32(xp, np.uint32(seed)), (n,)).astype(xp.uint32)
     for dt, data, valid, lengths in cols:
         h = hash_column(xp, dt, data, valid, lengths, h)
-    return h.astype(xp.int32) if xp is np else h.astype(xp.int32)
+    return h.astype(xp.int32)
 
 
 def partition_ids(xp, row_hash_i32, num_partitions: int):
     """Spark's ``Pmod(hash, n)`` — non-negative modulus."""
+    if xp is not np:
+        # torch's % on tensors is the floor modulus, as numpy's
+        return (row_hash_i32.to(torch.int64) % num_partitions).to(torch.int32)
     m = row_hash_i32 % np.int32(num_partitions)
     return xp.where(m < 0, m + np.int32(num_partitions), m).astype(xp.int32)

@@ -210,6 +210,54 @@ def _binary_search(words: list, base, m, queries: list, right: bool) -> torch.Te
     return lo
 
 
+def np_column_radix_words(
+    dt: DataType,
+    data,
+    valid,
+    lengths=None,
+    ascending: bool = True,
+    nulls_first: bool = True,
+):
+    """Numpy twin of :func:`column_radix_words` for the CPU engine's range
+    partitioner, in the same flipped int64 words (``to_uint64`` gives the
+    JAX package's ``np_column_radix_words`` words). NOT the same word layout
+    as the device version: that one packs validity into the value word for
+    sub-64-bit types; this twin keeps the classic [validity, value64] pair.
+    The engines never mix word spaces — do not compare words across the
+    two functions."""
+    valid = np.asarray(valid).astype(bool)
+    one, zero, sign = np.uint64(1), np.uint64(0), np.uint64(1 << 63)
+    vw = np.where(valid, one, zero) if nulls_first else np.where(valid, zero, one)
+    words: list = []
+    if isinstance(dt, StringType):
+        if getattr(data, "ndim", 1) != 2 or lengths is None:
+            from .hash import np_strings_to_padded
+
+            data, lengths = np_strings_to_padded(data, valid)
+        n, w = data.shape
+        nwords = (w + 7) // 8
+        padded = np.zeros((n, nwords * 8), dtype=np.uint8)
+        padded[:, :w] = data
+        d64 = padded.astype(np.uint64).reshape(n, nwords, 8)
+        shifts = np.arange(7, -1, -1, dtype=np.uint64) * np.uint64(8)
+        packed = (d64 << shifts[None, None, :]).sum(axis=-1, dtype=np.uint64)
+        words = [packed[:, k] for k in range(nwords)]
+        words.append(np.asarray(lengths).astype(np.uint64))
+    elif isinstance(dt, BooleanType):
+        words.append(np.asarray(data).astype(np.uint64))
+    elif isinstance(dt, (FloatType, DoubleType)):
+        from ..exec.cpu_kernels import normalized_float_bits
+
+        b = normalized_float_bits(np.asarray(data))
+        words.append(np.where(b < 0, ~b.view(np.uint64), b.view(np.uint64) | sign))
+    else:  # integral / date / timestamp / decimal(int64)
+        words.append((np.asarray(data).astype(np.int64).view(np.uint64)) ^ sign)
+    words = [np.where(valid, wd, zero) for wd in words]
+    if not ascending:
+        words = [~wd for wd in words]
+    return [(wd ^ sign).view(np.int64) for wd in [vw] + words]
+
+
 def segment_starts(words: list, row_mask: torch.Tensor) -> torch.Tensor:
     """bool[cap]: row i starts a new group (equal radix words ⇔ equal keys).
     Assumes rows already sorted by ``words`` with live rows first."""

@@ -47,11 +47,17 @@ class LogicalPlan:
 
 @dataclass
 class LocalRelation(LogicalPlan):
-    """In-memory table source (a ``HostBatch`` in the port)."""
+    """In-memory table source (a ``HostBatch`` in the port).
+
+    ``source`` pins the ORIGINAL user batch through column pruning (which
+    rebuilds ``table`` via select, a new object every planning pass) so
+    the session's device-upload cache can key on a stable identity —
+    without it every collect() re-uploads the whole table."""
 
     table: object  # columnar.host.HostBatch
     _schema: Schema
     num_partitions: int = 1
+    source: object = None  # the original HostBatch (identity anchor)
 
     @property
     def schema(self) -> Schema:

@@ -8,8 +8,9 @@ The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
 tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
 pass, but its rules cover only what the port runs on the device so far —
-project, filter, grouped and ungrouped aggregation, sort and the coalesce,
-over the expressions of TPC-H q1, q6 and ``contains``. Every other node stays on the CPU
+project, filter, grouped and ungrouped aggregation, sort, the coalesce, the
+shuffle exchange, union and limit, over the expressions of TPC-H q1, q6,
+``contains`` and ``hash``. Every other node stays on the CPU
 engine with its reason in the explain, which is the system's own per-node
 fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
 shared.)
@@ -27,6 +28,7 @@ from ..expr import Expression
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
 from ..expr import conditional as cond
+from ..expr import misc as msc
 from ..expr import predicates as pred
 from ..expr import strings as st
 from ..expr.base import Alias, BoundReference, Literal
@@ -158,6 +160,7 @@ _expr(agg.Min, check=_minmax_check)
 _expr(agg.Max, check=_minmax_check)
 _expr(Cast, check=_cast_check)
 _expr(st.Contains, check=_literal_pattern_check)
+_expr(msc.Murmur3Hash)
 
 
 def _check_expr_tree(e: Expression, conf: TpuConf, reasons: List[str]) -> bool:
@@ -264,6 +267,28 @@ _rule(
     lambda e, ch: G.GpuCoalescePartitionsExec(ch[0]),
     lambda e: [],
 )
+
+
+def _exchange_check(e: C.CpuShuffleExchangeExec, conf: TpuConf) -> Optional[str]:
+    """The port's exchange is the JAX package's in-process path only."""
+    for key in (cfg.ADAPTIVE_ENABLED, cfg.SHUFFLE_MANAGER_ENABLED):
+        if key.get(conf):
+            return (
+                f"{key.key} is set: the device exchange has no adaptive "
+                "coalescing or shuffle manager in the torch port yet"
+            )
+    return None
+
+
+_rule(
+    C.CpuShuffleExchangeExec,
+    "ShuffleExchangeExec",
+    lambda e, ch: G.GpuShuffleExchangeExec(e.partitioning, ch[0]),
+    lambda e: e.partitioning.exprs(),
+    check=_exchange_check,
+)
+_rule(C.CpuUnionExec, "UnionExec", lambda e, ch: G.GpuUnionExec(ch), lambda e: [])
+_rule(C.CpuLimitExec, "CollectLimitExec", lambda e, ch: G.GpuLimitExec(e.n, ch[0]), lambda e: [])
 
 
 # ── the override pass ──────────────────────────────────────────────────────

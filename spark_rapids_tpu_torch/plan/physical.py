@@ -7,13 +7,14 @@ batches. CPU execs stream ``HostBatch``; device execs stream ``DeviceBatch``;
 explicit transition execs convert (HostToDeviceExec / DeviceToHostExec).
 
 Copied from ``spark_rapids_tpu/plan/physical.py``. The context keeps what
-this slice of the port runs: the conf, the session, the device and the
-device's memory budget (from ``torch.cuda.mem_get_info`` where the JAX
+this slice of the port runs: the conf, the session, the device, the query's
+counters and the device's memory budget (from ``torch.cuda.mem_get_info`` where the JAX
 package reads ``jax.local_devices()`` memory stats). Metrics, spill,
 scheduling, shuffle and mesh state come with later slices.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Iterator, List, Sequence
 
 import torch
@@ -31,6 +32,8 @@ class ExecContext:
         self.conf = conf
         self.session = session
         self.device = torch.device(device)
+        # per-query counters the operators add to (hostToDeviceBytes, …)
+        self.metrics: Counter = Counter()
         # the spillable-buffer budget the JAX package sizes from device
         # memory × allocFraction (GpuDeviceManager.initializeRmm's sizing);
         # 0 = unlimited, as on a CPU backend

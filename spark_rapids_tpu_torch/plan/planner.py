@@ -7,10 +7,12 @@ like Spark's physical aggregation strategy (which the reference inherits).
 
 Copied from ``spark_rapids_tpu/plan/planner.py``, cut to the logical nodes
 the port's DataFrame builds: local relations, project, filter, aggregate
-(with the one-DISTINCT rewrite), sort and limit. A global sort over several
-partitions plans as coalesce-to-one + local sort, because range partitioning
-is not in the port yet. Joins, windows, file scans and the rest come with
-later slices.
+(with the one-DISTINCT rewrite), sort, limit, union and repartition. A
+global sort over several partitions range-partitions on its keys and sorts
+each partition, as in the JAX package. Joins, windows, file scans and the
+rest come with later slices. One plan shape differs from the JAX package's:
+an ungrouped aggregate over several partitions exchanges its partials into
+one partition (``SinglePartitioning``) instead of coalescing them.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..exec.cpu import (
     CpuShuffleExchangeExec,
     CpuSortExec,
     CpuTakeOrderedAndProjectExec,
+    CpuUnionExec,
 )
 from ..plan import logical as L
 from ..plan import partitioning as P
@@ -40,7 +43,7 @@ from ..plan.physical import Exec
 
 def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     if isinstance(lp, L.LocalRelation):
-        return CpuScanExec(lp.table, lp.schema, lp.num_partitions)
+        return CpuScanExec(lp.table, lp.schema, lp.num_partitions, lp.source)
     if isinstance(lp, L.Project):
         return CpuProjectExec(lp.exprs, plan_physical(lp.child, conf))
     if isinstance(lp, L.Filter):
@@ -50,7 +53,16 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     if isinstance(lp, L.Sort):
         child = plan_physical(lp.child, conf)
         if lp.is_global and _num_partitions_hint(child) != 1:
-            child = CpuCoalescePartitionsExec(child)
+            # Distributed total sort: range-partition on the sort keys, then
+            # sort each partition locally; partition order == global order
+            # (Spark's SortExec + range exchange; GpuRangePartitioning).
+            nparts = cfg.SHUFFLE_PARTITIONS.get(conf)
+            if nparts > 1:
+                child = CpuShuffleExchangeExec(
+                    P.RangePartitioning(nparts, lp.order), child
+                )
+            else:
+                child = CpuCoalescePartitionsExec(child)
         return CpuSortExec(lp.order, child)
     if isinstance(lp, L.Limit):
         # Limit over a global Sort plans as TopN (Spark's
@@ -60,6 +72,15 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
                 lp.n, lp.child.order, plan_physical(lp.child.child, conf)
             )
         return CpuLimitExec(lp.n, plan_physical(lp.child, conf))
+    if isinstance(lp, L.Union):
+        return CpuUnionExec([plan_physical(p, conf) for p in lp.plans])
+    if isinstance(lp, L.Repartition):
+        child = plan_physical(lp.child, conf)
+        if lp.exprs:
+            part = P.HashPartitioning(lp.num_partitions, lp.exprs)
+        else:
+            part = P.RoundRobinPartitioning(lp.num_partitions)
+        return CpuShuffleExchangeExec(part, child)
     if isinstance(lp, L.Hint):
         return plan_physical(lp.child, conf)
     raise NotImplementedError(
@@ -72,6 +93,12 @@ def _num_partitions_hint(e: Exec) -> int:
         return e.num_partitions
     if isinstance(e, (CpuCoalescePartitionsExec, CpuLimitExec)):
         return 1
+    if isinstance(e, CpuUnionExec):
+        # union CONCATENATES its children's partitions — reporting only the
+        # first child's count made aggregates over a union of
+        # single-partition inputs skip their merge exchange and aggregate
+        # each branch separately (wrong results)
+        return sum(_num_partitions_hint(c) for c in e.children)
     if e.children:
         return _num_partitions_hint(e.children[0])
     return 1
@@ -360,7 +387,11 @@ def _plan_aggregate(lp: L.Aggregate, conf: TpuConf) -> Exec:
             partial,
         )
     else:
-        exchange = CpuCoalescePartitionsExec(partial)
+        # one partition for the final merge. The JAX package coalesces here;
+        # the port plans a single-partition exchange, whose device form
+        # shrinks each partial (one live row at its input's capacity) with
+        # one row-count fetch before the final aggregate concatenates them
+        exchange = CpuShuffleExchangeExec(P.SinglePartitioning(1), partial)
     final_grouping = [
         Alias(UnresolvedAttribute(f"key{i}"), f"key{i}")
         for i in range(len(bound_grouping))

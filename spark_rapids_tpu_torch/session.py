@@ -9,16 +9,19 @@ The device is explicit: ``TorchSession(conf, device=None)`` runs on
 ``cuda`` and raises where no card is present, unless the caller passes
 ``device="cpu"`` (the tests do). It never falls back to the CPU on its own.
 
-This slice carries the DataFrame subset of TPC-H q6 and the ``contains``
-queries — ``create_dataframe``, ``select``, ``filter``, ``agg``,
-``collect``, ``explain`` — plus ``group_by``, ``sort`` and ``limit``, which
-run on the CPU engine with an explain reason. Columns from a dict carry no
-nulls except strings (None); pass a ``HostBatch`` or an Arrow table for
-nullable fixed-width columns. Joins, SQL, caching,
+The DataFrame surface so far: ``create_dataframe``, ``select``,
+``filter``, ``agg``, ``group_by``, ``sort``, ``limit``, ``union`` and
+``repartition``, with the actions ``collect`` and ``explain``. Columns from
+a dict carry no nulls except strings (None); pass a ``HostBatch`` or an
+Arrow table for nullable fixed-width columns. Plans are column-pruned before
+planning (``plan/pruning.py``), and the session keeps the device batches of
+its in-memory tables in an upload cache (``_h2d_cache``, filled by
+``HostToDeviceExec``), as the JAX session does. Joins, SQL, ``df.cache()``,
 scheduling and the service layers come with later slices.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -40,6 +43,7 @@ from .plan import logical as L
 from .plan.overrides import GpuOverrides
 from .plan.physical import ExecContext
 from .plan.planner import plan_physical
+from .plan.pruning import prune_columns
 from .types import Schema, StringType, StructField
 
 
@@ -71,6 +75,12 @@ class TorchSession:
             # concurrentGpuTasks model), as in the JAX package
             self.conf = self.conf.set(cfg.SHUFFLE_PARTITIONS.key, 1)
         self._last_overrides: Optional[GpuOverrides] = None
+        # the last query's counters (hostToDeviceBytes, …)
+        self._last_metrics: dict = {}
+        # device batches of in-memory relations, keyed by the source batch's
+        # id (the entry pins the source), byte-bounded LRU in insertion order
+        self._h2d_cache: dict = {}
+        self._h2d_lock = threading.Lock()
 
     def create_dataframe(
         self,
@@ -96,7 +106,9 @@ class TorchSession:
     createDataFrame = create_dataframe
 
     # ── execution ───────────────────────────────────────────────────────
-    def _prepare_plan(self, lp: L.LogicalPlan):
+    def _physical_plan(self, lp: L.LogicalPlan):
+        """(device plan, overrides) of a logical plan: the ANSI rewrite,
+        column pruning, CPU planning and the override pass."""
         if cfg.ANSI_ENABLED.get(self.conf):
             # Spark resolves ansiEnabled into Cast at analysis time
             import dataclasses as _dc
@@ -109,9 +121,13 @@ class TorchSession:
                 if isinstance(e, Cast) and not e.ansi
                 else e,
             )
+        lp = prune_columns(lp)
         cpu_plan = plan_physical(lp, self.conf)
         overrides = GpuOverrides(self.conf)
-        final_plan = overrides.apply(cpu_plan)
+        return overrides.apply(cpu_plan), overrides
+
+    def _prepare_plan(self, lp: L.LogicalPlan):
+        final_plan, overrides = self._physical_plan(lp)
         self._last_overrides = overrides
         self._assert_test_mode(overrides)
         return final_plan
@@ -119,6 +135,7 @@ class TorchSession:
     def _execute(self, lp: L.LogicalPlan) -> HostBatch:
         final_plan = self._prepare_plan(lp)
         ctx = ExecContext(self.conf, self, self.device)
+        self._last_metrics = ctx.metrics
         parts = final_plan.execute(ctx)
         batches = [b for t in parts.parts for b in t() if b.num_rows]
         return concat_batches(final_plan.output, batches)
@@ -245,6 +262,15 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.Limit(n, self._plan))
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self._session, L.Union([self._plan, other._plan]))
+
+    unionAll = union
+
+    def repartition(self, n: int, *cols) -> "DataFrame":
+        exprs = _to_exprs(cols) if cols else None
+        return DataFrame(self._session, L.Repartition(n, exprs, self._plan))
+
     # ── actions ─────────────────────────────────────────────────────────
     def to_host(self) -> HostBatch:
         """The result as one ``HostBatch``."""
@@ -254,9 +280,7 @@ class DataFrame:
         return batch_rows(self.to_host())
 
     def explain(self) -> str:
-        cpu_plan = plan_physical(self._plan, self._session.conf)
-        final_plan = GpuOverrides(self._session.conf).apply(cpu_plan)
-        s = final_plan.tree_string()
+        s = self._session._physical_plan(self._plan)[0].tree_string()
         print(s)
         return s
 

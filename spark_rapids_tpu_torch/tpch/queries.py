@@ -9,7 +9,11 @@ an aggregate and once as a standalone filter whose rows (strings included)
 come back to the host. ``orders_by_priority`` sorts all of ``orders`` by a
 string, a descending double and a long key: q1's own sort sees only its
 four groups, so this query is what puts the device sort to work at full
-size.
+size. ``q18_big_orders`` is q18's inner aggregate, sorted: over several
+partitions its partial aggregates hold a group per order, so it puts a
+full-size hash exchange on a long key to work (q1's exchange moves four
+groups). ``union_limit`` unions two filtered lineitem scans and takes the
+first 100,000 rows, in partition order.
 
 Each function takes ``t`` — a ``name -> DataFrame`` accessor — and returns an
 un-collected DataFrame.
@@ -84,6 +88,28 @@ def orders_by_priority(t):
     )
 
 
+def q18_big_orders(t):
+    """q18's inner aggregate: the orders whose lines hold more than 300
+    units, by key."""
+    return (
+        t("lineitem").select("l_orderkey", "l_quantity")
+        .group_by("l_orderkey")
+        .agg(F.sum(col("l_quantity")).alias("o_qty"))
+        .filter(col("o_qty") > 300)
+        .select(col("l_orderkey").alias("big_okey"))
+        .order_by("big_okey")
+    )
+
+
+def union_limit(t):
+    """The first 100,000 lines shipped by air, then by regular air."""
+    li = t("lineitem")
+    cols = ("l_orderkey", "l_partkey", "l_quantity", "l_shipmode")
+    air = li.filter(col("l_shipmode") == "AIR").select(*cols)
+    reg = li.filter(col("l_shipmode") == "REG AIR").select(*cols)
+    return air.union(reg).limit(100000)
+
+
 #: the slice's queries, by name, with the tables each reads
 SLICE_QUERIES = {
     "q1": (q1, ("lineitem",)),
@@ -91,4 +117,6 @@ SLICE_QUERIES = {
     "contains_agg": (contains_agg, ("orders",)),
     "contains_rows": (contains_rows, ("orders",)),
     "orders_by_priority": (orders_by_priority, ("orders",)),
+    "q18_big_orders": (q18_big_orders, ("lineitem",)),
+    "union_limit": (union_limit, ("lineitem",)),
 }

@@ -24,7 +24,8 @@ from spark_rapids_tpu_torch.columnar.device import (
     host_to_device,
 )
 from spark_rapids_tpu_torch.columnar.host import from_arrow, to_pylist
-from spark_rapids_tpu_torch.ops.gather import compact, concat_device
+from spark_rapids_tpu_torch.ops.concat import concat_device
+from spark_rapids_tpu_torch.ops.gather import compact
 from spark_rapids_tpu_torch.tpch.datagen import gen_table
 
 SF = 0.001

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written match_starts
 kernel against its plain torch version, bit for bit, and the slice's
-queries on the card against the port's CPU engine. Each test decides in its
+queries on the card against the port's CPU engine, from one partition and
+from 4 input partitions at 8 shuffle partitions (through the device
+exchange and the upload cache). Each test decides in its
 body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -84,3 +86,28 @@ def test_slice_query_on_gpu_matches_cpu_engine(name):
     assert want and ok, msg
     if name.startswith("contains"):
         assert SK.LAUNCHES > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit"])
+def test_partitioned_slice_query_on_gpu_matches_cpu_engine(name):
+    """From 4 input partitions at 8 shuffle partitions on the card: every
+    node but the scans on the device (strict mode), the rows equal to the
+    CPU engine's, and a second run served from the upload cache."""
+    _need_gpu()
+    o, l = gen_orders_lineitem(0.01)
+    tables = {"orders": o, "lineitem": l}
+    fn, _ = SLICE_QUERIES[name]
+    gpu = TorchSession(
+        {"spark.rapids.sql.test.enabled": True, "spark.sql.shuffle.partitions": 8}, device="cuda"
+    )
+    runs = []
+    for _ in range(2):
+        runs.append(fn(lambda t: gpu.create_dataframe(tables[t], num_partitions=4)).collect())
+        runs.append(gpu._last_metrics["hostToDeviceBytes"])
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    want = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
+    for got in runs[::2]:
+        ok, msg = rows_equal(got, want)
+        assert want and ok, msg
+    assert runs[1] > 0 and runs[3] == 0

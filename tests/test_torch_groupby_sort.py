@@ -12,7 +12,7 @@ against the JAX package, on the CPU at a small size.
   tolerance (rel 1e-9, abs 1e-11).
 * Mirrors of ``tests/test_aggregates.py`` and ``tests/test_sort.py`` over the
   same ``data_gen`` tables and queries: the port (device="cpu", strict
-  mode, the hash exchange allowed off the device) against the JAX engine
+  mode, every node on the device) against the JAX engine
   each reference test holds its device rows to (``_check_mirror``).
 
 Inputs come from numpy seeds and enter both packages as the same arrays."""
@@ -372,8 +372,6 @@ def _port_session(enabled=True):
         {
             "spark.rapids.sql.enabled": True,
             "spark.rapids.sql.test.enabled": True,
-            # the hash exchange is the port's next slice
-            "spark.rapids.sql.test.allowedNonGpu": "CpuShuffleExchange",
             **_FEW_PARTS,
         },
         device="cpu",
@@ -463,8 +461,8 @@ def _agg_cases():
         F.col("v").is_not_null()).agg(F.count("*").alias("c")), {}))
     inf = float("inf")
     t = pa.table({"g": [1, 1, 2, 2], "v": [inf, nan, nan, nan]})
-    # as tests/test_aggregates.py checks it: against the device engine (both
-    # CPU engines give NaN for min(+inf, NaN); ROADMAP Queue C)
+    # as tests/test_aggregates.py checks it: against the device engine (the
+    # JAX CPU engine gives NaN for min(+inf, NaN); the port's gives +inf)
     cases.append(("min_inf_with_nan_is_inf", lambda F, s, t=t: _df(F, s, t, parts=1).group_by(
         "g").agg(F.min(F.col("v")).alias("m")), {"engine": "device"}))
     t = gen_grouped_table([("s", JT.STRING)], 400, num_groups=7, seed=17)

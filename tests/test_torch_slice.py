@@ -2,9 +2,11 @@
 queries and ``orders_by_priority`` through TorchSession (device="cpu"), held
 against the JAX package's device engine on JAX-CPU and its CPU engine, rows
 within the harness's tolerance (rel 1e-9, abs 1e-11), with no compute
-fallback in the port's plan but the hash exchange (the port's next slice).
-Also the partial aggregate's merge of several batches, the out-of-core
-sort, and the port's import and device rules."""
+fallback in the port's plan; q1, q6, ``orders_by_priority``,
+``q18_big_orders`` and ``union_limit`` also from 3 input partitions at 2
+shuffle partitions, through the device exchange. Also the partial
+aggregate's merge of several batches, the out-of-core sort, and the port's
+import and device rules."""
 from __future__ import annotations
 
 import pathlib
@@ -81,6 +83,25 @@ def _jax_query(name):
         return lambda t: t("orders").select("o_orderkey", "o_orderpriority", "o_totalprice").order_by(
             col("o_orderpriority"), col("o_totalprice").desc(), col("o_orderkey")
         )
+    if name == "q18_big_orders":
+        return lambda t: (
+            t("lineitem").select("l_orderkey", "l_quantity")
+            .group_by("l_orderkey")
+            .agg(JF.sum(col("l_quantity")).alias("o_qty"))
+            .filter(col("o_qty") > 300)
+            .select(col("l_orderkey").alias("big_okey"))
+            .order_by("big_okey")
+        )
+    if name == "union_limit":
+
+        def union_limit(t):
+            li = t("lineitem")
+            cols = ("l_orderkey", "l_partkey", "l_quantity", "l_shipmode")
+            air = li.filter(col("l_shipmode") == "AIR").select(*cols)
+            reg = li.filter(col("l_shipmode") == "REG AIR").select(*cols)
+            return air.union(reg).limit(100000)
+
+        return union_limit
     if name == "contains_agg":
         return lambda t: t("orders").filter(col("o_comment").contains("special")).agg(
             count(lit(1)), JF.sum(col("o_totalprice"))
@@ -94,7 +115,8 @@ def _jax_query(name):
 @pytest.mark.parametrize("name", ["q6", "contains_agg", "contains_rows"])
 def test_slice_query_matches_both_jax_engines(name, parts, tables, jax_tables):
     """The first slice's queries. One partition plans the aggregate
-    complete; three plan it partial → coalesce → final, all on the device."""
+    complete; three plan it partial → single-partition exchange → final,
+    all on the device."""
     fn, used = SLICE_QUERIES[name]
     port = _port_session()
     port_rows = fn(lambda t: port.create_dataframe(tables[t], num_partitions=parts)).collect()
@@ -107,6 +129,33 @@ def test_slice_query_matches_both_jax_engines(name, parts, tables, jax_tables):
         ).collect()
         _assert_rows_equal(port_rows, rows, f"{name} port vs JAX")
     assert port_rows, name
+
+
+@pytest.mark.parametrize("name", ["q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit"])
+def test_partitioned_slice_query_matches_both_jax_engines(name, tables, jax_tables):
+    """From 3 input partitions at 2 shuffle partitions (the JAX TPC-H gate's
+    setting): nothing off the device but the scans, every exchange a
+    ``GpuShuffleExchange`` (union_limit has none), and the rows equal to
+    both JAX engines', in order."""
+    fn, _ = SLICE_QUERIES[name]
+    conf = {"spark.sql.shuffle.partitions": 2}
+    port = TorchSession(
+        {"spark.rapids.sql.enabled": True, "spark.rapids.sql.test.enabled": True, **conf},
+        device="cpu",
+    )
+    df = fn(lambda t: port.create_dataframe(tables[t], num_partitions=3))
+    got = df.collect()
+    _no_compute_fallback(port)
+    plan = df.explain()
+    assert ("GpuShuffleExchange" in plan) == (name != "union_limit"), plan
+    assert "CpuShuffleExchange" not in plan
+    if name == "union_limit":
+        assert "GpuLimit" in plan and "GpuUnionExec" in plan
+    assert got, name
+    jfn = _jax_query(name)
+    for session in (tpu_session(conf), cpu_session(conf)):
+        want = jfn(lambda t: session.create_dataframe(jax_tables[t], num_partitions=3)).collect()
+        _assert_rows_equal(got, want, f"{name} port vs JAX")
 
 
 def test_slice_plans_fuse_the_filter_into_the_aggregate(tables):
@@ -260,12 +309,7 @@ def test_orders_by_priority_matches_both_jax_engines(tables, jax_tables):
 
 def _q1_rows(tables, conf, parts):
     port = TorchSession(
-        {
-            "spark.rapids.sql.enabled": True,
-            "spark.rapids.sql.test.enabled": True,
-            "spark.rapids.sql.test.allowedNonGpu": "CpuShuffleExchange",
-            **conf,
-        },
+        {"spark.rapids.sql.enabled": True, "spark.rapids.sql.test.enabled": True, **conf},
         device="cpu",
     )
     rows = SLICE_QUERIES["q1"][0](
@@ -275,17 +319,19 @@ def _q1_rows(tables, conf, parts):
 
 
 def test_q1_two_partitions_partial_and_final_on_device(tables, jax_tables):
-    """Two input partitions plan partial → hash exchange → final: both
-    aggregates run on the device, the exchange on the CPU engine with its
-    reason (the port's next slice)."""
-    port, got = _q1_rows(tables, {}, parts=2)
-    _no_compute_fallback(port, allowed=("CpuScan", "CpuShuffleExchange"))
+    """Two input partitions plan partial → hash exchange → final → range
+    exchange → sort, every node on the device (strict mode, nothing
+    allowed off it): both exchanges are ``GpuShuffleExchange``."""
+    port, got = _q1_rows(tables, {"spark.sql.shuffle.partitions": 2}, parts=2)
+    _no_compute_fallback(port)
     explain = _explain(port)
     assert explain["CpuHashAggregate(partial)"].on_device
     assert explain["CpuHashAggregate(final)"].on_device
-    assert explain["CpuShuffleExchange"].reasons == [
-        "exec CpuShuffleExchangeExec has no device implementation"
-    ]
+    exchanges = [e for e in port._last_overrides.explain if e.node.startswith("CpuShuffleExchange")]
+    assert len(exchanges) == 2 and all(e.on_device for e in exchanges)
+    plan = SLICE_QUERIES["q1"][0](lambda t: port.create_dataframe(tables[t], num_partitions=2)).explain()
+    assert "GpuShuffleExchange HashPartitioning" in plan
+    assert "GpuShuffleExchange RangePartitioning" in plan
     want = _jax_query("q1")(
         lambda t: cpu_session().create_dataframe(jax_tables[t], num_partitions=2)
     ).collect()
@@ -295,14 +341,15 @@ def test_q1_two_partitions_partial_and_final_on_device(tables, jax_tables):
 def test_q1_several_batches_per_partition_merge_on_device(tables, jax_tables, monkeypatch):
     """A batch size of a few hundred rows cuts each partition into many
     batches: the partial aggregate updates each, shrinks the partials with
-    one row-count fetch, concatenates and merges them."""
+    one row-count fetch, concatenates and merges them. The hash exchange
+    then shrinks the two partitions' merged partials with one more fetch."""
     from spark_rapids_tpu_torch.exec import gpu as G
 
     shrunk = []
     real = G.bulk_shrink
     monkeypatch.setattr(G, "bulk_shrink", lambda bs: shrunk.append(len(bs)) or real(bs))
     _, got = _q1_rows(tables, {"spark.rapids.sql.batchSizeBytes": 32 << 10}, parts=2)
-    assert len(shrunk) == 2 and min(shrunk) > 10, shrunk
+    assert len(shrunk) == 3 and min(shrunk[:2]) > 10 and shrunk[2] == 2, shrunk
     want = _jax_query("q1")(lambda t: cpu_session().create_dataframe(jax_tables[t])).collect()
     _assert_rows_equal(got, want, "q1 from many batches vs the JAX CPU engine")
 

@@ -14,10 +14,16 @@ against the port's own CPU engine:
   ``orders_by_priority``, ``q18_big_orders`` and ``union_limit``; then q1
   once more, timed split into its group-by's sort, scans and gathers and
   its final sort;
-* the partitioned path: q1, q6, ``orders_by_priority``, ``q18_big_orders``
-  and ``union_limit`` from 4 input partitions at 8 shuffle partitions,
-  each twice, through the device exchange and the upload cache (the second
-  run of each must upload nothing).
+* the join path: the TPC-H join queries q4, q5, q7, q8, q12, q17 and q19
+  over all eight tables, one input partition each, whose plans must hold
+  both the shuffled and the broadcast hash join; then q5 once more, timed
+  split into the join's phase 1 (key sort and bounds) and phase 2 (pair
+  expansion and gathers), and so once more from 4 input partitions at 8
+  shuffle partitions;
+* the partitioned path: q1, q6, ``orders_by_priority``, ``q18_big_orders``,
+  ``union_limit``, q5 and q12 from 4 input partitions at 8 shuffle
+  partitions, each twice, through the device exchange and the upload cache
+  (the second run of each must upload nothing).
 
 It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
@@ -29,11 +35,15 @@ the grid and at the slice's shape, the time of the bare mask write and of
 the ``.any(axis=1)`` that ``Contains`` applies to the mask; the kernel
 list; the slice phase, one line per query with its device wall, the bytes
 it uploaded and the CPU engine's time, and the main path's launches per
-kernel path; q1's time split; the partitioned phase, one line per query and
+kernel path; q1's time split; the join phase, one line per query with its
+device wall, bytes uploaded, peak device memory, the hash joins in its plan,
+its host syncs for join output sizes and the CPU engine's time, and the
+phase's kernel launches; q5's join split, on one partition and on 4 input
+at 8 shuffle partitions; the partitioned phase, one line per query and
 run with its device wall, bytes uploaded and peak device memory, the time
 of the exchanges' murmur3 calls, and the phase's kernel launches; a
-torch.profiler run of the partitioned q1 (device busy time against the
-wall, the kernels that took the most); the time
+torch.profiler run each of the partitioned q1 and q5 (device busy time
+against the wall, the kernels that took the most); the time
 of murmur3 over a wide string key; one JSON line with each kernel's
 launches on the main path, error, times and bound; and last the line
 ``{"ok": true, "device": {...}}``.
@@ -254,8 +264,107 @@ def slice_phase(tables) -> dict:
     }
 
 
+def _join_kinds(plan: str) -> list:
+    """The hash joins of a plan's tree string, in tree order."""
+    return [ln.strip().lstrip("* ").split(" ")[0] for ln in plan.splitlines() if "HashJoin" in ln]
+
+
+def join_phase(tables) -> dict:
+    """The TPC-H join queries on the card and on the port's CPU engine, one
+    input partition each. Every result must equal the CPU engine's with
+    nothing off the device but the scans, and the plans must hold both
+    kinds of hash join between them. Returns the CPU engine's rows by
+    query."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES
+
+    gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    SK.LAUNCHES = 0  # this path's own counts
+    SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
+    cpu_rows, kinds = {}, set()
+    for name, (fn, used) in JOIN_QUERIES.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier queries' cached uploads
+        t0 = time.perf_counter()
+        df = fn(lambda t: gpu.create_dataframe(tables[t]))
+        got = df.collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        metrics = gpu._last_metrics
+        off = _off_device(gpu)
+        if off:
+            raise AssertionError(f"join {name}: nodes off the device: {off}")
+        joins = _join_kinds(gpu._physical_plan(df._plan)[0].tree_string())
+        kinds.update(joins)
+        t0 = time.perf_counter()
+        want = cpu_rows[name] = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ok, msg = rows_equal(got, want)
+        if not ok or not want:
+            raise AssertionError(f"join {name}: device rows differ from the CPU engine: {msg}")
+        rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
+        log(f"join phase: {name} at SF {SF} over {'+'.join(used)}: device wall {wall_ms:.1f} ms, "
+            f"uploaded {metrics['hostToDeviceBytes']} bytes, peak device memory {peak} bytes "
+            f"({peak - held} above the {held} held before it), "
+            f"joins {joins}, join output-size syncs {metrics['joinProbeSyncs']}, CPU engine "
+            f"{cpu_ms:.1f} ms, result {rows}; equal to the CPU engine, nothing off the device "
+            "but scans")
+    if not {"GpuShuffledHashJoin", "GpuBroadcastHashJoin"} <= kinds:
+        raise AssertionError(f"join phase: the SF {SF} plans hold only {sorted(kinds)}")
+    log(f"join phase: match_starts launches {SK.LAUNCHES}, per path "
+        f"{json.dumps(SK.LAUNCHES_BY_PATH)} (the join queries hold no string search)")
+    return cpu_rows
+
+
+def q5_split(tables, conf=None, parts: int = 1, label: str = "q5 split") -> None:
+    """q5 on the card once more (a fresh session: cold upload), its joins'
+    device time split into phase 1 (evaluating and sorting the build keys,
+    the probe keys' bounds) and phase 2 (expanding the pairs and gathering
+    both sides' columns, the residual, the matched flags and compaction).
+    ``conf`` and ``parts`` give the partitioned form."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import gpu_join as GJ
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES
+
+    timer = PhaseTimer()
+    real = (GJ.sort_build, GJ.probe_bounds, GJ._make_phase2)
+    try:
+        GJ.sort_build = timer.wrap("phase1", real[0])
+        GJ.probe_bounds = timer.wrap("phase1", real[1])
+        GJ._make_phase2 = lambda *a: timer.wrap("phase2", real[2](*a))
+        gpu = TorchSession({"spark.rapids.sql.enabled": True, **(conf or {})}, device="cuda")
+        fn = JOIN_QUERIES["q5"][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(lambda t: gpu.create_dataframe(tables[t], num_partitions=parts)).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        metrics = gpu._last_metrics
+    finally:
+        GJ.sort_build, GJ.probe_bounds, GJ._make_phase2 = real
+    ms = timer.totals_ms()
+    if not timer.spans["phase1"] or not timer.spans["phase2"]:
+        raise AssertionError(f"{label}: a phase was never entered: {ms}")
+    log(label + ": device wall {:.1f} ms = join phase 1 (build key sort + probe bounds, {} "
+        "calls) {:.3f} ms, join phase 2 (pair expansion + gathers, {} calls) {:.3f} ms, rest "
+        "(upload of {} bytes, exchanges, filters, aggregate, sort, download, host) {:.1f} ms; "
+        "{} join output-size syncs".format(
+            wall_ms, len(timer.spans["phase1"]), ms["phase1"], len(timer.spans["phase2"]),
+            ms["phase2"], metrics["hostToDeviceBytes"], wall_ms - ms["phase1"] - ms["phase2"],
+            metrics["joinProbeSyncs"]))
+
+
 #: the partitioned phase's queries; all but union_limit exchange their rows
-PARTITIONED = ("q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit")
+PARTITIONED = ("q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit", "q5", "q12")
 INPUT_PARTITIONS = 4
 SHUFFLE_PARTITIONS = 8
 
@@ -275,8 +384,9 @@ def partitioned_phase(tables, cpu_rows) -> None:
     from spark_rapids_tpu_torch.exec import gpu as G
     from spark_rapids_tpu_torch.ops import strings_kernels as SK
     from spark_rapids_tpu_torch.testing import rows_equal
-    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
 
+    queries = {**SLICE_QUERIES, **JOIN_QUERIES}
     gpu = TorchSession(
         {"spark.rapids.sql.enabled": True, "spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS},
         device="cuda",
@@ -285,7 +395,7 @@ def partitioned_phase(tables, cpu_rows) -> None:
     SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
     real_hash = G.murmur3_rows
     for name in PARTITIONED:
-        fn, used = SLICE_QUERIES[name]
+        fn, used = queries[name]
         for run in (1, 2):
             timer = PhaseTimer()
             shapes = []
@@ -320,26 +430,28 @@ def partitioned_phase(tables, cpu_rows) -> None:
             if run == 2 and uploaded != 0:
                 raise AssertionError(f"partitioned {name}: the second run uploaded {uploaded} bytes")
             hash_ms = timer.totals_ms()["murmur3"]
+            joins = _join_kinds(plan)
             log(f"partitioned phase: {name} run {run} ({INPUT_PARTITIONS} input partitions, "
                 f"{SHUFFLE_PARTITIONS} shuffle partitions): device wall {wall_ms:.1f} ms, uploaded "
                 f"{uploaded} bytes, peak device memory {peak} bytes, {len(got)} rows equal to the "
-                f"CPU engine; exchanges' murmur3 {hash_ms:.3f} ms over {len(shapes)} calls "
+                f"CPU engine"
+                + (f", joins {joins}, join output-size syncs "
+                   f"{gpu._last_metrics['joinProbeSyncs']}" if joins else "")
+                + f"; exchanges' murmur3 {hash_ms:.3f} ms over {len(shapes)} calls "
                 f"{json.dumps(sorted(set((n, tuple(k)) for n, k in shapes)))}")
     log(f"partitioned phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)} "
         "(this path's queries hold no string search)")
-    profile_partitioned_q1(gpu, tables)
+    for name in ("q1", "q5"):
+        profile_partitioned(gpu, tables, name, queries[name][0])
 
 
-def profile_partitioned_q1(gpu, tables) -> None:
-    """One more warm run of the partitioned q1 under torch.profiler: the
+def profile_partitioned(gpu, tables, name, fn) -> None:
+    """One more warm run of a partitioned query under torch.profiler: the
     device's busy time (the sum of its kernels' times) against the wall,
     the kernels launched, and the kernels that took the most time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
-
-    fn = SLICE_QUERIES["q1"][0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -348,7 +460,7 @@ def profile_partitioned_q1(gpu, tables) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log(f"partitioned q1 profile: wall {wall_ms:.1f} ms; the profiler saw no device "
+        log(f"partitioned {name} profile: wall {wall_ms:.1f} ms; the profiler saw no device "
             "time (device busy share not measured)")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -356,7 +468,7 @@ def profile_partitioned_q1(gpu, tables) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    log(f"partitioned q1 profile (warm, under torch.profiler): wall {wall_ms:.1f} ms, device "
+    log(f"partitioned {name} profile (warm, under torch.profiler): wall {wall_ms:.1f} ms, device "
         f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of the wall) over "
         f"{len(kernels)} kernels; most time: "
         + "; ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top))
@@ -484,7 +596,7 @@ def main() -> int:
         return 2
     import spark_rapids_tpu_torch  # noqa: F401  (fails outside a checkout)
     from spark_rapids_tpu_torch import kernels as K
-    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+    from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_orders_lineitem, gen_table
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -507,8 +619,10 @@ def main() -> int:
     t0 = time.perf_counter()
     orders, lineitem = gen_orders_lineitem(SF, SEED)
     tables = {"orders": orders, "lineitem": lineitem}
-    log(f"data: TPC-H SF {SF} seed {SEED}: orders {orders.num_rows} rows, lineitem "
-        f"{lineitem.num_rows} rows, generated in {time.perf_counter() - t0:.1f} s")
+    tables.update({n: gen_table(n, SF, SEED) for n in TABLES if n not in tables})
+    log(f"data: TPC-H SF {SF} seed {SEED}, all eight tables: "
+        + ", ".join(f"{n} {tables[n].num_rows} rows" for n in TABLES)
+        + f"; generated in {time.perf_counter() - t0:.1f} s")
 
     from spark_rapids_tpu_torch.ops import strings_kernels as SK
 
@@ -518,7 +632,11 @@ def main() -> int:
 
     launches = slice_phase(tables)
     q1_split(tables)
-    partitioned_phase(tables, launches["cpu_rows"])
+    join_rows = join_phase(tables)
+    q5_split(tables)
+    q5_split(tables, {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}, INPUT_PARTITIONS,
+             f"q5 split at {INPUT_PARTITIONS} input and {SHUFFLE_PARTITIONS} shuffle partitions")
+    partitioned_phase(tables, {**launches["cpu_rows"], **join_rows})
     wide_string_hash(orders)
     record["launches"] = launches["match_starts"]
     record["launches_by_path"] = launches["match_starts_by_path"]

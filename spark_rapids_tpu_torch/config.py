@@ -99,6 +99,11 @@ SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
     "Default number of partitions for exchanges (Spark's key, honored here)."
 ).int_conf(8)
 
+AUTO_BROADCAST_THRESHOLD = conf("spark.sql.autoBroadcastJoinThreshold").doc(
+    "Maximum estimated build-side size for which a join is planned as a "
+    "broadcast hash join (Spark's key, honored here; -1 disables)."
+).bytes_conf(10 << 20)
+
 ANSI_ENABLED = conf("spark.sql.ansi.enabled").doc(
     "Spark's ANSI mode (honored here): casts raise on overflow or malformed "
     "input instead of returning NULL, and integral narrowing range-checks "

@@ -33,7 +33,7 @@ US_PER_SECOND = 1_000_000
 
 def civil_from_days(xp, z):
     """days-since-epoch → (year, month, day). Hinnant civil_from_days."""
-    z = z.astype(xp.int64) + 719468
+    z = xp.astype(z, xp.int64) + 719468
     era = xp.floor_divide(z, 146097)
     doe = z - era * 146097
     yoe = xp.floor_divide(
@@ -46,25 +46,25 @@ def civil_from_days(xp, z):
     d = doy - xp.floor_divide(153 * mp + 2, 5) + 1
     m = mp + xp.where(mp < 10, 3, -9)
     y = y + (m <= 2)
-    return y.astype(xp.int32), m.astype(xp.int32), d.astype(xp.int32)
+    return xp.astype(y, xp.int32), xp.astype(m, xp.int32), xp.astype(d, xp.int32)
 
 
 def days_from_civil(xp, y, m, d):
     """(year, month, day) → days since epoch. Hinnant days_from_civil."""
-    y = y.astype(xp.int64) - (m <= 2)
+    y = xp.astype(y, xp.int64) - (m <= 2)
     era = xp.floor_divide(y, 400)
     yoe = y - era * 400
     doy = xp.floor_divide(153 * (m + xp.where(m > 2, -3, 9)) + 2, 5) + d - 1
     doe = yoe * 365 + xp.floor_divide(yoe, 4) - xp.floor_divide(yoe, 100) + doy
-    return (era * 146097 + doe - 719468).astype(xp.int32)
+    return xp.astype(era * 146097 + doe - 719468, xp.int32)
 
 
 def _as_days(ctx: Ctx, e: Expression, data):
     """Normalize a date or timestamp operand to days since epoch."""
     xp = ctx.xp
     if isinstance(e.data_type, TimestampType):
-        return xp.floor_divide(data.astype(xp.int64), US_PER_DAY).astype(xp.int32)
-    return data.astype(xp.int32)
+        return xp.astype(xp.floor_divide(xp.astype(data, xp.int64), US_PER_DAY), xp.int32)
+    return xp.astype(data, xp.int32)
 
 
 class _DateField(UnaryExpression):

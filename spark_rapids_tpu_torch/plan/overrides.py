@@ -9,8 +9,10 @@ tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
 pass, but its rules cover only what the port runs on the device so far —
 project, filter, grouped and ungrouped aggregation, sort, the coalesce, the
-shuffle exchange, union and limit, over the expressions of TPC-H q1, q6,
-``contains`` and ``hash``. Every other node stays on the CPU
+shuffle exchange, union, limit, the shuffled and broadcast hash joins and
+the broadcast exchange, over the expressions of TPC-H q1, q4, q5, q6, q7,
+q8, q12, q17, q19, ``contains`` and ``hash``. Every other node — the
+nested-loop and cartesian joins among them — stays on the CPU
 engine with its reason in the explain, which is the system's own per-node
 fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
 shared.)
@@ -23,11 +25,14 @@ from typing import Callable, List, Optional
 from .. import config as cfg
 from ..config import TpuConf
 from ..exec import cpu as C
+from ..exec import cpu_join as CJ
 from ..exec import gpu as G
-from ..expr import Expression
+from ..exec import gpu_join as GJ
+from ..expr import Expression, bind
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
 from ..expr import conditional as cond
+from ..expr import datetime as dtx
 from ..expr import misc as msc
 from ..expr import predicates as pred
 from ..expr import strings as st
@@ -145,12 +150,14 @@ for _cls in (
     pred.Not,
     pred.IsNull,
     pred.IsNotNull,
+    pred.In,
+    dtx.Year,
     agg.Count,
     agg.First,
     agg.Last,
 ):
     _expr(_cls)
-for _cls in (ar.Add, ar.Subtract, ar.Multiply):
+for _cls in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide):
     _expr(_cls, check=_no_decimal_arith)
 _expr(ar.Remainder, check=_integral_only)
 _expr(cond.CaseWhen)
@@ -289,6 +296,42 @@ _rule(
 )
 _rule(C.CpuUnionExec, "UnionExec", lambda e, ch: G.GpuUnionExec(ch), lambda e: [])
 _rule(C.CpuLimitExec, "CollectLimitExec", lambda e, ch: G.GpuLimitExec(e.n, ch[0]), lambda e: [])
+
+
+def _join_exprs_of(e):
+    out = list(e.left_keys) + list(e.right_keys)
+    if e.residual is not None:
+        # the residual reads the pair of rows: bind it over both sides
+        left, right = e.children
+        pair = Schema(list(left.output.fields) + list(right.output.fields))
+        out.append(bind(e.residual, pair))
+    return out
+
+
+def _conv_join(cls):
+    return lambda e, ch: cls(
+        e.join_type, e.left_keys, e.right_keys, e.residual, ch[0], ch[1], e.drop_right_keys
+    )
+
+
+_rule(
+    CJ.CpuShuffledHashJoinExec,
+    "ShuffledHashJoinExec",
+    _conv_join(GJ.GpuShuffledHashJoinExec),
+    _join_exprs_of,
+)
+_rule(
+    CJ.CpuBroadcastHashJoinExec,
+    "BroadcastHashJoinExec",
+    _conv_join(GJ.GpuBroadcastHashJoinExec),
+    _join_exprs_of,
+)
+_rule(
+    CJ.CpuBroadcastExchangeExec,
+    "BroadcastExchangeExec",
+    lambda e, ch: GJ.GpuBroadcastExchangeExec(ch[0]),
+    lambda e: [],
+)
 
 
 # ── the override pass ──────────────────────────────────────────────────────

@@ -7,17 +7,19 @@ like Spark's physical aggregation strategy (which the reference inherits).
 
 Copied from ``spark_rapids_tpu/plan/planner.py``, cut to the logical nodes
 the port's DataFrame builds: local relations, project, filter, aggregate
-(with the one-DISTINCT rewrite), sort, limit, union and repartition. A
-global sort over several partitions range-partitions on its keys and sorts
-each partition, as in the JAX package. Joins, windows, file scans and the
-rest come with later slices. One plan shape differs from the JAX package's:
-an ungrouped aggregate over several partitions exchanges its partials into
-one partition (``SinglePartitioning``) instead of coalescing them.
+(with the one-DISTINCT rewrite), sort, limit, union, repartition and joins
+(shuffled and broadcast hash joins with the JAX package's build-side
+choice, nested-loop and cartesian joins). A global sort over several
+partitions range-partitions on its keys and sorts each partition, as in the
+JAX package. Windows, file scans and the rest come with later slices. One
+plan shape differs from the JAX package's: an ungrouped aggregate over
+several partitions exchanges its partials into one partition
+(``SinglePartitioning``) instead of coalescing them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 from .. import config as cfg
 from ..config import TpuConf
@@ -35,6 +37,13 @@ from ..exec.cpu import (
     CpuSortExec,
     CpuTakeOrderedAndProjectExec,
     CpuUnionExec,
+)
+from ..exec.cpu_join import (
+    CpuBroadcastExchangeExec,
+    CpuBroadcastHashJoinExec,
+    CpuCartesianProductExec,
+    CpuNestedLoopJoinExec,
+    CpuShuffledHashJoinExec,
 )
 from ..plan import logical as L
 from ..plan import partitioning as P
@@ -83,9 +92,34 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
         return CpuShuffleExchangeExec(part, child)
     if isinstance(lp, L.Hint):
         return plan_physical(lp.child, conf)
+    if isinstance(lp, L.Join):
+        return _plan_join(lp, conf)
     raise NotImplementedError(
         f"no physical plan for {type(lp).__name__} in the torch port yet"
     )
+
+
+def _estimate_size(lp: L.LogicalPlan) -> Optional[int]:
+    """Best-effort logical size estimate in bytes (Spark's statistics
+    sizeInBytes analogue) used only for broadcast-side selection."""
+    if isinstance(lp, L.LocalRelation):
+        return lp.table.nbytes
+    if isinstance(lp, (L.Project, L.Filter, L.Sort, L.Limit, L.Hint, L.Repartition)):
+        return _estimate_size(lp.children()[0])
+    if isinstance(lp, L.Union):
+        sizes = [_estimate_size(p) for p in lp.plans]
+        return None if any(s is None for s in sizes) else sum(sizes)
+    return None  # aggregates/joins: unknown → never auto-broadcast
+
+
+def _has_broadcast_hint(lp: L.LogicalPlan) -> bool:
+    """Hint detection looking through unary nodes (Spark propagates hints
+    up through unary operators)."""
+    if isinstance(lp, L.Hint):
+        return lp.name == "broadcast" or _has_broadcast_hint(lp.child)
+    if isinstance(lp, (L.Project, L.Filter, L.Sort, L.Limit, L.Repartition)):
+        return _has_broadcast_hint(lp.children()[0])
+    return False
 
 
 def _num_partitions_hint(e: Exec) -> int:
@@ -93,6 +127,11 @@ def _num_partitions_hint(e: Exec) -> int:
         return e.num_partitions
     if isinstance(e, (CpuCoalescePartitionsExec, CpuLimitExec)):
         return 1
+    if isinstance(e, CpuCartesianProductExec):
+        # pairwise fan-out: n_left × n_right tasks
+        return _num_partitions_hint(e.children[0]) * _num_partitions_hint(
+            e.children[1]
+        )
     if isinstance(e, CpuUnionExec):
         # union CONCATENATES its children's partitions — reporting only the
         # first child's count made aggregates over a union of
@@ -398,4 +437,119 @@ def _plan_aggregate(lp: L.Aggregate, conf: TpuConf) -> Exec:
     ]
     return CpuHashAggregateExec(
         "final", final_grouping, agg_fns, result_exprs, result_names, exchange
+    )
+
+
+def _coerce_join_keys(lp: L.Join) -> L.Join:
+    """Catalyst coerces mismatched equi-join key types at analysis (casts
+    the narrower side); without it, hash partitioning and word-encoded
+    matchers see different representations of equal values and silently
+    drop matches. Integral pairs widen to the wider side; integral/float
+    pairs promote to double."""
+    if not lp.left_keys:
+        return lp
+    from ..expr.cast import Cast
+    from ..types import DOUBLE, DoubleType, FloatType, IntegralType
+
+    lk, rk = list(lp.left_keys), list(lp.right_keys)
+    changed = False
+    for i, (a, b) in enumerate(zip(lk, rk)):
+        try:
+            ta = bind(a, lp.left.schema).data_type
+            tb = bind(b, lp.right.schema).data_type
+        except Exception:
+            continue
+        if type(ta) is type(tb):
+            continue
+        if isinstance(ta, IntegralType) and isinstance(tb, IntegralType):
+            wide = ta if ta.np_dtype.itemsize >= tb.np_dtype.itemsize else tb
+            if type(ta) is not type(wide):
+                lk[i] = Cast(a, wide)
+                changed = True
+            if type(tb) is not type(wide):
+                rk[i] = Cast(b, wide)
+                changed = True
+            continue
+        num = (IntegralType, FloatType, DoubleType)
+        if isinstance(ta, num) and isinstance(tb, num):
+            if not isinstance(ta, DoubleType):
+                lk[i] = Cast(a, DOUBLE)
+                changed = True
+            if not isinstance(tb, DoubleType):
+                rk[i] = Cast(b, DOUBLE)
+                changed = True
+    if not changed:
+        return lp
+    return dataclasses.replace(lp, left_keys=lk, right_keys=rk)
+
+
+def _plan_join(lp: L.Join, conf: TpuConf) -> Exec:
+    lp = _coerce_join_keys(lp)
+    nparts = cfg.SHUFFLE_PARTITIONS.get(conf)
+    if lp.left_keys:
+        jt = lp.join_type
+        # Build-side selection (hint, or estimated size under the threshold).
+        # build-right supports every type: right/full ride the broadcast
+        # exec's global build-matched tracking, which emits the
+        # unmatched-build tail exactly once across stream partitions.
+        # build-left is realized by swapping sides + a column-reordering
+        # projection.
+        threshold = cfg.AUTO_BROADCAST_THRESHOLD.get(conf)
+        l_hint, r_hint = _has_broadcast_hint(lp.left), _has_broadcast_hint(lp.right)
+
+        def fits(sz):
+            return threshold >= 0 and sz is not None and sz <= threshold
+
+        bc_right_ok = jt in (
+            "inner", "left", "left_semi", "left_anti", "right", "full",
+        )
+        bc_left_ok = jt in ("inner", "right", "left", "full") and not lp.using
+        want_right = bc_right_ok and (r_hint or fits(_estimate_size(lp.right)))
+        want_left = bc_left_ok and (l_hint or fits(_estimate_size(lp.left)))
+        if want_left and (not want_right or (l_hint and not r_hint)):
+            names = lp.schema.names
+            if len(set(names)) == len(names):  # unambiguous re-projection
+                swapped = L.Join(
+                    lp.right,
+                    lp.left,
+                    {"inner": "inner", "right": "left", "left": "right",
+                     "full": "full"}[jt],
+                    lp.right_keys,
+                    lp.left_keys,
+                    lp.residual,
+                    False,
+                )
+                return plan_physical(
+                    L.Project([UnresolvedAttribute(n) for n in names], swapped),
+                    conf,
+                )
+        if want_right:
+            drop = [output_name(k) for k in lp.right_keys] if lp.using else None
+            return CpuBroadcastHashJoinExec(
+                jt,
+                lp.left_keys,
+                lp.right_keys,
+                lp.residual,
+                plan_physical(lp.left, conf),
+                CpuBroadcastExchangeExec(plan_physical(lp.right, conf)),
+                drop,
+            )
+    left = plan_physical(lp.left, conf)
+    right = plan_physical(lp.right, conf)
+    if lp.left_keys:
+        drop = [output_name(k) for k in lp.right_keys] if lp.using else None
+        lex = CpuShuffleExchangeExec(P.HashPartitioning(nparts, lp.left_keys), left)
+        rex = CpuShuffleExchangeExec(P.HashPartitioning(nparts, lp.right_keys), right)
+        return CpuShuffledHashJoinExec(
+            lp.join_type, lp.left_keys, lp.right_keys, lp.residual, lex, rex, drop
+        )
+    if lp.join_type in ("cross", "inner"):
+        # pairwise-partition cartesian product (GpuCartesianProductExec:349);
+        # outer/semi shapes need global matched-set bookkeeping → NLJ below
+        return CpuCartesianProductExec(lp.residual, left, right)
+    return CpuNestedLoopJoinExec(
+        lp.join_type,
+        lp.residual,
+        CpuCoalescePartitionsExec(left),
+        CpuCoalescePartitionsExec(right),
     )

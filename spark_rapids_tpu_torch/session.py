@@ -10,13 +10,14 @@ The device is explicit: ``TorchSession(conf, device=None)`` runs on
 ``device="cpu"`` (the tests do). It never falls back to the CPU on its own.
 
 The DataFrame surface so far: ``create_dataframe``, ``select``,
-``filter``, ``agg``, ``group_by``, ``sort``, ``limit``, ``union`` and
-``repartition``, with the actions ``collect`` and ``explain``. Columns from
-a dict carry no nulls except strings (None); pass a ``HostBatch`` or an
-Arrow table for nullable fixed-width columns. Plans are column-pruned before
+``filter``, ``agg``, ``group_by``, ``sort``, ``limit``, ``union``,
+``repartition``, ``join``, ``cross_join``, ``with_column`` and
+``with_column_renamed``, with the actions ``collect`` and ``explain``.
+Columns from a dict carry no nulls except strings (None); pass a
+``HostBatch`` or an Arrow table for nullable fixed-width columns. Plans are column-pruned before
 planning (``plan/pruning.py``), and the session keeps the device batches of
 its in-memory tables in an upload cache (``_h2d_cache``, filled by
-``HostToDeviceExec``), as the JAX session does. Joins, SQL, ``df.cache()``,
+``HostToDeviceExec``), as the JAX session does. SQL, ``df.cache()``,
 scheduling and the service layers come with later slices.
 """
 from __future__ import annotations
@@ -37,7 +38,8 @@ from .columnar.host import (
     string_column,
 )
 from .config import TpuConf
-from .expr import Expression, UnresolvedAttribute
+from .exec.cpu_join import extract_equi_join_keys
+from .expr import Alias, Expression, UnresolvedAttribute
 from .functions import Column
 from .plan import logical as L
 from .plan.overrides import GpuOverrides
@@ -213,6 +215,28 @@ def _to_exprs(cols: Sequence[Union[str, Column, Expression]]) -> List[Expression
     return out
 
 
+#: every ``how`` spelling ``DataFrame.join`` takes, to the join type
+_JOIN_TYPES = {
+    "inner": "inner",
+    "left": "left",
+    "left_outer": "left",
+    "leftouter": "left",
+    "right": "right",
+    "right_outer": "right",
+    "rightouter": "right",
+    "outer": "full",
+    "full": "full",
+    "full_outer": "full",
+    "cross": "cross",
+    "semi": "left_semi",
+    "left_semi": "left_semi",
+    "leftsemi": "left_semi",
+    "anti": "left_anti",
+    "left_anti": "left_anti",
+    "leftanti": "left_anti",
+}
+
+
 class DataFrame:
     def __init__(self, session: TorchSession, plan: L.LogicalPlan):
         self._session = session
@@ -270,6 +294,76 @@ class DataFrame:
     def repartition(self, n: int, *cols) -> "DataFrame":
         exprs = _to_exprs(cols) if cols else None
         return DataFrame(self._session, L.Repartition(n, exprs, self._plan))
+
+    def with_column(self, name: str, c: Column) -> "DataFrame":
+        exprs: List[Expression] = []
+        replaced = False
+        for f in self.schema:
+            if f.name == name:
+                exprs.append(Alias(c.expr, name))
+                replaced = True
+            else:
+                exprs.append(UnresolvedAttribute(f.name))
+        if not replaced:
+            exprs.append(Alias(c.expr, name))
+        return DataFrame(self._session, L.Project(exprs, self._plan))
+
+    withColumn = with_column
+
+    def with_column_renamed(self, existing: str, new: str) -> "DataFrame":
+        """Rename one column; no-op when absent (pyspark semantics)."""
+        if existing not in self.schema.names:
+            return self
+        exprs = [
+            Alias(UnresolvedAttribute(n), new) if n == existing else UnresolvedAttribute(n)
+            for n in self.schema.names
+        ]
+        return self.select(*exprs)
+
+    withColumnRenamed = with_column_renamed
+
+    def join(
+        self,
+        other: "DataFrame",
+        on: Union[str, List, Column, None] = None,
+        how: str = "inner",
+    ) -> "DataFrame":
+        """``on``: a column name or a list of names (a USING join: the right
+        key columns leave the output), a list of ``(left, right)`` name
+        pairs, or a Column condition (split into equi keys and a residual)."""
+        how = _JOIN_TYPES[how]
+        lk: List[Expression] = []
+        rk: List[Expression] = []
+        using = False
+        residual = None
+        if on is None:
+            pass
+        elif isinstance(on, str):
+            lk, rk, using = [UnresolvedAttribute(on)], [UnresolvedAttribute(on)], True
+        elif isinstance(on, list) and on and isinstance(on[0], str):
+            lk = [UnresolvedAttribute(n) for n in on]
+            rk = [UnresolvedAttribute(n) for n in on]
+            using = True
+        elif isinstance(on, list) and on and isinstance(on[0], tuple):
+            lk = [UnresolvedAttribute(l) for l, _ in on]
+            rk = [UnresolvedAttribute(r) for _, r in on]
+        elif isinstance(on, Column):
+            lk, rk, residual = extract_equi_join_keys(on.expr, self.schema, other.schema)
+        else:
+            raise TypeError(
+                "join on= must be a name, list of names, list of (l, r) pairs, "
+                "or a Column condition"
+            )
+        return DataFrame(
+            self._session,
+            L.Join(self._plan, other._plan, how, lk, rk, residual, using),
+        )
+
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(
+            self._session,
+            L.Join(self._plan, other._plan, "cross", [], [], None, False),
+        )
 
     # ── actions ─────────────────────────────────────────────────────────
     def to_host(self) -> HostBatch:

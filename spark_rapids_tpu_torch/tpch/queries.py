@@ -1,8 +1,10 @@
 """TPC-H queries as DataFrame functions, and the port's own slice queries.
 
-Copied from ``spark_rapids_tpu/tpch/queries.py``: ``q1`` and ``q6`` as the
-JAX package writes them. The other 20 need joins and top-N on the device
-and come with later slices of the port (ROADMAP.md, Queue A).
+Copied from ``spark_rapids_tpu/tpch/queries.py``: ``q1`` and ``q6``, and
+the join queries ``q4``, ``q5``, ``q7``, ``q8``, ``q12``, ``q17`` and
+``q19``, as the JAX package writes them (``JOIN_QUERIES``). The other 13
+need top-N, ``Like``, decimals or casts on the device and come with later
+slices of the port (ROADMAP.md, Queue A).
 ``contains_agg`` and ``contains_rows`` put ``Column.contains`` — and with it
 the hand-written ``match_starts`` kernel — on the main path, once fused into
 an aggregate and once as a standalone filter whose rows (strings included)
@@ -23,7 +25,7 @@ from __future__ import annotations
 from datetime import date as D
 
 from .. import functions as F
-from ..functions import col, count, lit
+from ..functions import col, count, lit, when
 
 
 def q1(t):
@@ -57,6 +59,194 @@ def q6(t):
             & (col("l_quantity") < 24)
         )
         .agg(F.sum(col("l_extendedprice") * col("l_discount")).alias("revenue"))
+    )
+
+
+def q4(t):
+    late = t("lineitem").filter(
+        col("l_commitdate") < col("l_receiptdate")
+    ).select("l_orderkey")
+    return (
+        t("orders")
+        .filter((col("o_orderdate") >= D(1993, 7, 1))
+                & (col("o_orderdate") < D(1993, 10, 1)))
+        .join(late, on=[("o_orderkey", "l_orderkey")], how="left_semi")
+        .group_by("o_orderpriority")
+        .agg(count("*").alias("order_count"))
+        .order_by("o_orderpriority")
+    )
+
+
+def q5(t):
+    nat = (
+        t("nation")
+        .join(t("region").filter(col("r_name") == "ASIA"),
+              on=[("n_regionkey", "r_regionkey")])
+        .select("n_nationkey", "n_name")
+    )
+    supp = t("supplier").select("s_suppkey", "s_nationkey").join(
+        nat, on=[("s_nationkey", "n_nationkey")]
+    )
+    orders = t("orders").filter(
+        (col("o_orderdate") >= D(1994, 1, 1))
+        & (col("o_orderdate") < D(1995, 1, 1))
+    ).select("o_orderkey", "o_custkey")
+    cust = t("customer").select("c_custkey", "c_nationkey")
+    return (
+        cust.join(orders, on=[("c_custkey", "o_custkey")])
+        .join(t("lineitem").select("l_orderkey", "l_suppkey",
+                                   "l_extendedprice", "l_discount"),
+              on=[("o_orderkey", "l_orderkey")])
+        .join(supp, on=[("l_suppkey", "s_suppkey"),
+                        ("c_nationkey", "s_nationkey")])
+        .group_by("n_name")
+        .agg(F.sum(col("l_extendedprice") * (1 - col("l_discount"))).alias(
+            "revenue"))
+        .order_by(col("revenue").desc())
+    )
+
+
+def q7(t):
+    n1 = t("nation").select(col("n_nationkey").alias("n1_key"),
+                            col("n_name").alias("supp_nation"))
+    n2 = t("nation").select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("cust_nation"))
+    li = t("lineitem").filter(
+        (col("l_shipdate") >= D(1995, 1, 1))
+        & (col("l_shipdate") <= D(1996, 12, 31))
+    ).select("l_orderkey", "l_suppkey", "l_shipdate", "l_extendedprice",
+             "l_discount")
+    return (
+        li.join(t("orders").select("o_orderkey", "o_custkey"),
+                on=[("l_orderkey", "o_orderkey")])
+        .join(t("customer").select("c_custkey", "c_nationkey"),
+              on=[("o_custkey", "c_custkey")])
+        .join(t("supplier").select("s_suppkey", "s_nationkey"),
+              on=[("l_suppkey", "s_suppkey")])
+        .join(n1, on=[("s_nationkey", "n1_key")])
+        .join(n2, on=[("c_nationkey", "n2_key")])
+        .filter(
+            ((col("supp_nation") == "FRANCE") & (col("cust_nation") == "GERMANY"))
+            | ((col("supp_nation") == "GERMANY") & (col("cust_nation") == "FRANCE"))
+        )
+        .with_column("l_year", F.year(col("l_shipdate")))
+        .group_by("supp_nation", "cust_nation", "l_year")
+        .agg(F.sum(col("l_extendedprice") * (1 - col("l_discount"))).alias(
+            "revenue"))
+        .order_by("supp_nation", "cust_nation", "l_year")
+    )
+
+
+def q8(t):
+    amer = (
+        t("nation")
+        .join(t("region").filter(col("r_name") == "AMERICA"),
+              on=[("n_regionkey", "r_regionkey")])
+        .select(col("n_nationkey").alias("rn_key"))
+    )
+    n2 = t("nation").select(col("n_nationkey").alias("n2_key"),
+                            col("n_name").alias("nation"))
+    part = t("part").filter(
+        col("p_type") == "ECONOMY ANODIZED STEEL"
+    ).select("p_partkey")
+    orders = t("orders").filter(
+        (col("o_orderdate") >= D(1995, 1, 1))
+        & (col("o_orderdate") <= D(1996, 12, 31))
+    ).select("o_orderkey", "o_custkey", "o_orderdate")
+    vol = col("l_extendedprice") * (1 - col("l_discount"))
+    return (
+        part.join(t("lineitem").select("l_partkey", "l_orderkey", "l_suppkey",
+                                       "l_extendedprice", "l_discount"),
+                  on=[("p_partkey", "l_partkey")])
+        .join(orders, on=[("l_orderkey", "o_orderkey")])
+        .join(t("customer").select("c_custkey", "c_nationkey"),
+              on=[("o_custkey", "c_custkey")])
+        .join(amer, on=[("c_nationkey", "rn_key")])
+        .join(t("supplier").select("s_suppkey", "s_nationkey"),
+              on=[("l_suppkey", "s_suppkey")])
+        .join(n2, on=[("s_nationkey", "n2_key")])
+        .with_column("o_year", F.year(col("o_orderdate")))
+        .with_column("volume", vol)
+        .group_by("o_year")
+        .agg(
+            (F.sum(when(col("nation") == "BRAZIL", col("volume")).otherwise(0.0))
+             / F.sum(col("volume"))).alias("mkt_share")
+        )
+        .order_by("o_year")
+    )
+
+
+def q12(t):
+    li = t("lineitem").filter(
+        col("l_shipmode").isin("MAIL", "SHIP")
+        & (col("l_commitdate") < col("l_receiptdate"))
+        & (col("l_shipdate") < col("l_commitdate"))
+        & (col("l_receiptdate") >= D(1994, 1, 1))
+        & (col("l_receiptdate") < D(1995, 1, 1))
+    ).select("l_orderkey", "l_shipmode")
+    high = when(
+        col("o_orderpriority").isin("1-URGENT", "2-HIGH"), 1
+    ).otherwise(0)
+    return (
+        t("orders").select("o_orderkey", "o_orderpriority")
+        .join(li, on=[("o_orderkey", "l_orderkey")])
+        .group_by("l_shipmode")
+        .agg(
+            F.sum(high).alias("high_line_count"),
+            F.sum(1 - high).alias("low_line_count"),
+        )
+        .order_by("l_shipmode")
+    )
+
+
+def q17(t):
+    part = t("part").filter(
+        (col("p_brand") == "Brand#23") & (col("p_container") == "MED BOX")
+    ).select("p_partkey")
+    li = t("lineitem").select("l_partkey", "l_quantity", "l_extendedprice")
+    avg_qty = (
+        li.join(part, on=[("l_partkey", "p_partkey")])
+        .group_by("l_partkey")
+        .agg((F.avg(col("l_quantity")) * 0.2).alias("qty_limit"))
+        .with_column_renamed("l_partkey", "a_partkey")
+    )
+    return (
+        li.join(part, on=[("l_partkey", "p_partkey")])
+        .join(avg_qty, on=[("l_partkey", "a_partkey")])
+        .filter(col("l_quantity") < col("qty_limit"))
+        .agg((F.sum(col("l_extendedprice")) / 7.0).alias("avg_yearly"))
+    )
+
+
+def q19(t):
+    li = t("lineitem").filter(
+        col("l_shipmode").isin("AIR", "AIR REG")
+        & (col("l_shipinstruct") == "DELIVER IN PERSON")
+    ).select("l_partkey", "l_quantity", "l_extendedprice", "l_discount")
+    joined = li.join(
+        t("part").select("p_partkey", "p_brand", "p_container", "p_size"),
+        on=[("l_partkey", "p_partkey")],
+    )
+    c1 = (
+        (col("p_brand") == "Brand#12")
+        & col("p_container").isin("SM CASE", "SM BOX", "SM PACK", "SM PKG")
+        & (col("l_quantity") >= 1) & (col("l_quantity") <= 11)
+        & (col("p_size") >= 1) & (col("p_size") <= 5)
+    )
+    c2 = (
+        (col("p_brand") == "Brand#23")
+        & col("p_container").isin("MED BAG", "MED BOX", "MED PKG", "MED PACK")
+        & (col("l_quantity") >= 10) & (col("l_quantity") <= 20)
+        & (col("p_size") >= 1) & (col("p_size") <= 10)
+    )
+    c3 = (
+        (col("p_brand") == "Brand#34")
+        & col("p_container").isin("LG CASE", "LG BOX", "LG PACK", "LG PKG")
+        & (col("l_quantity") >= 20) & (col("l_quantity") <= 30)
+        & (col("p_size") >= 1) & (col("p_size") <= 15)
+    )
+    return joined.filter(c1 | c2 | c3).agg(
+        F.sum(col("l_extendedprice") * (1 - col("l_discount"))).alias("revenue")
     )
 
 
@@ -119,4 +309,15 @@ SLICE_QUERIES = {
     "orders_by_priority": (orders_by_priority, ("orders",)),
     "q18_big_orders": (q18_big_orders, ("lineitem",)),
     "union_limit": (union_limit, ("lineitem",)),
+}
+
+#: the TPC-H queries this slice adds, by name, with the tables each reads
+JOIN_QUERIES = {
+    "q4": (q4, ("orders", "lineitem")),
+    "q5": (q5, ("nation", "region", "supplier", "orders", "customer", "lineitem")),
+    "q7": (q7, ("nation", "lineitem", "orders", "customer", "supplier")),
+    "q8": (q8, ("nation", "region", "part", "orders", "lineitem", "customer", "supplier")),
+    "q12": (q12, ("lineitem", "orders")),
+    "q17": (q17, ("part", "lineitem")),
+    "q19": (q19, ("lineitem", "part")),
 }

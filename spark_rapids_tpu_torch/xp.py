@@ -117,6 +117,11 @@ class TorchNamespace:
     def isnan(self, x):
         return torch.isnan(self.asarray(x))
 
+    def floor_divide(self, a, b):
+        """numpy's ``floor_divide``: rounds toward negative infinity, so
+        negative operands (dates before 1970) divide as numpy's do."""
+        return torch.div(self.asarray(a), _pyscalar(b), rounding_mode="floor")
+
     # ── reductions and scans ────────────────────────────────────────────
     def cumsum(self, x, axis=None):
         if axis is None:

@@ -4,9 +4,13 @@ against the JAX package's device engine on JAX-CPU and its CPU engine, rows
 within the harness's tolerance (rel 1e-9, abs 1e-11), with no compute
 fallback in the port's plan; q1, q6, ``orders_by_priority``,
 ``q18_big_orders`` and ``union_limit`` also from 3 input partitions at 2
-shuffle partitions, through the device exchange. Also the partial
-aggregate's merge of several batches, the out-of-core sort, and the port's
-import and device rules."""
+shuffle partitions, through the device exchange. The TPC-H join queries
+q4, q5, q7, q8, q12, q17 and q19 over all eight tables, under broadcast
+plans (the default threshold) and shuffled ones (threshold -1, 3 input
+partitions at 2 shuffle partitions), against the JAX CPU engine; q4 and
+q12 (both plans) and q5 (broadcast plans) also against the JAX device
+engine, with the same join execs in the plan. Also the partial aggregate's merge of several batches, the
+out-of-core sort, and the port's import and device rules."""
 from __future__ import annotations
 
 import pathlib
@@ -24,9 +28,11 @@ from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch import functions as PF
 from spark_rapids_tpu_torch.ops import strings_kernels as SK
 from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
-from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+from spark_rapids_tpu_torch.tpch.datagen import gen_table as port_gen_table
+from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
 
 import spark_rapids_tpu.functions as JF
+from spark_rapids_tpu.config import SQL_ENABLED as _JAX_SQL_ENABLED
 
 SF = 0.002
 
@@ -40,6 +46,21 @@ def tables():
 @pytest.fixture(scope="module")
 def jax_tables():
     return {n: jax_gen_table(n, SF) for n in ("orders", "lineitem")}
+
+
+_ALL_TABLES = ("nation", "region", "supplier", "customer", "part", "orders", "lineitem")
+
+
+@pytest.fixture(scope="module")
+def all_tables(tables):
+    out = {n: port_gen_table(n, SF) for n in _ALL_TABLES if n not in tables}
+    return {**out, **tables}
+
+
+@pytest.fixture(scope="module")
+def all_jax_tables(jax_tables):
+    out = {n: jax_gen_table(n, SF) for n in _ALL_TABLES if n not in jax_tables}
+    return {**out, **jax_tables}
 
 
 def _port_session(enabled=True, device="cpu"):
@@ -244,12 +265,12 @@ def test_port_imports_no_jax_and_no_jax_package():
     code = """
 import sys
 from spark_rapids_tpu_torch import TorchSession
-from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
-from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
-o, l = gen_orders_lineitem(0.0002)
+from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_table
+from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
+tables = {n: gen_table(n, 0.0002) for n in TABLES}
 s = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
-for fn, _ in SLICE_QUERIES.values():
-    fn(lambda t: s.create_dataframe({"orders": o, "lineitem": l}[t])).collect()
+for fn, _ in list(SLICE_QUERIES.values()) + list(JOIN_QUERIES.values()):
+    fn(lambda t: s.create_dataframe(tables[t])).collect()
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
@@ -425,3 +446,61 @@ def test_contains_edge_cases_match_jax(pat, rows):
     ).collect()
     _assert_rows_equal(got, cpu, "device vs CPU engine")
     _assert_rows_equal(got, jax_rows, "port vs JAX CPU engine")
+
+
+#: the join queries' two plan shapes: every join that may broadcast does
+#: (the default threshold, one input partition), or none does (threshold
+#: -1, 3 input partitions at 2 shuffle partitions)
+_JOIN_MODES = {
+    "broadcast": ({}, 1, "GpuBroadcastHashJoin"),
+    "shuffled": (
+        {"spark.sql.autoBroadcastJoinThreshold": -1, "spark.sql.shuffle.partitions": 2},
+        3,
+        "GpuShuffledHashJoin",
+    ),
+}
+
+
+def _join_kinds(plan: str) -> list:
+    """The plan's hash joins in tree order, without the engine's prefix."""
+    return [
+        ln.strip().lstrip("* ").split(" ")[0][3:]
+        for ln in plan.splitlines()
+        if "HashJoin" in ln
+    ]
+
+
+@pytest.mark.parametrize("mode", list(_JOIN_MODES))
+@pytest.mark.parametrize("name", list(JOIN_QUERIES))
+def test_join_query_matches_jax(name, mode, all_tables, all_jax_tables):
+    """A TPC-H join query through the port (device="cpu", strict mode):
+    nothing off the device but the scans, the mode's join exec in the plan,
+    and the rows equal to the JAX CPU engine's within the harness's
+    tolerance, in order. q4 and q12 in both modes, and q5 under broadcast
+    plans, are also held against the JAX device engine, whose plan must
+    hold the same hash joins (its compiles on JAX-CPU bound how many)."""
+    from spark_rapids_tpu.tpch import queries as jq
+
+    conf, parts, kind = _JOIN_MODES[mode]
+    fn, used = JOIN_QUERIES[name]
+    port = TorchSession(
+        {"spark.rapids.sql.enabled": True, "spark.rapids.sql.test.enabled": True, **conf},
+        device="cpu",
+    )
+    df = fn(lambda t: port.create_dataframe(all_tables[t], num_partitions=parts))
+    got = df.collect()
+    _no_compute_fallback(port)
+    plan = df.explain()
+    assert kind in plan, plan
+    if mode == "shuffled":
+        assert "BroadcastHashJoin" not in plan, plan
+    assert got, name
+    jfn = getattr(jq, name)
+    sessions = [cpu_session(conf)]
+    if name in ("q4", "q12") or (name, mode) == ("q5", "broadcast"):
+        sessions.append(tpu_session(conf))
+    for session in sessions:
+        jdf = jfn(lambda t: session.create_dataframe(all_jax_tables[t], num_partitions=parts))
+        _assert_rows_equal(got, jdf.collect(), f"{name} ({mode}) port vs JAX")
+        if session.conf.is_enabled(_JAX_SQL_ENABLED):
+            assert _join_kinds(plan) == _join_kinds(jdf.explain()), (plan, jdf.explain())

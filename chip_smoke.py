@@ -20,8 +20,17 @@ against the port's own CPU engine:
   split into the join's phase 1 (key sort and bounds) and phase 2 (pair
   expansion and gathers), and so once more from 4 input partitions at 8
   shuffle partitions;
+* the TPC-H path: the other 13 TPC-H queries (q2, q3, q9, q10, q11, q13,
+  q14, q15, q16, q18, q20, q21, q22: top-N, ``Like``, ``Substring`` and the
+  resolved subqueries), one input partition, each once in a fresh session,
+  nothing off the device but the scans, at least one top-N on its
+  candidate path; then one line of all 22 queries' device walls beside the
+  CPU engine's with the geomean of the ratio; q13 once more, timed split
+  into its ``Like`` (the byte-NFA) and the rest; and the radix select held
+  against ``torch.kthvalue`` on 2^21 seeded words (a check, off the main
+  path);
 * the partitioned path: q1, q6, ``orders_by_priority``, ``q18_big_orders``,
-  ``union_limit``, q5 and q12 from 4 input partitions at 8 shuffle
+  ``union_limit``, q5, q12, q3 and q18 from 4 input partitions at 8 shuffle
   partitions, each twice, through the device exchange and the upload cache
   (the second run of each must upload nothing).
 
@@ -38,10 +47,16 @@ it uploaded and the CPU engine's time, and the main path's launches per
 kernel path; q1's time split; the join phase, one line per query with its
 device wall, bytes uploaded, peak device memory, the hash joins in its plan,
 its host syncs for join output sizes and the CPU engine's time, and the
-phase's kernel launches; q5's join split, on one partition and on 4 input
-at 8 shuffle partitions; the partitioned phase, one line per query and
-run with its device wall, bytes uploaded and peak device memory, the time
-of the exchanges' murmur3 calls, and the phase's kernel launches; a
+phase's kernel launches; the TPC-H phase, one line per query with its
+device wall, bytes uploaded, peak device memory above what the session
+held, nodes off the device, top-N candidate hits, radix selects (count,
+word counts, time) and the CPU engine's time, then the 22-query line, the
+q13 ``Like`` split (CUDA events; one ``like_nfa``'s kernel launches
+under torch.profiler) and the radix-select check with its time; q5's join
+split, on one partition and on 4 input at 8 shuffle partitions; the
+partitioned phase, one line per query and run with its device wall, bytes
+uploaded and peak device memory, the top-N candidate hits, the time of the
+exchanges' murmur3 calls, and the phase's kernel launches; a
 torch.profiler run each of the partitioned q1 and q5 (device busy time
 against the wall, the kernels that took the most); the time
 of murmur3 over a wide string key; one JSON line with each kernel's
@@ -51,6 +66,7 @@ launches on the main path, error, times and bound; and last the line
 from __future__ import annotations
 
 import ast
+import gc
 import json
 import re
 import subprocess
@@ -227,7 +243,7 @@ def slice_phase(tables) -> dict:
     cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.LAUNCHES = 0  # counts from here on are the main path's
     SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
-    cpu_rows = {}
+    cpu_rows, walls = {}, {}
     for name, (fn, used) in SLICE_QUERIES.items():
         before = SK.LAUNCHES
         t0 = time.perf_counter()
@@ -250,6 +266,7 @@ def slice_phase(tables) -> dict:
             raise AssertionError(f"{name}: device rows differ from the CPU engine: {msg}")
         if name.startswith("contains") and launches == 0:
             raise AssertionError(f"{name}: match_starts was not launched")
+        walls[name] = (wall_ms, cpu_ms)
         rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
         log(f"slice phase: {name} at SF {SF} over {'+'.join(used)}: device wall "
             f"{wall_ms:.1f} ms, uploaded {uploaded} bytes ({'+'.join(map(str, widths))} "
@@ -261,6 +278,7 @@ def slice_phase(tables) -> dict:
         "match_starts": SK.LAUNCHES,
         "match_starts_by_path": dict(SK.LAUNCHES_BY_PATH),
         "cpu_rows": cpu_rows,
+        "walls": walls,
     }
 
 
@@ -269,12 +287,12 @@ def _join_kinds(plan: str) -> list:
     return [ln.strip().lstrip("* ").split(" ")[0] for ln in plan.splitlines() if "HashJoin" in ln]
 
 
-def join_phase(tables) -> dict:
+def join_phase(tables, walls) -> dict:
     """The TPC-H join queries on the card and on the port's CPU engine, one
     input partition each. Every result must equal the CPU engine's with
     nothing off the device but the scans, and the plans must hold both
     kinds of hash join between them. Returns the CPU engine's rows by
-    query."""
+    query; each query's device and CPU-engine walls go into ``walls``."""
     import torch
 
     from spark_rapids_tpu_torch import TorchSession
@@ -309,6 +327,7 @@ def join_phase(tables) -> dict:
         ok, msg = rows_equal(got, want)
         if not ok or not want:
             raise AssertionError(f"join {name}: device rows differ from the CPU engine: {msg}")
+        walls[name] = (wall_ms, cpu_ms)
         rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
         log(f"join phase: {name} at SF {SF} over {'+'.join(used)}: device wall {wall_ms:.1f} ms, "
             f"uploaded {metrics['hostToDeviceBytes']} bytes, peak device memory {peak} bytes "
@@ -321,6 +340,181 @@ def join_phase(tables) -> dict:
     log(f"join phase: match_starts launches {SK.LAUNCHES}, per path "
         f"{json.dumps(SK.LAUNCHES_BY_PATH)} (the join queries hold no string search)")
     return cpu_rows
+
+
+#: the TPC-H queries that run on the card since top-N, ``Like``,
+#: ``Substring`` and subquery resolution came to the port; with the slice
+#: phase's q1 and q6 and the join phase's seven they are all 22
+TPCH_NEW = (2, 3, 9, 10, 11, 13, 14, 15, 16, 18, 20, 21, 22)
+
+
+def tpch_phase(tables, walls) -> dict:
+    """The other 13 TPC-H queries on the card and on the port's CPU engine,
+    one input partition, each run once cold (a fresh session: its pruned
+    columns uploaded). Every result must equal the CPU engine's with
+    nothing off the device but the scans (the subqueries' plans included),
+    and at least one top-N must take the candidate path. Each query's
+    radix selects are timed with CUDA events. Returns the CPU engine's rows
+    by query; the walls go into ``walls``."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import gpu as G
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import tpch_query
+
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    SK.LAUNCHES = 0  # this path's own counts
+    SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
+    real_select = G.radix_select_kth
+    cpu_rows, total_hits = {}, 0
+    for n in TPCH_NEW:
+        name = f"q{n}"
+        gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
+        timer = PhaseTimer()
+        shapes = []
+
+        def select(words, k, _timed=timer.wrap("radix", real_select)):
+            shapes.append(int(words.shape[0]))
+            return _timed(words, k)
+
+        G.radix_select_kth = select
+        try:
+            gc.collect()  # free the last query's session before reading what is held
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = tpch_query(n, lambda t: gpu.create_dataframe(tables[t]), SF).collect()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            G.radix_select_kth = real_select
+        peak = torch.cuda.max_memory_allocated()
+        metrics = gpu._last_metrics
+        off = _off_device(gpu)
+        if off:
+            raise AssertionError(f"tpch {name}: nodes off the device: {off}")
+        hits = metrics.get("topNCandidateHits", 0)
+        total_hits += hits
+        radix_ms = timer.totals_ms()["radix"]
+        t0 = time.perf_counter()
+        want = cpu_rows[name] = tpch_query(n, lambda t: cpu.create_dataframe(tables[t]), SF).collect()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ok, msg = rows_equal(got, want)
+        if not ok or (not want and n != 20):
+            raise AssertionError(f"tpch {name}: device rows differ from the CPU engine: {msg}")
+        walls[name] = (wall_ms, cpu_ms)
+        rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
+        log(f"tpch phase: {name} at SF {SF}, one input partition, cold: device wall "
+            f"{wall_ms:.1f} ms, uploaded {metrics['hostToDeviceBytes']} bytes, peak device memory "
+            f"{peak} bytes ({peak - held} above the {held} held before it), nodes off the device "
+            f"0 (only scans), top-N candidate hits {hits}, radix selects {len(shapes)} over "
+            f"{shapes} words {radix_ms:.3f} ms, join output-size syncs "
+            f"{metrics['joinProbeSyncs']}, CPU engine {cpu_ms:.1f} ms, result {rows}; equal to "
+            "the CPU engine")
+    if total_hits == 0:
+        raise AssertionError("tpch phase: no top-N took the candidate path")
+    log(f"tpch phase: top-N candidate hits {total_hits}; match_starts launches {SK.LAUNCHES}, "
+        f"per path {json.dumps(SK.LAUNCHES_BY_PATH)} (no TPC-H query holds a contains)")
+    return cpu_rows
+
+
+def tpch_summary(walls) -> None:
+    """All 22 queries' device walls (one input partition, each the query's
+    first run) beside the CPU engine's, and the geomean of the ratio."""
+    import math
+
+    names = [f"q{n}" for n in range(1, 23)]
+    missing = [q for q in names if q not in walls]
+    if missing:
+        raise AssertionError(f"tpch summary: no wall for {missing}")
+    ratios = [walls[q][1] / walls[q][0] for q in names]
+    geo = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
+    log("tpch summary: 22 queries at SF {} on one input partition, device wall / CPU engine "
+        "ms: {}; geomean of CPU engine / device {:.2f}x".format(
+            SF, ", ".join(f"{q} {walls[q][0]:.1f}/{walls[q][1]:.1f}" for q in names), geo))
+
+
+def q13_like_split(tables) -> None:
+    """q13 on the card once more (a fresh session: cold upload), the device
+    time of its ``Like`` (``like_nfa``) from CUDA events against the wall;
+    then one ``like_nfa`` over the same o_comment plane alone, timed with
+    CUDA events and its kernel launches counted under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.columnar.device import host_to_device
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    from spark_rapids_tpu_torch.expr import strings as ST
+    from spark_rapids_tpu_torch.tpch.queries import tpch_query
+    from spark_rapids_tpu_torch.types import Schema
+
+    timer = PhaseTimer()
+    real = ST.like_nfa
+    try:
+        ST.like_nfa = timer.wrap("like", real)
+        gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tpch_query(13, lambda t: gpu.create_dataframe(tables[t]), SF).collect()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ST.like_nfa = real
+    like_ms = timer.totals_ms()["like"]
+    calls = len(timer.spans["like"])
+    if not calls:
+        raise AssertionError("q13 Like split: like_nfa was never called")
+
+    orders = tables["orders"]
+    i = orders.schema.index_of("o_comment")
+    one = HostBatch(Schema([orders.schema[i]]), [orders.columns[i]], orders.num_rows)
+    c = host_to_device(one, "cuda").columns[0]
+    toks = ST.like_tokens("%special%requests%")
+    alone_ms = time_ms(lambda: real(c.data, c.lengths, toks), reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        real(c.data, c.lengths, toks)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = (f"{len(kernels)} kernels launched, device busy "
+            f"{sum(e.self_device_time_total for e in kernels) / 1e3:.3f} ms (torch.profiler)"
+            if kernels else "kernel launches not measured (the profiler saw no device time)")
+    log(f"q13 Like split: device wall {wall_ms:.1f} ms = Like (like_nfa, {calls} calls) "
+        f"{like_ms:.3f} ms, rest (upload, join, two aggregates, sort, download, host) "
+        f"{wall_ms - like_ms:.1f} ms; one like_nfa over the [{c.capacity}, {c.str_width}] "
+        f"o_comment plane, {len(toks)} tokens: {alone_ms:.3f} ms (CUDA events), {busy}")
+    del c
+    torch.cuda.empty_cache()
+
+
+def radix_select_check() -> None:
+    """The radix select on the card against the k-th value from
+    ``torch.kthvalue`` on 2^21 seeded words with ties, and its time. A
+    check, not the main path."""
+    import torch
+
+    from spark_rapids_tpu_torch.ops.sortkeys import radix_select_kth
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    n = 1 << 21
+    words = torch.randint(-(2**63), 2**63 - 1, (n,), generator=g, device="cuda", dtype=torch.int64)
+    words[::5] = words[1]  # ties
+    words[:3] = torch.tensor([-(2**63), 2**63 - 1, 0], device="cuda")
+    for k in (1, 100, n // 2, n):
+        got = int(radix_select_kth(words, k))
+        want = int(torch.kthvalue(words, k).values)
+        if got != want:
+            raise AssertionError(f"radix select: k={k} gave {got}, kthvalue {want}")
+    ms = time_ms(lambda: radix_select_kth(words, 100), reps=5)
+    kth_ms = time_ms(lambda: torch.kthvalue(words, 100), reps=5)
+    log(f"radix select: 2^21 seeded int64 words, k in (1, 100, 2^20, 2^21) equal to "
+        f"torch.kthvalue; radix_select_kth {ms:.3f} ms (64 steps of count-reductions, no host "
+        f"sync), torch.kthvalue {kth_ms:.3f} ms")
+    del words
 
 
 def q5_split(tables, conf=None, parts: int = 1, label: str = "q5 split") -> None:
@@ -364,7 +558,9 @@ def q5_split(tables, conf=None, parts: int = 1, label: str = "q5 split") -> None
 
 
 #: the partitioned phase's queries; all but union_limit exchange their rows
-PARTITIONED = ("q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit", "q5", "q12")
+PARTITIONED = (
+    "q1", "q6", "orders_by_priority", "q18_big_orders", "union_limit", "q5", "q12", "q3", "q18",
+)
 INPUT_PARTITIONS = 4
 SHUFFLE_PARTITIONS = 8
 
@@ -384,9 +580,14 @@ def partitioned_phase(tables, cpu_rows) -> None:
     from spark_rapids_tpu_torch.exec import gpu as G
     from spark_rapids_tpu_torch.ops import strings_kernels as SK
     from spark_rapids_tpu_torch.testing import rows_equal
-    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES, q3, q18
 
-    queries = {**SLICE_QUERIES, **JOIN_QUERIES}
+    queries = {
+        **SLICE_QUERIES,
+        **JOIN_QUERIES,
+        "q3": (q3, ("customer", "orders", "lineitem")),
+        "q18": (q18, ("lineitem", "orders", "customer")),
+    }
     gpu = TorchSession(
         {"spark.rapids.sql.enabled": True, "spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS},
         device="cuda",
@@ -437,6 +638,8 @@ def partitioned_phase(tables, cpu_rows) -> None:
                 f"CPU engine"
                 + (f", joins {joins}, join output-size syncs "
                    f"{gpu._last_metrics['joinProbeSyncs']}" if joins else "")
+                + (f", top-N candidate hits {gpu._last_metrics['topNCandidateHits']}"
+                   if "GpuTakeOrderedAndProject" in plan else "")
                 + f"; exchanges' murmur3 {hash_ms:.3f} ms over {len(shapes)} calls "
                 f"{json.dumps(sorted(set((n, tuple(k)) for n, k in shapes)))}")
     log(f"partitioned phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)} "
@@ -631,12 +834,17 @@ def main() -> int:
         f"replaces={record['replaces']} launches in the kernel phase {SK.LAUNCHES}")
 
     launches = slice_phase(tables)
+    walls = launches["walls"]
     q1_split(tables)
-    join_rows = join_phase(tables)
+    join_rows = join_phase(tables, walls)
+    tpch_rows = tpch_phase(tables, walls)
+    tpch_summary(walls)
+    q13_like_split(tables)
+    radix_select_check()
     q5_split(tables)
     q5_split(tables, {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}, INPUT_PARTITIONS,
              f"q5 split at {INPUT_PARTITIONS} input and {SHUFFLE_PARTITIONS} shuffle partitions")
-    partitioned_phase(tables, {**launches["cpu_rows"], **join_rows})
+    partitioned_phase(tables, {**launches["cpu_rows"], **join_rows, **tpch_rows})
     wide_string_hash(orders)
     record["launches"] = launches["match_starts"]
     record["launches_by_path"] = launches["match_starts_by_path"]

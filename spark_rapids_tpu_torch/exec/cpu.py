@@ -32,7 +32,7 @@ from . import task
 from ..ops.hash import murmur3_rows, partition_ids
 from ..plan.logical import SortOrder
 from ..plan.physical import Exec, ExecContext, PartitionSet
-from ..types import Schema, StructField
+from ..types import NullType, Schema, StringType, StructField
 from . import cpu_kernels as ck
 
 
@@ -587,6 +587,56 @@ class CpuTakeOrderedAndProjectExec(Exec):
 
     def node_string(self):
         return f"CpuTakeOrderedAndProject n={self.n} [{', '.join(map(str, self.order))}]"
+
+
+class CpuExpandExec(Exec):
+    """Projection-list fan-out: each input row produces one output row per
+    projection (reference: GpuExpandExec.scala) — the engine under the
+    rewrite of several DISTINCT column sets."""
+
+    def __init__(self, projections: List[List[Expression]], names: List[str], child: Exec):
+        super().__init__([child])
+        self.projections = [[bind(e, child.output) for e in proj] for proj in projections]
+        self._schema = expand_schema(self.projections, names)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        schema_in = self.children[0].output
+        schema_out = self._schema
+
+        def fn(it):
+            for rb in it:
+                c = _cpu_ctx(rb, schema_in)
+                for proj in self.projections:
+                    cols = []
+                    for e, f in zip(proj, schema_out):
+                        d, v = _val_to_np(c, e.eval(c))
+                        if not isinstance(f.data_type, StringType) and d.dtype != f.data_type.np_dtype:
+                            d = d.astype(f.data_type.np_dtype)
+                        cols.append((d, v))
+                    yield batch_from_columns(schema_out, cols)
+
+        return self.children[0].execute(ctx).map_partitions(fn)
+
+    def node_string(self):
+        return f"CpuExpand x{len(self.projections)}"
+
+
+def expand_schema(projections: List[List[Expression]], names: List[str]) -> Schema:
+    """An Expand's output: each column takes the first non-NULL type among
+    its projections, and is nullable if any projection's is."""
+    fields = []
+    for i, name in enumerate(names):
+        es = [proj[i] for proj in projections]
+        dt = next(
+            (e.data_type for e in es if not isinstance(e.data_type, NullType)),
+            es[0].data_type,
+        )
+        fields.append(StructField(name, dt, any(e.nullable for e in es)))
+    return Schema(fields)
 
 
 class CpuLimitExec(Exec):

@@ -7,8 +7,9 @@ session's upload cache, and ``DeviceToHostExec``),
 ``GpuHashAggregateExec`` (sort-based group-by in the partial, final and
 complete modes; its filter-fusion decision is the JAX package's
 ``_fused_child``), ``GpuSortExec``, ``GpuUnionExec``,
-``GpuCoalescePartitionsExec``, ``GpuShuffleExchangeExec`` and
-``GpuLimitExec``.
+``GpuCoalescePartitionsExec``, ``GpuShuffleExchangeExec``,
+``GpuLimitExec``, ``GpuTakeOrderedAndProjectExec`` (top-N, with the radix
+select's candidate prefilter) and ``GpuExpandExec``.
 
 Eager torch runs each operator's expression tree as it comes — there is no
 per-shape program to compile — so the JAX package's kernel cache, compile
@@ -31,6 +32,7 @@ import torch
 from ..columnar.device import (
     DeviceBatch,
     DeviceColumn,
+    bucket_capacity,
     dc_replace,
     device_to_host,
     empty_batch,
@@ -43,7 +45,15 @@ from ..ops.aggregate import group_aggregate
 from ..ops.concat import concat_device
 from ..ops.gather import bulk_shrink, compact, gather_batch, partition_slices, slice_head
 from ..ops.hash import murmur3_rows, partition_ids
-from ..ops.sortkeys import column_radix_words, merge_permutation, sort_permutation
+from ..ops.scan import first_k_positions
+from ..ops.sortkeys import (
+    WORD_MAX,
+    WORD_MIN,
+    column_radix_words,
+    merge_permutation,
+    radix_select_kth,
+    sort_permutation,
+)
 from ..plan.logical import SortOrder
 from ..plan.partitioning import (
     SAMPLE_PER_BATCH,
@@ -1003,3 +1013,139 @@ class GpuLimitExec(Exec):
 
     def node_string(self):
         return f"GpuLimit n={self.n}"
+
+
+# ── top-N and expand ────────────────────────────────────────────────────────
+
+#: below this capacity the full sort is cheap enough that the candidate
+#: pass's host sync would dominate (the JAX package's ``TOPK_MIN_CAPACITY``)
+TOPK_MIN_CAPACITY = 1 << 15
+
+
+def topn_candidates(batch: DeviceBatch, first: SortOrder, k: int):
+    """(mask, count) of the live rows whose FIRST radix word ties or beats
+    the k-th best — a superset of the true top-k (ties at the boundary are
+    kept; later sort keys only reorder within first-word ties). The JAX
+    package's ``TpuTakeOrderedAndProjectExec._candidate_fn``: the word is
+    ``value_only`` (a leading validity word would make a {0, 1} threshold);
+    nulls get the boundary key of their ordering, dead rows the largest."""
+    c = Ctx.for_device(batch)
+    live = batch.row_mask()
+    col = val_to_column(c, first.child.eval(c), first.child.data_type)
+    col = dc_replace(col, validity=col.validity & live)
+    nulls_first = first.resolved_nulls_first()
+    w0 = column_radix_words(col, first.ascending, nulls_first, value_only=True)[0]
+    w0 = torch.where(col.validity, w0, WORD_MIN if nulls_first else WORD_MAX)
+    w0 = torch.where(live, w0, WORD_MAX)
+    kth = radix_select_kth(w0, min(k, int(w0.shape[0])))
+    mask = live & (w0 <= kth)
+    return mask, mask.sum(dtype=torch.int32)
+
+
+class GpuTakeOrderedAndProjectExec(Exec):
+    """Top-N on the device: per-partition sort + head(n), then a merged
+    final sort + head(n) (reference: GpuTakeOrderedAndProjectExec,
+    limit.scala) — the JAX package's ``TpuTakeOrderedAndProjectExec``.
+
+    A large batch first keeps only the candidates of ``topn_candidates``
+    when they fit in a quarter of its capacity: one host sync (the count)
+    buys sorting the candidates instead of the whole batch. The candidates
+    are gathered in row order, so the stable sort after them breaks ties as
+    the full sort would. Each time that path is taken adds one to the
+    query's ``topNCandidateHits`` counter."""
+
+    def __init__(self, n: int, order: list, child: Exec):
+        super().__init__([child])
+        self.n = n
+        self.order = [
+            SortOrder(bind(o.child, child.output), o.ascending, o.nulls_first) for o in order
+        ]
+
+    @property
+    def output(self) -> Schema:
+        return self.children[0].output
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        limit = self.n
+        sort_fn = device_sort_fn(self.order)
+
+        def topn(batches):
+            if not batches:
+                return None
+            merged = batches[0] if len(batches) == 1 else concat_device(batches)
+            cand_cap = bucket_capacity(max(4 * limit, 4096))
+            if merged.capacity >= TOPK_MIN_CAPACITY and cand_cap <= merged.capacity // 4:
+                mask, cnt = topn_candidates(merged, self.order[0], limit)
+                if int(cnt) <= cand_cap:  # the one host sync
+                    ctx.metrics["topNCandidateHits"] += 1
+                    # the candidates' rows in order, then the others: the
+                    # first cand_cap hold every candidate
+                    idx = first_k_positions(mask)[:cand_cap]
+                    live = torch.arange(cand_cap, dtype=torch.int32, device=merged.device) < cnt
+                    out = gather_batch(merged, idx, cnt)
+                    cols = [dc_replace(c, validity=c.validity & live) for c in out.columns]
+                    return slice_head(sort_fn(DeviceBatch(out.schema, cols, cnt)), limit)
+            return slice_head(sort_fn(merged), limit)
+
+        child_parts = self.children[0].execute(ctx)
+
+        def it():
+            partials = []
+            for t in child_parts.parts:
+                out = topn(list(t()))
+                if out is not None:
+                    partials.append(out)
+            final = topn(partials)
+            if final is not None:
+                yield final
+
+        return PartitionSet([it])
+
+    def node_string(self):
+        return f"GpuTakeOrderedAndProject n={self.n} [{', '.join(map(str, self.order))}]"
+
+
+class GpuExpandExec(Exec):
+    """Projection-list fan-out per batch (GpuExpandExec.scala), the JAX
+    package's ``TpuExpandExec``: each projection gives one output batch of
+    the input's capacity and row count."""
+
+    def __init__(self, projections: list, names: list, child: Exec):
+        from .cpu import expand_schema
+
+        super().__init__([child])
+        self.projections = [[bind(e, child.output) for e in proj] for proj in projections]
+        self._schema = expand_schema(self.projections, names)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        schema = self._schema
+
+        def run(it):
+            for batch in it:
+                c = Ctx.for_device(batch)
+                live = batch.row_mask()
+                for proj in self.projections:
+                    cols = []
+                    for e, f in zip(proj, schema):
+                        col = val_to_column(c, e.eval(c), f.data_type)
+                        cols.append(
+                            dc_replace(col, dtype=f.data_type, validity=col.validity & live)
+                        )
+                    yield DeviceBatch(schema, cols, batch.num_rows)
+
+        return self.children[0].execute(ctx).map_partitions(run)
+
+    def node_string(self):
+        return f"GpuExpand x{len(self.projections)}"

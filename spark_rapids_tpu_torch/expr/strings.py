@@ -19,11 +19,13 @@ non-ASCII case mapping is out of scope for the device path.
 CPU oracle implementations are Spark-exact per-row python (UTF8String
 semantics: trim removes ASCII 32 only, replace('','x') is identity, …).
 
-Copied from ``spark_rapids_tpu/expr/strings.py``. The device paths that
-call jax directly (the byte-NFA of ``Like``, ``_greedy_matches`` and the
-associative scans) raise ``NotImplementedError`` on the device until their
-slice of the port lands; the port's overrides keep those expressions on the
-CPU engine. ``_match_starts`` runs the hand-written kernel.
+Copied from ``spark_rapids_tpu/expr/strings.py``. ``Like``'s byte-NFA,
+a ``lax.scan`` there, is ``like_nfa`` here: a host loop over the width of
+whole-column torch ops. The other device paths that call jax directly
+(``_greedy_matches`` and the associative scans) raise
+``NotImplementedError`` on the device until their slice of the port lands;
+the port's overrides keep those expressions on the CPU engine.
+``_match_starts`` runs the hand-written kernel.
 """
 from __future__ import annotations
 
@@ -68,10 +70,10 @@ def compact_bytes(ctx: Ctx, data, keep, out_width: Optional[int] = None):
     xp = ctx.xp
     order = xp.argsort(~keep, axis=1, stable=True)
     packed = xp.take_along_axis(data, order, axis=1)
-    new_len = keep.sum(axis=1).astype(xp.int32)
+    new_len = xp.astype(keep.sum(axis=1), xp.int32)
     w = data.shape[1]
     live = xp.arange(w, dtype=xp.int32)[None, :] < new_len[:, None]
-    packed = xp.where(live, packed, 0).astype(xp.uint8)
+    packed = xp.astype(xp.where(live, packed, 0), xp.uint8)
     if out_width is not None and out_width != w:
         if out_width < w:
             packed = packed[:, :out_width]
@@ -90,8 +92,8 @@ def char_index(ctx: Ctx, data, lengths):
     """int32[n,w]: 0-based character index of each byte; (starts, nchars)."""
     xp = ctx.xp
     starts = char_starts(ctx, data, lengths)
-    idx = xp.cumsum(starts.astype(xp.int32), axis=1) - 1
-    nchars = starts.sum(axis=1).astype(xp.int32)
+    idx = xp.cumsum(xp.astype(starts, xp.int32), axis=1) - 1
+    nchars = xp.astype(starts.sum(axis=1), xp.int32)
     return idx, starts, nchars
 
 
@@ -364,8 +366,8 @@ class Substring(Expression):
         xp = ctx.xp
         data, lengths = dev_str(ctx, c)
         idx, _, nchars = char_index(ctx, data, lengths)
-        pos = xp.broadcast_to(xp.asarray(p.data), (ctx.n,)).astype(xp.int32)
-        leng = xp.broadcast_to(xp.asarray(ln.data), (ctx.n,)).astype(xp.int32)
+        pos = xp.astype(xp.broadcast_to(xp.asarray(p.data), (ctx.n,)), xp.int32)
+        leng = xp.astype(xp.broadcast_to(xp.asarray(ln.data), (ctx.n,)), xp.int32)
         start = xp.where(pos > 0, pos - 1, xp.where(pos < 0, nchars + pos, 0))
         end = start + leng
         keep = (
@@ -1006,8 +1008,71 @@ class Like(Expression):
                 rx = _like_to_regex(pat, self.escape)
                 out.append(rx.fullmatch(x) is not None)
             return Val(np.asarray(out, dtype=bool), valid)
-        # the reference runs a byte-NFA as a lax.scan over the width
-        raise NotImplementedError("Like has no device implementation in the torch port yet")
+        data, lengths = dev_str(ctx, c)
+        toks = like_tokens(self.pattern.value, self.escape)
+        return Val(like_nfa(data, lengths, toks), valid)
+
+
+def like_nfa(data, lengths, toks) -> "torch.Tensor":
+    """bool[n]: each row's bytes match the LIKE tokens — the byte-NFA the
+    JAX package runs as a ``lax.scan`` over the width, here a host loop over
+    the ``W`` byte positions of whole-column torch ops on a ``[n, P+1]``
+    state (no host sync in it).
+
+    ``reach[:, k]``: the first ``k`` tokens match the bytes read so far.
+    A literal token advances on its byte; ``%`` is an epsilon edge plus a
+    self-loop on the post-``%`` state; ``_`` consumes one code point through
+    an in-character state ``u[:, k]`` that enters on a lead byte, self-loops
+    on continuation bytes and hands on where the next byte is not a
+    continuation (one-byte lookahead). Rows past their length keep their
+    state. ``like_tokens`` collapses ``%%``, so one pass of the epsilon
+    edges closes a state. The plane is read transposed, so each step reads
+    a contiguous row of bytes; every tensor written in place is one the step
+    allocated."""
+    import torch
+
+    P = len(toks)
+    n, w = data.shape
+    dev = data.device
+    kinds = torch.tensor([k for k, _ in toks], dtype=torch.int8, device=dev)
+    lits = torch.tensor([b for _, b in toks], dtype=torch.uint8, device=dev)
+    is_lit, is_any = kinds == 0, kinds == 1
+    pct = [k for k, (kind, _) in enumerate(toks) if kind == 2]
+    pct_from = torch.tensor(pct, dtype=torch.int64, device=dev)
+    pct_to = pct_from + 1
+
+    def closure(st):
+        if pct:
+            st[:, pct_to] |= st[:, pct_from]
+        return st
+
+    planes = data.t().contiguous()  # [w, n]
+    cont = (planes & 0xC0) == 0x80
+    reach = torch.zeros((n, P + 1), dtype=torch.bool, device=dev)
+    reach[:, 0] = True
+    reach = closure(reach)
+    u = torch.zeros((n, P), dtype=torch.bool, device=dev)
+    head = torch.zeros((n, 1), dtype=torch.bool, device=dev)
+    for i in range(w):
+        keep = (i < lengths)[:, None]
+        is_cont = cont[i][:, None]
+        if i + 1 < w:
+            # this byte ends its character iff the next in-string byte is
+            # not a continuation byte (or the string ends here)
+            ends = ((i + 1 >= lengths) | ~cont[i + 1])[:, None]
+        else:
+            ends = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        r = reach[:, :P]
+        inchar = ((r & ~is_cont) | (u & is_cont)) & is_any
+        t = torch.where(
+            is_lit,
+            r & (planes[i][:, None] == lits),
+            torch.where(is_any, inchar & ends, reach[:, 1:]),
+        )
+        new = closure(torch.cat([head, t], dim=1))
+        reach = torch.where(keep, new, reach)
+        u = torch.where(keep, inchar, u)
+    return reach[:, P]
 
 
 def _like_to_regex(pattern: str, escape: str):

@@ -6,7 +6,7 @@ against a literal value set instead of an OR chain). TPC-DS leans on both
 (`where x in (select ...)`, `where y > (select avg ...)`).
 
 Execution model mirrors Spark's: subqueries run BEFORE the main query —
-the session's resolution pass (`TpuSession._resolve_subqueries`) executes
+the session's resolution pass (`TorchSession._resolve_subqueries`) executes
 each subquery plan through the full engine and replaces
 
     ScalarSubquery(plan)   → Literal(value)
@@ -21,7 +21,8 @@ against a stacked [k, w] byte matrix in k-chunks (bounded program size).
 Null semantics match Spark's IN: NULL input → NULL; no match with a null
 in the set → NULL.
 
-Copied from ``spark_rapids_tpu/expr/subquery.py``.
+Copied from ``spark_rapids_tpu/expr/subquery.py``; ``_encode_values`` also
+takes the UTC-aware timestamps the port's ``collect()`` returns.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ class ScalarSubquery(Expression):
     def eval(self, ctx: Ctx) -> Val:
         raise RuntimeError(
             "unresolved scalar subquery reached execution — "
-            "TpuSession._resolve_subqueries must run first"
+            "TorchSession._resolve_subqueries must run first"
         )
 
     def __str__(self):
@@ -75,7 +76,7 @@ class InSubquery(Expression):
     def eval(self, ctx: Ctx) -> Val:
         raise RuntimeError(
             "unresolved IN-subquery reached execution — "
-            "TpuSession._resolve_subqueries must run first"
+            "TorchSession._resolve_subqueries must run first"
         )
 
     def __str__(self):
@@ -163,7 +164,9 @@ class InSet(Expression):
             out = []
             for x in nn:
                 if isinstance(x, datetime.datetime):
-                    epoch = datetime.datetime(1970, 1, 1)
+                    # collect() gives UTC-aware values: subtract an epoch
+                    # of the same awareness
+                    epoch = datetime.datetime(1970, 1, 1, tzinfo=x.tzinfo)
                     # integer micros — total_seconds() is float64 and loses
                     # microsecond precision past ~2004
                     out.append((x - epoch) // datetime.timedelta(microseconds=1))

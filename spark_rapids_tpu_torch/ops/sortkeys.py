@@ -258,6 +258,37 @@ def np_column_radix_words(
     return [(wd ^ sign).view(np.int64) for wd in [vw] + words]
 
 
+def _signed64(u: int) -> int:
+    """The int64 with the bits of the uint64 ``u``."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+def radix_select_kth(words: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact k-th smallest (1-based) of flipped int64 words, as a 0-d
+    flipped word — the JAX package's ``_radix_select_kth``
+    (``spark_rapids_tpu/exec/tpu.py``), which works on uint64. MSB→LSB: fix
+    one bit per step by counting the words that share the prefix built so
+    far with the current bit 0.
+
+    Torch has no ``<`` or ``>>`` on uint64, so the prefix is built on the
+    unflipped bit pattern (``words ^ WORD_MIN``) with ``&``, ``|`` and
+    ``==`` alone, which ignore the sign; bit 63 is ``WORD_MIN``. The
+    prefix and the rank stay 0-d device tensors: 64 steps, no host sync."""
+    bits = words ^ WORD_MIN
+    prefix = torch.zeros((), dtype=torch.int64, device=words.device)
+    kk = torch.full((), k, dtype=torch.int64, device=words.device)
+    for i in range(64):
+        shift = 63 - i
+        bit = _signed64(1 << shift)
+        # the bits at and above the current position
+        hi_mask = _signed64(((1 << 64) - 1) ^ ((1 << shift) - 1))
+        cnt0 = ((bits & hi_mask) == prefix).sum()
+        take1 = kk > cnt0
+        prefix = torch.where(take1, prefix | bit, prefix)
+        kk = torch.where(take1, kk - cnt0, kk)
+    return prefix ^ WORD_MIN
+
+
 def segment_starts(words: list, row_mask: torch.Tensor) -> torch.Tensor:
     """bool[cap]: row i starts a new group (equal radix words ⇔ equal keys).
     Assumes rows already sorted by ``words`` with live rows first."""

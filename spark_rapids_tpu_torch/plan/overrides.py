@@ -8,10 +8,12 @@ The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
 tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
 pass, but its rules cover only what the port runs on the device so far —
-project, filter, grouped and ungrouped aggregation, sort, the coalesce, the
-shuffle exchange, union, limit, the shuffled and broadcast hash joins and
-the broadcast exchange, over the expressions of TPC-H q1, q4, q5, q6, q7,
-q8, q12, q17, q19, ``contains`` and ``hash``. Every other node — the
+project, filter, grouped and ungrouped aggregation, sort, top-N, expand,
+the coalesce, the shuffle exchange, union, limit, the shuffled and
+broadcast hash joins and the broadcast exchange, over the expressions of
+the 22 TPC-H queries (``InSet`` for a resolved IN-subquery, ``Like``,
+``Substring``, ``StartsWith``/``EndsWith`` among them), ``contains`` and
+``hash``. Every other node — the
 nested-loop and cartesian joins among them — stays on the CPU
 engine with its reason in the explain, which is the system's own per-node
 fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
@@ -36,6 +38,7 @@ from ..expr import datetime as dtx
 from ..expr import misc as msc
 from ..expr import predicates as pred
 from ..expr import strings as st
+from ..expr import subquery as sq
 from ..expr.base import Alias, BoundReference, Literal
 from ..expr.cast import Cast
 from ..types import (
@@ -111,9 +114,24 @@ def _minmax_check(e, conf: TpuConf) -> Optional[str]:
     return None
 
 
-def _literal_pattern_check(e, conf: TpuConf) -> Optional[str]:
-    if not isinstance(e.children()[1], Literal):
-        return f"{type(e).__name__} with a non-literal pattern is not supported on device"
+# the string rules the reference gates on a scalar pattern
+# (spark_rapids_tpu/plan/overrides.py's string rules)
+def _lit_check(attr: str, what: str):
+    def check(e, conf: TpuConf) -> Optional[str]:
+        if not st.is_string_literal(getattr(e, attr)):
+            return f"{what} must be a string literal for the device path"
+        return None
+
+    return check
+
+
+def _like_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.pattern):
+        return "LIKE pattern must be a string literal for the device path"
+    try:
+        st.like_tokens(e.pattern.value, e.escape)
+    except ValueError as ex:
+        return str(ex)
     return None
 
 
@@ -151,6 +169,7 @@ for _cls in (
     pred.IsNull,
     pred.IsNotNull,
     pred.In,
+    sq.InSet,
     dtx.Year,
     agg.Count,
     agg.First,
@@ -161,12 +180,18 @@ for _cls in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide):
     _expr(_cls, check=_no_decimal_arith)
 _expr(ar.Remainder, check=_integral_only)
 _expr(cond.CaseWhen)
+_expr(cond.If)
+_expr(cond.Coalesce)
 _expr(agg.Sum, check=_float_agg_check)
 _expr(agg.Average, check=_float_agg_check)
 _expr(agg.Min, check=_minmax_check)
 _expr(agg.Max, check=_minmax_check)
 _expr(Cast, check=_cast_check)
-_expr(st.Contains, check=_literal_pattern_check)
+_expr(st.Contains, check=_lit_check("pattern", "contains pattern"))
+_expr(st.Substring)
+_expr(st.StartsWith, check=_lit_check("pattern", "startswith pattern"))
+_expr(st.EndsWith, check=_lit_check("pattern", "endswith pattern"))
+_expr(st.Like, check=_like_check)
 _expr(msc.Murmur3Hash)
 
 
@@ -296,6 +321,18 @@ _rule(
 )
 _rule(C.CpuUnionExec, "UnionExec", lambda e, ch: G.GpuUnionExec(ch), lambda e: [])
 _rule(C.CpuLimitExec, "CollectLimitExec", lambda e, ch: G.GpuLimitExec(e.n, ch[0]), lambda e: [])
+_rule(
+    C.CpuTakeOrderedAndProjectExec,
+    "TakeOrderedAndProjectExec",
+    lambda e, ch: G.GpuTakeOrderedAndProjectExec(e.n, e.order, ch[0]),
+    lambda e: [o.child for o in e.order],
+)
+_rule(
+    C.CpuExpandExec,
+    "ExpandExec",
+    lambda e, ch: G.GpuExpandExec(e.projections, e.output.names, ch[0]),
+    lambda e: [x for proj in e.projections for x in proj],
+)
 
 
 def _join_exprs_of(e):

@@ -7,7 +7,8 @@ like Spark's physical aggregation strategy (which the reference inherits).
 
 Copied from ``spark_rapids_tpu/plan/planner.py``, cut to the logical nodes
 the port's DataFrame builds: local relations, project, filter, aggregate
-(with the one-DISTINCT rewrite), sort, limit, union, repartition and joins
+(with the DISTINCT rewrites: stacked aggregates for one DISTINCT column
+set, an Expand under them for several), sort, limit, union, repartition and joins
 (shuffled and broadcast hash joins with the JAX package's build-side
 choice, nested-loop and cartesian joins). A global sort over several
 partitions range-partitions on its keys and sorts each partition, as in the
@@ -28,6 +29,7 @@ from ..expr.aggregates import AggregateFunction
 from ..expr.base import BoundReference
 from ..exec.cpu import (
     CpuCoalescePartitionsExec,
+    CpuExpandExec,
     CpuFilterExec,
     CpuHashAggregateExec,
     CpuLimitExec,
@@ -90,6 +92,8 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
         else:
             part = P.RoundRobinPartitioning(lp.num_partitions)
         return CpuShuffleExchangeExec(part, child)
+    if isinstance(lp, L.Expand):
+        return CpuExpandExec(lp.projections, lp.names, plan_physical(lp.child, conf))
     if isinstance(lp, L.Hint):
         return plan_physical(lp.child, conf)
     if isinstance(lp, L.Join):
@@ -300,8 +304,8 @@ def _rewrite_distinct(lp: L.Aggregate) -> L.Aggregate:
         ⇒ inner:  Aggregate(keys ++ [x], partial non-distinct aggs)
           outer:  Aggregate(keys, re-aggregate partials + agg over x)
 
-    Multiple DISTINCT column sets (the Expand-based rewrite) are not in the
-    port yet."""
+    Multiple DISTINCT column sets take the Expand-based rewrite
+    (_rewrite_multi_distinct)."""
     import dataclasses as _dc
 
     from ..expr.base import map_child_exprs
@@ -319,9 +323,7 @@ def _rewrite_distinct(lp: L.Aggregate) -> L.Aggregate:
     for e in lp.aggregates:
         find(e)
     if len(dchildren) > 1:
-        raise NotImplementedError(
-            "several DISTINCT column sets need Expand, not in the torch port yet"
-        )
+        return _rewrite_multi_distinct(lp, dchildren)
     first_child = dchildren[0]
 
     key_names = [f"__k{i}" for i in range(len(lp.grouping))]
@@ -360,6 +362,146 @@ def _rewrite_distinct(lp: L.Aggregate) -> L.Aggregate:
         outer_out.append(Alias(mapped, name))
 
     inner = L.Aggregate(list(lp.grouping) + [first_child], inner_out, lp.child)
+    outer_grouping = [UnresolvedAttribute(n) for n in key_names]
+    return L.Aggregate(outer_grouping, outer_out, inner)
+
+
+def _rewrite_multi_distinct(
+    lp: L.Aggregate, dchildren: List[Expression]
+) -> L.Aggregate:
+    """Multiple DISTINCT column sets — Spark's RewriteDistinctAggregates:
+    fan each input row out through an Expand, one projection per distinct
+    group (gid=i carries only that group's child value) plus a gid=0
+    projection carrying the regular aggregates' inputs, then aggregate
+    twice:
+
+        inner: group by keys ++ [d1..dm, gid]   (dedupes each distinct set)
+        outer: group by keys; distinct agg i over if(gid=i, di, null),
+               regular aggs re-aggregate their gid=0 partials
+
+    (Catalyst's RewriteDistinctAggregates rule; the reference receives this
+    plan shape from Spark and runs it through GpuExpandExec —
+    GpuExpandExec.scala.)"""
+    import dataclasses as _dc
+
+    from ..expr import Literal
+    from ..expr.base import map_child_exprs
+    from ..expr.conditional import If
+    from ..expr.predicates import EqualTo
+    from ..types import INT
+
+    child_schema = lp.child.schema
+    m = len(dchildren)
+
+    # regular (non-distinct) aggregate children, deduped; each becomes an
+    # Expand column live only in the gid=0 projection (count(*)'s literal
+    # too, so expanded duplicate rows are not double-counted)
+    reg_children: List[Expression] = []
+
+    def collect_regular(e):
+        if isinstance(e, AggregateFunction) and not getattr(e, "distinct", False):
+            if e.child not in reg_children:
+                reg_children.append(e.child)
+        for c in e.children():
+            collect_regular(c)
+
+    for e in lp.aggregates:
+        collect_regular(e)
+
+    key_names = [f"__k{i}" for i in range(len(lp.grouping))]
+    d_names = [f"__d{i}" for i in range(m)]
+    r_names = [f"__r{j}" for j in range(len(reg_children))]
+    gid_name = "__gid"
+    out_names = key_names + d_names + r_names + [gid_name]
+
+    def null_of(expr):
+        return Literal(None, bind(expr, child_schema).data_type)
+
+    projections: List[List[Expression]] = []
+    proj0: List[Expression] = [
+        Alias(g, n) for g, n in zip(lp.grouping, key_names)
+    ]
+    proj0 += [Alias(null_of(d), n) for d, n in zip(dchildren, d_names)]
+    proj0 += [Alias(c, n) for c, n in zip(reg_children, r_names)]
+    proj0.append(Alias(Literal(0, INT), gid_name))
+    projections.append(proj0)
+    for i, d in enumerate(dchildren):
+        proj: List[Expression] = [
+            Alias(g, n) for g, n in zip(lp.grouping, key_names)
+        ]
+        proj += [
+            Alias(dj if j == i else null_of(dj), n)
+            for j, (dj, n) in enumerate(zip(dchildren, d_names))
+        ]
+        proj += [Alias(null_of(c), n) for c, n in zip(reg_children, r_names)]
+        proj.append(Alias(Literal(i + 1, INT), gid_name))
+        projections.append(proj)
+
+    expand = L.Expand(projections, out_names, lp.child)
+
+    inner_grouping = [
+        UnresolvedAttribute(n) for n in key_names + d_names + [gid_name]
+    ]
+    inner_out: List[Expression] = [
+        Alias(UnresolvedAttribute(n), n)
+        for n in key_names + d_names + [gid_name]
+    ]
+    nd_count = [0]
+
+    def replace_agg(e: Expression) -> Expression:
+        if isinstance(e, AggregateFunction):
+            if getattr(e, "distinct", False):
+                i = dchildren.index(e.child)
+                guarded = If(
+                    EqualTo(UnresolvedAttribute(gid_name), Literal(i + 1, INT)),
+                    UnresolvedAttribute(d_names[i]),
+                    null_of(e.child),
+                )
+                return _dc.replace(e, child=guarded, distinct=False)
+            name = f"__nd{nd_count[0]}"
+            nd_count[0] += 1
+            sum_type = bind(e, child_schema).data_type
+            j = reg_children.index(e.child)
+            from ..expr.aggregates import First, Last
+
+            if isinstance(e, (First, Last)):
+                # gid!=0 inner groups carry all-null partials (their __r
+                # column is the Expand-projected null); a null-blind merge
+                # could pick one, so the outer merge must skip null
+                # partials — there is exactly one gid=0 partial per key
+                inner_out.append(
+                    Alias(
+                        _dc.replace(e, child=UnresolvedAttribute(r_names[j])),
+                        name,
+                    )
+                )
+                return _dc.replace(
+                    e, child=UnresolvedAttribute(name), ignore_nulls=True
+                )
+            return _merge_regular_agg(
+                e, name, inner_out, UnresolvedAttribute(r_names[j]), sum_type
+            )
+        if not e.children():
+            return e
+        return map_child_exprs(e, replace_agg)
+
+    outer_out: List[Expression] = []
+    for e in lp.aggregates:
+        name = output_name(e)
+        target = e.child if isinstance(e, Alias) else e
+        mapped = None
+        for i, g in enumerate(lp.grouping):
+            # grouping items may be Alias-wrapped (SQL compiler) — match
+            # through the alias like _finalize_result_expr does
+            gc = g.child if isinstance(g, Alias) else g
+            if target == g or target == gc:
+                mapped = UnresolvedAttribute(key_names[i])
+                break
+        if mapped is None:
+            mapped = replace_agg(target)
+        outer_out.append(Alias(mapped, name))
+
+    inner = L.Aggregate(inner_grouping, inner_out, expand)
     outer_grouping = [UnresolvedAttribute(n) for n in key_names]
     return L.Aggregate(outer_grouping, outer_out, inner)
 

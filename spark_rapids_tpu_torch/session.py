@@ -108,9 +108,76 @@ class TorchSession:
     createDataFrame = create_dataframe
 
     # ── execution ───────────────────────────────────────────────────────
-    def _physical_plan(self, lp: L.LogicalPlan):
-        """(device plan, overrides) of a logical plan: the ANSI rewrite,
-        column pruning, CPU planning and the override pass."""
+    def _resolve_subqueries(self, lp: L.LogicalPlan, metrics=None, explain=None) -> L.LogicalPlan:
+        """Execute every subquery plan through this session's engine and
+        inline the results (Spark executes subqueries before the main query;
+        reference GpuScalarSubquery.scala / GpuInSet.scala), the JAX
+        session's ``_resolve_subqueries``:
+
+            ScalarSubquery(plan) → Literal(value)
+            InSubquery(c, plan)  → InSet(c, distinct values, NULL last)
+
+        A subquery runs through the same engine and plan shape as the main
+        query would, so a float it yields equals the main plan's to the bit
+        (TPC-H q15 compares a sum with its max). Its counters (bytes
+        uploaded, …) add to ``metrics`` and its plan's explain entries to
+        ``explain``."""
+        from .columnar.host import to_pylist
+        from .expr.base import Literal
+        from .expr.subquery import InSet, InSubquery, ScalarSubquery
+        from .types import DateType, TimestampType
+
+        def run(plan) -> HostBatch:
+            tbl = self._execute(plan)
+            if metrics is not None:
+                metrics.update(self._last_metrics)
+            if explain is not None:
+                explain.extend(self._last_overrides.explain)
+            return tbl
+
+        def fix(e):
+            if isinstance(e, ScalarSubquery):
+                tbl = run(e.plan)
+                if len(tbl.columns) != 1:
+                    raise ValueError(
+                        f"scalar subquery must return one column, got {len(tbl.columns)}"
+                    )
+                if tbl.num_rows > 1:
+                    raise ValueError("scalar subquery returned more than one row")
+                val = to_pylist(tbl.column(0))[0] if tbl.num_rows else None
+                if val is not None and isinstance(e.data_type, (DateType, TimestampType)):
+                    # date/timestamp literals store their physical ints
+                    val = InSet._encode_values([val], e.data_type)[0]
+                return Literal(val, e.data_type)
+            if isinstance(e, InSubquery):
+                tbl = run(e.plan)
+                if len(tbl.columns) != 1:
+                    raise ValueError(
+                        f"IN-subquery must return one column, got {len(tbl.columns)}"
+                    )
+                seen: set = set()
+                out = []
+                has_null = False
+                for x in to_pylist(tbl.column(0)):
+                    if x is None:
+                        has_null = True
+                    elif x not in seen:
+                        seen.add(x)
+                        out.append(x)
+                if has_null:
+                    out.append(None)
+                return InSet(e.c, tuple(out))
+            return e
+
+        return L.transform_expressions(lp, fix)
+
+    def _physical_plan(self, lp: L.LogicalPlan, metrics=None):
+        """(device plan, overrides) of a logical plan: subquery resolution
+        (its counters add to ``metrics``; the overrides' explain begins
+        with the subqueries' entries), the ANSI rewrite, column pruning, CPU
+        planning and the override pass."""
+        sub_explain: list = []
+        lp = self._resolve_subqueries(lp, metrics, sub_explain)
         if cfg.ANSI_ENABLED.get(self.conf):
             # Spark resolves ansiEnabled into Cast at analysis time
             import dataclasses as _dc
@@ -126,17 +193,19 @@ class TorchSession:
         lp = prune_columns(lp)
         cpu_plan = plan_physical(lp, self.conf)
         overrides = GpuOverrides(self.conf)
-        return overrides.apply(cpu_plan), overrides
+        plan = overrides.apply(cpu_plan)
+        overrides.explain[:0] = sub_explain
+        return plan, overrides
 
-    def _prepare_plan(self, lp: L.LogicalPlan):
-        final_plan, overrides = self._physical_plan(lp)
+    def _prepare_plan(self, lp: L.LogicalPlan, metrics=None):
+        final_plan, overrides = self._physical_plan(lp, metrics)
         self._last_overrides = overrides
         self._assert_test_mode(overrides)
         return final_plan
 
     def _execute(self, lp: L.LogicalPlan) -> HostBatch:
-        final_plan = self._prepare_plan(lp)
         ctx = ExecContext(self.conf, self, self.device)
+        final_plan = self._prepare_plan(lp, ctx.metrics)
         self._last_metrics = ctx.metrics
         parts = final_plan.execute(ctx)
         batches = [b for t in parts.parts for b in t() if b.num_rows]

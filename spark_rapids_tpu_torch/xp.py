@@ -117,6 +117,12 @@ class TorchNamespace:
     def isnan(self, x):
         return torch.isnan(self.asarray(x))
 
+    def maximum(self, a, b):
+        return torch.maximum(self.asarray(a), self.asarray(b))
+
+    def clip(self, x, lo, hi):
+        return torch.clamp(self.asarray(x), _pyscalar(lo), _pyscalar(hi))
+
     def floor_divide(self, a, b):
         """numpy's ``floor_divide``: rounds toward negative infinity, so
         negative operands (dates before 1970) divide as numpy's do."""
@@ -132,6 +138,22 @@ class TorchNamespace:
         if x.dtype == torch.bool:
             x = x.to(torch.uint8)
         return torch.argmax(x, dim=axis)
+
+    # ── sorting and searching ───────────────────────────────────────────
+    def argsort(self, x, axis=-1, stable=False):
+        """numpy's ``argsort``; a bool array sorts as 0/1."""
+        x = self.asarray(x)
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        return torch.argsort(x, dim=axis, stable=stable)
+
+    def searchsorted(self, a, v, side="left"):
+        """numpy's ``searchsorted`` of ``v`` into the sorted 1-d ``a``."""
+        a, v = self.asarray(a), self.asarray(v)
+        if v.dtype != a.dtype:
+            common = torch.promote_types(a.dtype, v.dtype)
+            a, v = a.to(common), v.to(common)
+        return torch.searchsorted(a, v.contiguous(), right=side == "right")
 
     # ── gathers ─────────────────────────────────────────────────────────
     def take_along_axis(self, x, idx, axis):

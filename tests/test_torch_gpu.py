@@ -2,7 +2,9 @@
 kernel against its plain torch version, bit for bit, and the slice's
 queries on the card against the port's CPU engine, from one partition and
 from 4 input partitions at 8 shuffle partitions (through the device
-exchange and the upload cache). Each test decides in its
+exchange and the upload cache); TPC-H queries with top-N and ``Like`` on
+the card against the CPU engine, and the byte-NFA and the radix select on
+a CUDA tensor against the same functions on the CPU. Each test decides in its
 body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -23,8 +25,8 @@ from spark_rapids_tpu_torch.testing import (
     grid_lengths,
     rows_equal,
 )
-from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
-from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_orders_lineitem, gen_table
+from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES, tpch_query
 
 
 def _need_gpu():
@@ -111,3 +113,45 @@ def test_partitioned_slice_query_on_gpu_matches_cpu_engine(name):
         ok, msg = rows_equal(got, want)
         assert want and ok, msg
     assert runs[1] > 0 and runs[3] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3, 10, 13, 18])
+def test_topn_and_like_queries_on_gpu_match_cpu_engine(n):
+    """TPC-H q3, q10 and q18 (top-N) and q13 (``Like``) at SF 0.01 on the
+    card, every node but the scans on the device (strict mode), the rows
+    equal to the port's CPU engine's."""
+    _need_gpu()
+    tables = {t: gen_table(t, 0.01) for t in TABLES}
+    gpu = TorchSession({"spark.rapids.sql.test.enabled": True}, device="cuda")
+    got = tpch_query(n, lambda t: gpu.create_dataframe(tables[t])).collect()
+    torch.cuda.synchronize()
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    want = tpch_query(n, lambda t: cpu.create_dataframe(tables[t])).collect()
+    ok, msg = rows_equal(got, want)
+    assert want and ok, msg
+
+
+@pytest.mark.gpu
+def test_like_nfa_and_radix_select_on_gpu_match_cpu():
+    """The byte-NFA and the radix select on a CUDA tensor equal the same
+    functions on the CPU, bit for bit."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.expr.strings import like_nfa, like_tokens
+    from spark_rapids_tpu_torch.ops.sortkeys import radix_select_kth
+
+    g = torch.Generator().manual_seed(90)
+    plane = torch.randint(0, 256, (5000, 64), generator=g, dtype=torch.uint8)
+    plane[:, :8] = torch.tensor(list(b"ab\xc3\xa9cdab"), dtype=torch.uint8)
+    lengths = torch.randint(0, 65, (5000,), generator=g, dtype=torch.int32)
+    for pat in ("ab%", "%cd%", "_b_%", "%a_", "ab\\_%"):
+        toks = like_tokens(pat)
+        want = like_nfa(plane, lengths, toks)
+        got = like_nfa(plane.cuda(), lengths.cuda(), toks)
+        assert torch.equal(got.cpu(), want), pat
+    words = torch.randint(-(2**63), 2**63 - 1, (100_000,), generator=g, dtype=torch.int64)
+    words[::7] = words[0]
+    for k in (1, 50, 50_000, 100_000):
+        assert int(radix_select_kth(words.cuda(), k)) == int(radix_select_kth(words, k)) == int(
+            torch.sort(words).values[k - 1]
+        ), k

@@ -549,11 +549,14 @@ def test_sort_mirror(case):
 
 
 def test_sort_stability_via_limit_mirror():
-    """tests/test_sort.py's sort + limit: the JAX engines plan it as top-N,
-    which is not in the port yet (ROADMAP Queue A item 5), so the port's
-    full device sort is cut to the first 20 rows — equal only if the sort is
-    stable, as top-N is."""
+    """tests/test_sort.py's sort + limit: the port plans it as top-N, as the
+    JAX engines do, and runs it on the device (``GpuTakeOrderedAndProject``:
+    a stable sort and head per partition, then of the partials); the first
+    20 rows equal the JAX engine's only if that sort is stable."""
     t = gen_table([("v", JT.INT), ("x", JT.LONG)], 500, seed=63)
-    got = _port_session().create_dataframe(t, num_partitions=3).sort("v").collect()[:20]
+    port = _port_session()
+    df = port.create_dataframe(t, num_partitions=3).sort("v").limit(20)
+    got = df.collect()
+    assert "GpuTakeOrderedAndProject" in df.explain()
     _check_mirror(lambda F, s: s.create_dataframe(t, num_partitions=3).sort("v").limit(20),
                   sort_result=False, port_rows=got)

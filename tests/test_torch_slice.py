@@ -222,8 +222,9 @@ def test_device_aggregates_and_predicates_match_cpu_engine(tables):
 
 
 def test_unported_nodes_fall_back_with_a_reason(tables):
-    """The collect family and top-N stay on the CPU engine, say why in the
-    explain, and still give the CPU engine's rows."""
+    """The collect family stays on the CPU engine, says why in the explain,
+    and still gives the CPU engine's rows; the top-N above it runs on the
+    device (``GpuTakeOrderedAndProject``)."""
     col = PF.col
     dev = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
 
@@ -240,10 +241,12 @@ def test_unported_nodes_fall_back_with_a_reason(tables):
             .limit(3)
         )
 
-    got = build(dev).collect()
+    df = build(dev)
+    got = df.collect()
     reasons = [r for e in dev._last_overrides.explain for r in e.reasons]
     assert "the collect family (collect_list, collect_set) is not in the torch port yet" in reasons
-    assert any("CpuTakeOrderedAndProjectExec has no device implementation" in r for r in reasons)
+    assert _explain(dev)["CpuTakeOrderedAndProject"].on_device
+    assert "GpuTakeOrderedAndProject" in df.explain()
     assert _explain(dev)["CpuFilter"].on_device
     want = build(_port_session(enabled=False)).collect()
     assert got == want and len(got) == 3
@@ -259,18 +262,21 @@ def test_torch_session_without_a_card_raises():
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Importing the port and running a query leaves jax and every
-    spark_rapids_tpu module out of sys.modules (module names compared
-    exactly: the port's own name shares the prefix)."""
+    """Importing the port and running its slice queries and all 22 TPC-H
+    queries leaves jax and every spark_rapids_tpu module out of
+    sys.modules (module names compared exactly: the port's own name shares
+    the prefix)."""
     code = """
 import sys
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_table
-from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
+from spark_rapids_tpu_torch.tpch.queries import QUERIES, SLICE_QUERIES, tpch_query
 tables = {n: gen_table(n, 0.0002) for n in TABLES}
 s = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
-for fn, _ in list(SLICE_QUERIES.values()) + list(JOIN_QUERIES.values()):
+for fn, _ in SLICE_QUERIES.values():
     fn(lambda t: s.create_dataframe(tables[t])).collect()
+for n in QUERIES:
+    tpch_query(n, lambda t: s.create_dataframe(tables[t])).collect()
 bad = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")

@@ -32,7 +32,17 @@ against the port's own CPU engine:
 * the partitioned path: q1, q6, ``orders_by_priority``, ``q18_big_orders``,
   ``union_limit``, q5, q12, q3 and q18 from 4 input partitions at 8 shuffle
   partitions, each twice, through the device exchange and the upload cache
-  (the second run of each must upload nothing).
+  (the second run of each must upload nothing);
+* the TPC-DS path: the 96 TPC-DS texts the JAX package runs to their end
+  (all but q13, q41 and q48), from SQL text through ``TorchSession.sql``,
+  at SF 1 on one input partition, each once in a fresh session, nothing
+  off the device but the scans; then all 96 at SF 0.1, each held against
+  the port's CPU engine with ``tests/test_tpcds.py``'s tolerance; then the
+  BASELINE queries q47, q67, q64 and q95 once more at SF 1, timed split
+  into the window operator, the nested-loop and cartesian joins and the
+  rest, each held against the CPU engine at SF 1 (run in a child process
+  of this script; one whose CPU engine takes over 120 s is held at SF 0.1
+  only, and the line says so).
 
 It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
@@ -59,7 +69,12 @@ uploaded and peak device memory, the top-N candidate hits, the time of the
 exchanges' murmur3 calls, and the phase's kernel launches; a
 torch.profiler run each of the partitioned q1 and q5 (device busy time
 against the wall, the kernels that took the most); the time
-of murmur3 over a wide string key; one JSON line with each kernel's
+of murmur3 over a wide string key; the TPC-DS phase, one line per query at
+SF 1 with its device wall, bytes uploaded, peak device memory above what
+the session held and the nodes off the device, one line per query at SF
+0.1 with both engines' walls, the summary line (the 96 walls at SF 1 and
+the geomean of CPU engine / device at SF 0.1), and one split line and one
+hold line per BASELINE query; one JSON line with each kernel's
 launches on the main path, error, times and bound; and last the line
 ``{"ok": true, "device": {...}}``.
 """
@@ -346,6 +361,16 @@ def join_phase(tables, walls) -> dict:
 #: ``Substring`` and subquery resolution came to the port; with the slice
 #: phase's q1 and q6 and the join phase's seven they are all 22
 TPCH_NEW = (2, 3, 9, 10, 11, 13, 14, 15, 16, 18, 20, 21, 22)
+#: the TPC-DS texts the JAX package runs to their end: all but q13 and q48
+#: (cartesian stacks the JAX CPU engine cannot hold) and q41 (its SqlError)
+TPCDS_QUERIES = tuple(q for q in range(1, 100) if q not in (13, 41, 48))
+TPCDS_SF = 1.0
+TPCDS_CHECK_SF = 0.1
+#: BASELINE.json's TPC-DS queries: q64/q95 (the speedup target), q47/q67
+#: (GpuSortExec + GpuWindowExec)
+TPCDS_BASELINE = (47, 67, 64, 95)
+CPU_ENGINE_LIMIT_S = 120.0
+TPCDS_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True}
 
 
 def tpch_phase(tables, walls) -> dict:
@@ -788,6 +813,191 @@ def q1_split(tables) -> None:
             wall_ms, *(ms[p] for p in parts), uploaded, rest))
 
 
+def _tpcds_session(sf: float, device: str, enabled: bool = True):
+    """A fresh session with the 24 TPC-DS tables at ``sf`` as temp views, one
+    input partition each (the generator caches the tables by scale)."""
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.tpcds import register_tables
+
+    s = TorchSession({**TPCDS_CONF, "spark.rapids.sql.enabled": enabled}, device=device)
+    register_tables(s, sf)
+    return s
+
+
+def _run_tpcds(q: int, sf: float):
+    """One cold run of TPC-DS query ``q`` on the card in a fresh session:
+    (DataFrame, rows, wall ms, bytes uploaded, peak device memory above what
+    was held before it, nodes off the device)."""
+    import torch
+
+    from spark_rapids_tpu_torch.tpcds import tpcds_sql
+
+    s = _tpcds_session(sf, "cuda")
+    gc.collect()  # free the last query's session before reading what is held
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    df = s.sql(tpcds_sql(q))
+    rows = df.collect()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    return df, rows, wall_ms, s._last_metrics["hostToDeviceBytes"], peak, _off_device(s)
+
+
+def tpcds_phase() -> None:
+    """The TPC-DS path (see the module docstring)."""
+    import math
+
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import tpcds_check
+    from spark_rapids_tpu_torch.tpcds import TABLES, gen_table, tpcds_sql
+
+    t0 = time.perf_counter()
+    big = {n: gen_table(n, TPCDS_SF) for n in TABLES}
+    log(f"data: TPC-DS SF {TPCDS_SF} seed 20030101, the 24 tables, {sum(b.nbytes for b in big.values())} "
+        f"host bytes, generated in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{n} {b.num_rows}" for n, b in big.items()))
+    SK.LAUNCHES = 0  # this path's own counts
+    SK.LAUNCHES_BY_PATH.update(dict.fromkeys(SK.LAUNCHES_BY_PATH, 0))
+    walls_sf1 = {}
+    for q in TPCDS_QUERIES:
+        # only the numbers outlive the run: its session frees before the next
+        _, rows, wall_ms, uploaded, peak, off = _run_tpcds(q, TPCDS_SF)
+        if off:
+            raise AssertionError(f"tpcds q{q}: nodes off the device: {off}")
+        walls_sf1[q] = wall_ms
+        log(f"tpcds phase: q{q} at SF {TPCDS_SF}, one input partition, cold: device wall {wall_ms:.1f} ms, "
+            f"uploaded {uploaded} bytes, peak device memory {peak} bytes above what was held, "
+            f"nodes off the device 0 (only scans), {len(rows)} rows")
+    log(f"tpcds phase: match_starts launches {SK.LAUNCHES}, per path "
+        f"{json.dumps(SK.LAUNCHES_BY_PATH)} (no TPC-DS text holds a contains)")
+
+    cpu = _tpcds_session(TPCDS_CHECK_SF, "cpu", enabled=False)
+    ratios = []
+    for q in TPCDS_QUERIES:
+        df, got, wall_ms, _, _, off = _run_tpcds(q, TPCDS_CHECK_SF)
+        if off:
+            raise AssertionError(f"tpcds q{q} at SF {TPCDS_CHECK_SF}: nodes off the device: {off}")
+        t0 = time.perf_counter()
+        want = cpu.sql(tpcds_sql(q)).collect()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ok, msg = tpcds_check(tpcds_sql(q), df, want, got)
+        if not ok:
+            raise AssertionError(f"tpcds q{q} at SF {TPCDS_CHECK_SF}: device rows differ from the "
+                                 f"CPU engine: {msg}")
+        ratios.append(cpu_ms / wall_ms)
+        log(f"tpcds check: q{q} at SF {TPCDS_CHECK_SF}: device wall {wall_ms:.1f} ms, CPU engine "
+            f"{cpu_ms:.1f} ms, {len(got)} rows equal to the CPU engine")
+        del df  # its session and upload cache
+    geo = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
+    log("tpcds summary: {} queries, device walls at SF {} (ms): {}; total {:.1f} ms; geomean "
+        "of CPU engine / device at SF {} {:.2f}x".format(
+            len(walls_sf1), TPCDS_SF, ", ".join(f"q{q} {w:.1f}" for q, w in walls_sf1.items()),
+            sum(walls_sf1.values()), TPCDS_CHECK_SF, geo))
+    tpcds_baseline()
+
+
+def tpcds_baseline() -> None:
+    """q47, q67, q64 and q95 once more at SF 1, timed split into the window
+    operator and the nested-loop/cartesian joins (CUDA events), each held
+    against the CPU engine at SF 1, run in child processes of this script
+    at once, each given ``CPU_ENGINE_LIMIT_S``."""
+    import pickle
+
+    from spark_rapids_tpu_torch.exec import gpu_join as GJ
+    from spark_rapids_tpu_torch.exec import gpu_window as GW
+    from spark_rapids_tpu_torch.testing import tpcds_check
+    from spark_rapids_tpu_torch.tpcds import tpcds_sql
+
+    children: dict = {}
+    try:
+        runs = {}
+        real_window, real_pair = GW.window_fn, GJ.pair_fn
+        for q in TPCDS_BASELINE:
+            timer = PhaseTimer()
+            counts = {"window": 0, "pairs": 0}
+
+            def window_fn(*a, **k):
+                counts["window"] += 1
+                return timer.wrap("window", real_window(*a, **k))
+
+            def pair_fn(*a, **k):
+                counts["pairs"] += 1
+                return timer.wrap("pairs", real_pair(*a, **k))
+
+            GW.window_fn, GJ.pair_fn = window_fn, pair_fn
+            try:
+                df, got, wall_ms, uploaded, peak, off = _run_tpcds(q, TPCDS_SF)
+            finally:
+                GW.window_fn, GJ.pair_fn = real_window, real_pair
+            if off:
+                raise AssertionError(f"tpcds q{q}: nodes off the device: {off}")
+            ms = timer.totals_ms()
+            win, pairs = ms.get("window", 0.0), ms.get("pairs", 0.0)
+            log(f"tpcds q{q} split at SF {TPCDS_SF}: device wall {wall_ms:.1f} ms = window operator "
+                f"{win:.3f} ms ({len(timer.spans.get('window', []))} calls over {counts['window']} "
+                f"window nodes), nested-loop/cartesian pair kernel {pairs:.3f} ms "
+                f"({len(timer.spans.get('pairs', []))} calls over {counts['pairs']} joins), rest "
+                f"{wall_ms - win - pairs:.1f} ms; uploaded {uploaded} bytes, peak {peak} bytes "
+                "above what was held")
+            runs[q] = (df, got)
+            del df
+        # the CPU engine runs after the timed runs, so its processes do not
+        # share the host with them
+        for q in TPCDS_BASELINE:
+            children[q] = subprocess.Popen(
+                [sys.executable, __file__, "--tpcds-cpu-rows", str(q), str(TPCDS_SF)],
+                stdout=subprocess.PIPE,
+            )
+        deadline = time.perf_counter() + CPU_ENGINE_LIMIT_S + 20.0  # the child makes its data first
+        for q, proc in children.items():
+            df, got = runs[q]
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                log(f"tpcds q{q} hold: the CPU engine did not finish at SF {TPCDS_SF} within the "
+                    "limit; "
+                    f"q{q} is held at SF {TPCDS_CHECK_SF} only")
+                continue
+            if proc.returncode != 0:
+                raise AssertionError(f"tpcds q{q}: the CPU engine's child failed ({proc.returncode})")
+            want, cpu_s = pickle.loads(out)
+            if cpu_s > CPU_ENGINE_LIMIT_S:
+                log(f"tpcds q{q} hold: the CPU engine took {cpu_s:.1f} s at SF {TPCDS_SF}, over the "
+                    f"{CPU_ENGINE_LIMIT_S:.0f} s limit; q{q} is held at SF {TPCDS_CHECK_SF} only")
+                continue
+            ok, msg = tpcds_check(tpcds_sql(q), df, want, got)
+            if not ok:
+                raise AssertionError(f"tpcds q{q} at SF {TPCDS_SF}: device rows differ from the "
+                                     f"CPU engine: {msg}")
+            log(f"tpcds q{q} hold: {len(got)} rows at SF {TPCDS_SF} equal to the CPU engine "
+                f"({cpu_s * 1e3:.1f} ms in a child process, beside the others)")
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def tpcds_cpu_rows(q: int, sf: float) -> int:
+    """The child of ``tpcds_baseline``: query ``q`` at ``sf`` on the port's
+    CPU engine, its rows and seconds pickled to stdout."""
+    import pickle
+
+    from spark_rapids_tpu_torch.tpcds import tpcds_sql
+
+    s = _tpcds_session(sf, "cpu", enabled=False)
+    t0 = time.perf_counter()
+    rows = s.sql(tpcds_sql(q)).collect()
+    sys.stdout.buffer.write(pickle.dumps((rows, time.perf_counter() - t0)))
+    sys.stdout.flush()
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -846,6 +1056,9 @@ def main() -> int:
              f"q5 split at {INPUT_PARTITIONS} input and {SHUFFLE_PARTITIONS} shuffle partitions")
     partitioned_phase(tables, {**launches["cpu_rows"], **join_rows, **tpch_rows})
     wide_string_hash(orders)
+    del tables, orders, lineitem
+    gc.collect()
+    tpcds_phase()
     record["launches"] = launches["match_starts"]
     record["launches_by_path"] = launches["match_starts_by_path"]
     if record["launches"] <= 0:
@@ -863,4 +1076,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tpcds-cpu-rows"]:
+        sys.exit(tpcds_cpu_rows(int(sys.argv[2]), float(sys.argv[3])))
     sys.exit(main())

@@ -119,6 +119,11 @@ VARIABLE_FLOAT_AGG = conf("spark.rapids.sql.variableFloatAgg.enabled").doc(
     "order (sum/avg over float)."
 ).boolean_conf(True)
 
+INCOMPATIBLE_OPS = conf("spark.rapids.sql.incompatibleOps.enabled").doc(
+    "Enable operators that produce results that differ from Spark in corner "
+    "cases (e.g. float aggregation ordering)."
+).boolean_conf(False)
+
 CAST_FLOAT_TO_STRING = conf("spark.rapids.sql.castFloatToString.enabled").doc(
     "Enable float→string casts, which may differ from Spark in formatting."
 ).boolean_conf(False)

@@ -41,9 +41,10 @@ from ..columnar.device import (
 from ..expr import Expression, bind, output_name
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Ctx, Val
+from ..expr.misc import contains_task_dependent
 from ..ops.aggregate import group_aggregate
 from ..ops.concat import concat_device
-from ..ops.gather import bulk_shrink, compact, gather_batch, partition_slices, slice_head
+from ..ops.gather import bulk_shrink, compact, gather_batch, partition_slices, row_counts, slice_head
 from ..ops.hash import murmur3_rows, partition_ids
 from ..ops.scan import first_k_positions
 from ..ops.sortkeys import (
@@ -606,6 +607,9 @@ class GpuHashAggregateExec(Exec):
         )
         merge = aggregate_merge_fn(grouping, agg_fns, self._schema, has_nans)
         device = ctx.device
+        target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
+        pack_filter = None if pre_filter is None else filter_fn(pre_filter)
+        packable = pre_filter is None or not contains_task_dependent(pre_filter)
 
         def run(it):
             if self.mode == "partial":
@@ -622,8 +626,24 @@ class GpuHashAggregateExec(Exec):
                     shrunk, counts = bulk_shrink(partials)
                     yield merge(concat_device(shrunk, counts=counts))
                 return
-            # final/complete: one merge+evaluate over the whole partition
-            batches = list(it)
+            # final/complete: one merge+evaluate over the whole partition.
+            # Whenever the batches held since the last pack pass the batch-size
+            # target, they are filtered by the fused filter (re-applied later
+            # to the same rows, which keeps them) and packed into one batch
+            # tight to their live rows (one count fetch): a filtered batch
+            # keeps its input's capacity, and a deep join's filtered output
+            # would otherwise be held at full width. (The JAX package holds
+            # the batches as they come.)
+            batches, pending, held = [], [], 0
+            for db in it:
+                pending.append(db)
+                held += db.size_bytes()
+                if held > target and len(pending) > 1 and packable:
+                    if pack_filter is not None:
+                        pending = [pack_filter(b) for b in pending]
+                    batches.append(concat_device(pending, counts=row_counts(pending)))
+                    pending, held = [], 0
+            batches += pending
             if not batches:
                 if grouping:
                     return

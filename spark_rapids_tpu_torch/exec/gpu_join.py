@@ -9,26 +9,40 @@ types, with the residual condition), ``null_extend_batch`` and the two
 phases. The matcher is the sort-merge of ``ops/join.py``; the execution
 contract is the reference's: build on the RIGHT side, stream the LEFT.
 Output capacities come from ONE host sync per window of ``_PROBE_WINDOW``
-probe batches (one fetch of their match totals), never one per batch.
+probe batches (one fetch of their match totals), never one per batch. A
+probe batch whose pairs would pass ``spark.rapids.sql.batchSizeBytes`` of
+output is cut into runs of probe rows that fit (``_output_chunks``), as
+spark-rapids' join gatherer cuts its output; the JAX package has no such
+cut (its OOM retry splits the probe side instead, ROADMAP Queue A item 11).
 
 The build's key sort is made once per stream of probe batches
 (``sort_build``); the JAX package sorts the build again for every probe
 batch. Pairs and rows come out in the JAX package's order.
 
+The nested-loop and cartesian joins (``GpuBroadcastNestedLoopJoinExec``,
+``GpuCartesianProductExec``, ``chunk_device_batch``) are the JAX package's
+``TpuBroadcastNestedLoopJoinExec`` and ``TpuCartesianProductExec``: the pair
+space of a stream chunk and the build is a flat index ``k`` (``li = k //
+m``, ``ri = k % m``) of at most ``MAX_PAIR_CAP`` pairs, both sides are
+gathered, the condition is evaluated on the pairs, and the matches are
+compacted; stream chunks are cut over the capacity, so there is no host
+sync for their count. Unlike the JAX package, the build is first cut to
+its live rows (one count fetch per join task), so a compacted build does
+not multiply the pair space by its padding.
+
 Left out of the port so far, each with its place in ROADMAP.md: the AQE
 runtime broadcast switch and exchange linking (item 16), the mesh placement
-of the two sides (item 13), the OOM retry around phase 1 (item 11), the
-cancel token (item 12), and the device nested-loop and cartesian joins,
-which stay on the CPU engine with their reason in the explain.
+of the two sides (item 13), the OOM retry around phase 1 (item 11) and the
+cancel token (item 12).
 """
 from __future__ import annotations
 
 import threading
-from itertools import islice
 from typing import List, Optional
 
 import torch
 
+from .. import config as cfg
 from ..columnar.device import (
     DeviceBatch,
     _empty_col,
@@ -37,16 +51,17 @@ from ..columnar.device import (
     empty_batch,
 )
 from ..expr import Expression, bind
-from ..expr.base import Ctx
+from ..expr.base import Ctx, Val
 from ..ops.concat import concat_device
-from ..ops.gather import compact, gather_column
+from ..ops.gather import compact, gather_column, row_counts, shrink_one
 from ..ops.join import gather_pairs, join_output_schema, probe_bounds, sort_build
 from ..plan.physical import Exec, ExecContext, PartitionSet
 from ..types import Schema
-from .gpu import val_to_column
+from .gpu import _row_bytes, val_to_column
 
 # probe batches whose phase-1 results may be held on the device at once
-# while their match totals ride one batched sync (memory bound per stream)
+# while their match totals ride one batched sync (memory bound per stream);
+# the window also closes once its batches hold spark.rapids.sql.batchSizeBytes
 _PROBE_WINDOW = 8
 
 
@@ -58,17 +73,23 @@ def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
     build = prepared = None
     prepare, phase1 = node._phase1()
     phase2 = node._phase2()
+    target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
+    max_rows = max(1, target // _row_bytes(node.output))
     it = iter(probe_thunk())
     while True:
-        # up to _PROBE_WINDOW probe batches dispatch before ONE fetch of
-        # their match totals; the window bounds the join's memory, and an
+        # up to _PROBE_WINDOW probe batches, or batchSizeBytes of them,
+        # dispatch before ONE fetch of their match totals; the window bounds
+        # the join's memory (every join of a chain holds one), and an
         # early-exiting consumer (a limit) stops after the current window
-        window = []
-        for probe in islice(it, _PROBE_WINDOW):
+        window, held = [], 0
+        for probe in it:
             if build is None:
                 build = get_build()
                 prepared = prepare(build)
             window.append((probe, phase1(prepared, probe)))
+            held += probe.size_bytes()
+            if len(window) == _PROBE_WINDOW or held >= target:
+                break
         if not window:
             return
         # the output capacities are chosen on the host: one fetch a window
@@ -77,15 +98,51 @@ def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
         for i, total in enumerate(totals):
             probe, (build_order, lower, counts) = window[i]
             window[i] = None  # release as consumed
-            out_cap = bucket_capacity(max(int(total), 1))
-            out, probe_matched, bmatch = phase2(build, probe, build_order, lower, counts, out_cap)
-            if matched_acc is not None:
-                matched_acc["m"] = matched_acc["m"] | bmatch
-            # possibly-empty batches are yielded without a row-count sync
-            if jt in ("left", "full"):
-                unmatched = (~probe_matched) & probe.row_mask()
-                yield node._null_extend(probe, unmatched, "left")
-            yield out
+            for sub, sub_lower, sub_counts, sub_total in _output_chunks(
+                probe, lower, counts, int(total), max_rows, ctx
+            ):
+                out_cap = bucket_capacity(max(sub_total, 1))
+                out, probe_matched, bmatch = phase2(
+                    build, sub, build_order, sub_lower, sub_counts, out_cap
+                )
+                if matched_acc is not None:
+                    matched_acc["m"] = matched_acc["m"] | bmatch
+                # possibly-empty batches are yielded without a row-count sync
+                if jt in ("left", "full"):
+                    unmatched = (~probe_matched) & sub.row_mask()
+                    yield node._null_extend(sub, unmatched, "left")
+                yield out
+
+
+def _output_chunks(probe: DeviceBatch, lower, counts, total: int, max_rows: int, ctx):
+    """(probe rows, lower, counts, pairs) of each output batch of one probe
+    batch: the whole batch when its ``total`` pairs fit in ``max_rows`` (the
+    batch-size target over the output row's bytes), else runs of whole probe
+    rows whose pairs fit (a row with more matches than that is a run of its
+    own), as spark-rapids' join gatherer cuts its output to the target
+    batch size. Pairs keep their order. Cutting costs two host syncs, made
+    only for a batch over the target."""
+    if total <= max_rows:
+        yield probe, lower, counts, total
+        return
+    ends = torch.cumsum(counts.to(torch.int64), 0)
+    targets = torch.arange(1, -(-total // max_rows), dtype=torch.int64, device=ends.device)
+    cuts = torch.searchsorted(ends, targets * max_rows, right=True).tolist()
+    bounds = [0] + sorted({c for c in cuts if 0 < c < probe.capacity}) + [probe.capacity]
+    at = torch.tensor([b - 1 for b in bounds[1:]], dtype=torch.int64, device=ends.device)
+    before = [0] + ends[at].tolist()
+    ctx.metrics["joinProbeSyncs"] += 2
+    for k, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        cap = bucket_capacity(b - a)
+        idx = torch.arange(cap, dtype=torch.int64, device=ends.device) + a
+        live = idx < b
+        idx = torch.clamp(idx, max=probe.capacity - 1)
+        sub = DeviceBatch(
+            probe.schema,
+            [gather_column(c, idx, live) for c in probe.columns],
+            torch.clamp(probe.num_rows - a, 0, b - a).to(torch.int32),
+        )
+        yield sub, lower[idx], torch.where(live, counts[idx], 0), before[k + 1] - before[k]
 
 
 def _make_phase1(left_keys: tuple, right_keys: tuple):
@@ -391,3 +448,194 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
             f"GpuBroadcastHashJoin {self.join_type} "
             f"[{', '.join(map(str, self.left_keys))}]"
         )
+
+
+def chunk_device_batch(db: DeviceBatch, rows: int):
+    """Slice a device batch into static sub-batches of at most ``rows`` rows
+    (shared by the nested-loop and cartesian pair loops). Chunks are cut
+    over the capacity, not the live-row count: the count is a device scalar,
+    so there is no host sync; a tail chunk past the live rows is empty."""
+    if db.capacity <= rows:
+        yield db
+        return
+    for lo in range(0, db.capacity, rows):
+        idx = torch.arange(rows, dtype=torch.int64, device=db.device) + lo
+        live = idx < db.num_rows
+        idx = torch.clamp(idx, max=db.capacity - 1)
+        cols = [gather_column(c, idx, live) for c in db.columns]
+        yield DeviceBatch(
+            db.schema,
+            cols,
+            torch.clamp(db.num_rows - lo, 0, rows).to(torch.int32),
+        )
+
+
+def pair_fn(out_schema: Schema, condition, jt: str):
+    """The pair kernel of the nested-loop and cartesian joins (the JAX
+    package's ``_make_pair_kernel``): ``fn(lb, rb)`` → (matched pairs
+    compacted, or None for semi/anti; left rows matched; right rows
+    matched)."""
+
+    def fn(lb: DeviceBatch, rb: DeviceBatch):
+        n, m = lb.capacity, rb.capacity
+        cap = n * m
+        k = torch.arange(cap, dtype=torch.int64, device=lb.device)
+        li = torch.div(k, m, rounding_mode="floor")
+        ri = k % m
+        pair_live = (li < lb.num_rows) & (ri < rb.num_rows)
+        lcols = [gather_column(c, li, pair_live) for c in lb.columns]
+        rcols = [gather_column(c, ri, pair_live) for c in rb.columns]
+        live = pair_live
+        if condition is not None:
+            from ..xp import namespace
+
+            cctx = Ctx(
+                namespace(lb.device),
+                cap,
+                True,
+                [Val(c.data, c.validity, c.lengths) for c in lcols + rcols],
+                live.sum().to(torch.int32),
+            )
+            cv = condition.eval(cctx)
+            live = cctx.broadcast_bool(cv.data) & cv.full_valid(cctx) & pair_live
+        # matched flags per side row (outer/semi/anti bookkeeping)
+        left_matched = _matched(li, live, n)
+        right_matched = _matched(ri, live, m)
+        if jt in ("left_semi", "left_anti"):
+            return None, left_matched, right_matched
+        # num_rows = cap: live pairs are scattered over the [n x m] grid and
+        # compact intersects its keep mask with row_mask
+        out = DeviceBatch(
+            out_schema,
+            [dc_replace(c, validity=c.validity & live) for c in lcols + rcols],
+            torch.tensor(cap, dtype=torch.int32, device=lb.device),
+        )
+        return compact(out, live), left_matched, right_matched
+
+    return fn
+
+
+def _build_batch(parts, schema: Schema, ctx: ExecContext) -> DeviceBatch:
+    """The build side of a pair loop as one batch, tight to its live rows.
+    Each stream chunk's pair space is its rows times the build's capacity,
+    and a build that was compacted (a filter, an aggregate) can keep few
+    live rows in a large capacity; so its counts are fetched once (one host
+    sync per join task) and the build cut to them. The JAX package pairs
+    against the full capacity."""
+    batches = [b for t in parts for b in t()]
+    if not batches:
+        return empty_batch(schema, ctx.device)
+    counts = row_counts(batches)
+    if len(batches) == 1:
+        return shrink_one(batches[0], counts[0])
+    return concat_device(batches, counts=counts)
+
+
+class GpuBroadcastNestedLoopJoinExec(Exec):
+    """Cross / conditional (non-equi) join on the device.
+
+    Reference: GpuBroadcastNestedLoopJoinExec.scala (Table.crossJoin +
+    condition filter). The right side is built into one batch; the stream
+    side (coalesced to one partition by the planner) is chunked so each
+    chunk's pair space stays under ``MAX_PAIR_CAP``."""
+
+    MAX_PAIR_CAP = 1 << 20
+
+    def __init__(self, join_type: str, condition: Optional[Expression], left: Exec, right: Exec):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self._schema = join_output_schema(join_type, left.output.fields, right.output.fields)
+        self.condition = (
+            bind(condition, Schema(list(left.output.fields) + list(right.output.fields)))
+            if condition is not None
+            else None
+        )
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def _null_extend(self, batch: DeviceBatch, keep: torch.Tensor, side: str) -> DeviceBatch:
+        left, right = self.children
+        return null_extend_batch(
+            self._schema, batch, keep, side, left.output.fields, right.output.fields
+        )
+
+    @classmethod
+    def _stream_rows(cls, build_capacity: int) -> int:
+        """Power-of-two stream-side chunk rows for a build of this size."""
+        lrows = max(1, cls.MAX_PAIR_CAP // max(build_capacity, 1))
+        p = 1
+        while p * 2 <= lrows:
+            p *= 2
+        return p
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        left, right = self.children
+        lparts = left.execute(ctx)
+        kernel = pair_fn(self._schema, self.condition, self.join_type)
+        jt = self.join_type
+
+        def make(lt):
+            def it():
+                build = _build_batch(right.execute(ctx).parts, right.output, ctx)
+                lrows = self._stream_rows(build.capacity)
+                build_matched = torch.zeros(build.capacity, dtype=torch.bool, device=build.device)
+                for stream in lt():
+                    for lb in chunk_device_batch(stream, lrows):
+                        out, lmatch, rmatch = kernel(lb, build)
+                        build_matched = build_matched | rmatch
+                        if jt in ("left_semi", "left_anti"):
+                            want = lmatch if jt == "left_semi" else (~lmatch & lb.row_mask())
+                            yield compact(lb, want)
+                            continue
+                        if jt in ("left", "full"):
+                            unmatched = (~lmatch) & lb.row_mask()
+                            yield self._null_extend(lb, unmatched, "left")
+                        yield out
+                if jt in ("right", "full"):
+                    unmatched = (~build_matched) & build.row_mask()
+                    yield self._null_extend(build, unmatched, "right")
+
+            return it
+
+        return PartitionSet([make(lt) for lt in lparts.parts])
+
+    def node_string(self):
+        return f"GpuBroadcastNestedLoopJoin {self.join_type} {self.condition or ''}"
+
+
+class GpuCartesianProductExec(GpuBroadcastNestedLoopJoinExec):
+    """Pairwise-partition cross join (GpuCartesianProductExec.scala:349):
+    one task per (left, right) partition pair, each crossing its pair
+    through the same pair kernel. Only cross/inner shapes plan here; the
+    outer variants need global matched-set bookkeeping and take the
+    nested-loop join, as in the reference."""
+
+    def __init__(self, condition: Optional[Expression], left: Exec, right: Exec):
+        super().__init__("inner", condition, left, right)
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        left, right = self.children
+        lparts = left.execute(ctx)
+        rparts = right.execute(ctx)
+        kernel = pair_fn(self._schema, self.condition, "inner")
+
+        def make(lt, rt):
+            def it():
+                build = _build_batch([rt], right.output, ctx)
+                p = self._stream_rows(build.capacity)
+                for stream in lt():
+                    for lb in chunk_device_batch(stream, p):
+                        yield kernel(lb, build)[0]
+
+            return it
+
+        return PartitionSet([make(lt, rt) for lt in lparts.parts for rt in rparts.parts])
+
+    def node_string(self):
+        return f"GpuCartesianProduct {self.condition or ''}"

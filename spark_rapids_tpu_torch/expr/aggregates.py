@@ -334,7 +334,7 @@ class _CentralMoment(AggregateFunction):
 
     def evaluate(self, ctx: Ctx, buffers: Sequence[Val]) -> Val:
         xp = ctx.xp
-        cnt = ctx.broadcast(buffers[0].data).astype(xp.float64)
+        cnt = xp.astype(ctx.broadcast(buffers[0].data), xp.float64)
         s = ctx.broadcast(buffers[1].data)
         ss = ctx.broadcast(buffers[2].data)
         nz = cnt > 0

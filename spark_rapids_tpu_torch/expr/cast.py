@@ -90,8 +90,8 @@ def _float_to_int(xp, data, to_np_dtype):
     above = (x >= hi_f) if int(hi_f) != hi else (x > hi_f)
     below = x < float(lo)  # lo is a power of two, exactly representable
     inner = ~above & ~below
-    casted = xp.where(inner, x, 0.0).astype(to_np_dtype)
-    return xp.where(above, hi, xp.where(below, lo, casted)).astype(to_np_dtype)
+    casted = xp.astype(xp.where(inner, x, 0.0), to_np_dtype)
+    return xp.astype(xp.where(above, hi, xp.where(below, lo, casted)), to_np_dtype)
 
 
 def _float_int_ok(xp, data, to_np_dtype):
@@ -421,7 +421,8 @@ class Cast(UnaryExpression):
         if isinstance(frm, DecimalType) or isinstance(to, DecimalType):
             return self._decimal_cast(ctx, data, frm, to)
         if isinstance(to, (FloatType, DoubleType)):
-            return xp.astype(data, to.np_dtype), None
+            # asarray: a literal's value is a numpy scalar, which np.astype refuses
+            return xp.astype(xp.asarray(data), to.np_dtype), None
         # target integral
         if isinstance(frm, (FloatType, DoubleType)):
             out = _float_to_int(xp, data, to.np_dtype)
@@ -429,7 +430,7 @@ class Cast(UnaryExpression):
                 return out, _float_int_ok(xp, data, to.np_dtype)
             return out, None
         # integral narrowing: wraps (Java) non-ANSI, range-checks ANSI
-        out = xp.astype(data, to.np_dtype)
+        out = xp.astype(xp.asarray(data), to.np_dtype)
         if self.ansi and to.np_dtype.itemsize < data.dtype.itemsize:
             lo, hi = _INT_BOUNDS[to.np_dtype]
             src = data.astype(np.int64)

@@ -275,7 +275,7 @@ class AddMonths(BinaryExpression):
         last = days_from_civil(xp, ny2, nm2, xp.full_like(nm2, 1)) - days_from_civil(
             xp, ny, nm, xp.full_like(nm, 1)
         )
-        nd = xp.minimum(d, last.astype(xp.int32))
+        nd = xp.minimum(d, xp.astype(last, xp.int32))
         return days_from_civil(xp, ny, nm, nd)
 
 
@@ -285,15 +285,15 @@ def _add_months_days(xp, days, months, delta_days):
     (literal intervals), so XLA folds them into the fused kernel."""
     if months:
         y, m, d = civil_from_days(xp, days)
-        total = y.astype(xp.int64) * 12 + (m - 1) + months
-        ny = xp.floor_divide(total, 12).astype(xp.int32)
-        nm = (xp.mod(total, 12) + 1).astype(xp.int32)
+        total = xp.astype(y, xp.int64) * 12 + (m - 1) + months
+        ny = xp.astype(xp.floor_divide(total, 12), xp.int32)
+        nm = xp.astype(xp.mod(total, 12) + 1, xp.int32)
         ny2 = xp.where(nm == 12, ny + 1, ny)
         nm2 = xp.where(nm == 12, 1, nm + 1)
         last = days_from_civil(xp, ny2, nm2, xp.full_like(nm2, 1)) - days_from_civil(
             xp, ny, nm, xp.full_like(nm, 1)
         )
-        nd = xp.minimum(d, last.astype(xp.int32))
+        nd = xp.minimum(d, xp.astype(last, xp.int32))
         days = days_from_civil(xp, ny, nm, nd)
     return days + xp.asarray(delta_days, dtype=xp.int32)
 
@@ -366,7 +366,7 @@ class DateAddInterval(BinaryExpression):
                 "Cannot add hours, minutes or seconds, milliseconds, "
                 "microseconds to a date"
             )
-        days = ctx.broadcast(l).astype(xp.int32)
+        days = xp.astype(ctx.broadcast(l), xp.int32)
         return _add_months_days(xp, days, iv.months, iv.days)
 
 

@@ -294,15 +294,15 @@ class _RoundBase(Expression):
             # cudf round — "may round slightly differently"): arithmetic in
             # f64 binary, not java BigDecimal's shortest-decimal-repr space,
             # so decimal-boundary ties can land one ulp differently.
-            x = ctx.broadcast(c.data).astype(xp.float64)
+            x = xp.astype(ctx.broadcast(c.data), xp.float64)
             if d >= 309:
                 # 10**d overflows float64; every double is unchanged at
                 # this scale (largest exponent span is ±308)
-                return Val(x.astype(dt.np_dtype), c.valid)
+                return Val(xp.astype(x, dt.np_dtype), c.valid)
             if d <= -309:
                 # |x|/10**309 < 1 for every finite double: rounds to zero
                 out = xp.where(xp.isfinite(x), xp.zeros_like(x), x)
-                return Val(out.astype(dt.np_dtype), c.valid)
+                return Val(xp.astype(out, dt.np_dtype), c.valid)
             if d >= 0:
                 p = float(10 ** d)
                 if self.half_even:
@@ -322,7 +322,7 @@ class _RoundBase(Expression):
                     out = xp.sign(x) * xp.floor(xp.abs(x) / q + 0.5) * q
             # NaN/±inf pass through sign*floor unscathed except sign(nan)=nan
             out = xp.where(xp.isfinite(x), out, x)
-            return Val(out.astype(dt.np_dtype), c.valid)
+            return Val(xp.astype(out, dt.np_dtype), c.valid)
         # CPU engine keeps exact java BigDecimal semantics
         import decimal as _dec
 

@@ -166,11 +166,11 @@ class _CaseConvert(Expression):
             data, lengths = dev_str(ctx, c)
             if self.upper:
                 shift = ((data >= ord("a")) & (data <= ord("z"))) * 32
-                out = data - shift.astype(xp.uint8)
+                out = data - xp.astype(shift, xp.uint8)
             else:
                 shift = ((data >= ord("A")) & (data <= ord("Z"))) * 32
-                out = data + shift.astype(xp.uint8)
-            return Val(out.astype(xp.uint8), c.valid, lengths)
+                out = data + xp.astype(shift, xp.uint8)
+            return Val(xp.astype(out, xp.uint8), c.valid, lengths)
         s = _cpu_strs(ctx, c)
         f = str.upper if self.upper else str.lower
         out = np.asarray(

@@ -10,11 +10,13 @@ tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 pass, but its rules cover only what the port runs on the device so far —
 project, filter, grouped and ungrouped aggregation, sort, top-N, expand,
 the coalesce, the shuffle exchange, union, limit, the shuffled and
-broadcast hash joins and the broadcast exchange, over the expressions of
-the 22 TPC-H queries (``InSet`` for a resolved IN-subquery, ``Like``,
-``Substring``, ``StartsWith``/``EndsWith`` among them), ``contains`` and
-``hash``. Every other node — the
-nested-loop and cartesian joins among them — stays on the CPU
+broadcast hash joins, the broadcast exchange, the nested-loop and cartesian
+joins and the window, over the expressions of the 22 TPC-H and 96 TPC-DS
+queries (``InSet`` for a resolved IN-subquery, ``Like``, ``Substring``,
+``StartsWith``/``EndsWith``, rounding, interval date arithmetic, the
+stddev family and the window functions among them), ``contains`` and
+``hash``. Each added expression rule copies its check and reason from
+``spark_rapids_tpu/plan/overrides.py``. Every other node stays on the CPU
 engine with its reason in the explain, which is the system's own per-node
 fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
 shared.)
@@ -30,11 +32,15 @@ from ..exec import cpu as C
 from ..exec import cpu_join as CJ
 from ..exec import gpu as G
 from ..exec import gpu_join as GJ
+from ..exec import gpu_window as GW
+from ..exec.cpu_window import CpuWindowExec
 from ..expr import Expression, bind
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
 from ..expr import conditional as cond
 from ..expr import datetime as dtx
+from ..expr import math as mx
+from ..expr import windows as W
 from ..expr import misc as msc
 from ..expr import predicates as pred
 from ..expr import strings as st
@@ -95,8 +101,10 @@ def _cast_check(e: Cast, conf: TpuConf) -> Optional[str]:
     frm, to = e.c.data_type, e.to
     if e.ansi:
         return "ANSI-mode cast runs on CPU (device error channel not in the torch port yet)"
+    # numeric → integral truncates toward zero and saturates (Java's
+    # double → long), as the JAX package's ``_float_to_int``
     ok = isinstance(to, _FLOATING) and isinstance(frm, _NUMERIC) or (
-        isinstance(to, _INTEGRAL) and isinstance(frm, _INTEGRAL)
+        isinstance(to, _INTEGRAL) and isinstance(frm, _NUMERIC)
     )
     if not ok:
         return f"cast {frm} -> {to} is not supported on device in the torch port yet"
@@ -193,6 +201,80 @@ _expr(st.StartsWith, check=_lit_check("pattern", "startswith pattern"))
 _expr(st.EndsWith, check=_lit_check("pattern", "endswith pattern"))
 _expr(st.Like, check=_like_check)
 _expr(msc.Murmur3Hash)
+for _cls in (ar.UnaryMinus, ar.Abs):
+    _expr(_cls, check=_no_decimal_arith)
+_expr(st.Upper)
+_expr(st.Concat)
+for _cls in (agg.StddevSamp, agg.StddevPop, agg.VarianceSamp, agg.VariancePop):
+    _expr(_cls)
+
+
+def _interval_check(e, conf: TpuConf) -> Optional[str]:
+    """Literal-interval gate, the reference's GpuDateAddInterval restriction
+    (GpuOverrides.scala:1348,1369)."""
+    from ..types import CalendarIntervalType
+
+    itv = e.interval
+    if not (isinstance(itv, Literal) and isinstance(itv.data_type, CalendarIntervalType)):
+        return "interval operand must be a literal CalendarInterval for the device path"
+    if itv.value[2] != 0:
+        return "date + interval with a sub-day component is an error in Spark"
+    return None
+
+
+_expr(dtx.DateAddInterval, check=_interval_check)
+
+
+def _round_check(e, conf: TpuConf) -> Optional[str]:
+    if not isinstance(e.scale, Literal):
+        return "round scale must be a literal for the device path"
+    if not isinstance(e.child.data_type, _INTEGRAL) and not cfg.INCOMPATIBLE_OPS.get(conf):
+        # the reference gates float round the same way: "may round slightly
+        # differently" under isIncompatEnabled (GpuOverrides.scala:2036-2077)
+        return (
+            "round on floating point may round slightly differently than "
+            "Spark's java BigDecimal semantics; enable "
+            "spark.rapids.sql.incompatibleOps.enabled"
+        )
+    if isinstance(e.child.data_type, DecimalType):
+        return "decimal round is not in the torch port yet"
+    return None
+
+
+_expr(mx.Round, check=_round_check)
+_expr(mx.BRound, check=_round_check)
+
+
+def _window_check(e, conf: TpuConf) -> Optional[str]:
+    """GpuWindowExpression gating, as in the JAX package."""
+    fn = e.function
+    fr = e.spec.resolved_frame()
+    if isinstance(fn, (W.Rank, W.DenseRank, W.RowNumber, W.PercentRank, W.CumeDist, W.NTile)):
+        if not e.spec.order_by:
+            return "ranking window functions require ORDER BY"
+        return None
+    if isinstance(fn, (W.Lead, W.Lag)):
+        return None
+    if isinstance(fn, (agg.Sum, agg.Count, agg.Min, agg.Max, agg.Average)):
+        sentinels = (W.UNBOUNDED_PRECEDING, W.CURRENT_ROW, W.UNBOUNDED_FOLLOWING)
+        if fr.frame_type == "range" and not (
+            fr.lower in sentinels and fr.upper in sentinels
+        ):
+            # numeric RANGE frames: value-space binary searches over ONE
+            # numeric/temporal order key (Spark's own restriction)
+            if len(e.spec.order_by) != 1:
+                return "numeric RANGE frames require exactly one ORDER BY key"
+            ot = e.spec.order_by[0].child.data_type
+            # decimal keys compare unscaled with scale-adjusted bounds
+            if not isinstance(ot, _NUMERIC + (DecimalType, DateType, TimestampType)):
+                return f"numeric RANGE frame over {ot.simple_string} is CPU-only"
+        return None
+    return f"window function {type(fn).__name__} has no device implementation"
+
+
+_expr(W.WindowExpression, check=_window_check)
+for _cls in (W.RowNumber, W.Rank, W.DenseRank, W.Lead, W.Lag, W.PercentRank, W.CumeDist, W.NTile):
+    _expr(_cls)
 
 
 def _check_expr_tree(e: Expression, conf: TpuConf, reasons: List[str]) -> bool:
@@ -368,6 +450,53 @@ _rule(
     "BroadcastExchangeExec",
     lambda e, ch: GJ.GpuBroadcastExchangeExec(ch[0]),
     lambda e: [],
+)
+
+
+
+
+def _pair_condition_of(e):
+    """The nested-loop/cartesian condition, bound over the pair of rows."""
+    if e.condition is None:
+        return []
+    left, right = e.children
+    pair = Schema(list(left.output.fields) + list(right.output.fields))
+    return [bind(e.condition, pair)]
+
+
+_rule(
+    CJ.CpuNestedLoopJoinExec,
+    "BroadcastNestedLoopJoinExec",
+    lambda e, ch: GJ.GpuBroadcastNestedLoopJoinExec(e.join_type, e.condition, ch[0], ch[1]),
+    _pair_condition_of,
+)
+_rule(
+    CJ.CpuCartesianProductExec,
+    "CartesianProductExec",
+    lambda e, ch: GJ.GpuCartesianProductExec(e.condition, ch[0], ch[1]),
+    _pair_condition_of,
+)
+
+
+def _window_keys_check(e: CpuWindowExec, conf: TpuConf) -> Optional[str]:
+    """Complex types cannot be window keys on the device (no radix-word
+    encoding), as in the JAX package's ``_no_complex_keys``."""
+    from ..types import is_complex
+
+    for k in list(e.spec.partition_by) + [o.child for o in e.spec.order_by]:
+        if is_complex(k.data_type):
+            return f"window key of type {k.data_type.simple_string} is not supported on device"
+    return None
+
+
+_rule(
+    CpuWindowExec,
+    "WindowExec",
+    lambda e, ch: GW.GpuWindowExec(e.window_cols, ch[0]),
+    lambda e: [we for _, we in e.window_cols]
+    + list(e.spec.partition_by)
+    + [o.child for o in e.spec.order_by],
+    check=_window_keys_check,
 )
 
 

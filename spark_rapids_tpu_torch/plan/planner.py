@@ -8,11 +8,13 @@ like Spark's physical aggregation strategy (which the reference inherits).
 Copied from ``spark_rapids_tpu/plan/planner.py``, cut to the logical nodes
 the port's DataFrame builds: local relations, project, filter, aggregate
 (with the DISTINCT rewrites: stacked aggregates for one DISTINCT column
-set, an Expand under them for several), sort, limit, union, repartition and joins
+set, an Expand under them for several), sort, limit, union, repartition, joins
 (shuffled and broadcast hash joins with the JAX package's build-side
-choice, nested-loop and cartesian joins). A global sort over several
-partitions range-partitions on its keys and sorts each partition, as in the
-JAX package. Windows, file scans and the rest come with later slices. One
+choice, nested-loop and cartesian joins) and windows (a hash exchange on
+the partition keys, or a coalesce, under each window node). A global sort
+over several partitions range-partitions on its keys and sorts each
+partition, as in the JAX package. File scans and the rest come with later
+slices. One
 plan shape differs from the JAX package's: an ungrouped aggregate over
 several partitions exchanges its partials into one partition
 (``SinglePartitioning``) instead of coalescing them.
@@ -98,6 +100,21 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
         return plan_physical(lp.child, conf)
     if isinstance(lp, L.Join):
         return _plan_join(lp, conf)
+    if isinstance(lp, L.Window):
+        from ..exec.cpu_window import CpuWindowExec
+
+        child = plan_physical(lp.child, conf)
+        spec = lp.window_cols[0][1].spec
+        if spec.partition_by:
+            child = CpuShuffleExchangeExec(
+                P.HashPartitioning(
+                    cfg.SHUFFLE_PARTITIONS.get(conf), list(spec.partition_by)
+                ),
+                child,
+            )
+        elif _num_partitions_hint(child) != 1:
+            child = CpuCoalescePartitionsExec(child)
+        return CpuWindowExec(lp.window_cols, child)
     raise NotImplementedError(
         f"no physical plan for {type(lp).__name__} in the torch port yet"
     )

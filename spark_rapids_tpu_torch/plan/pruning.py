@@ -12,7 +12,8 @@ Pruning is deliberately conservative: only node types whose column flow is
 fully modeled participate; anything else (joins, expands, windows…) resets
 the requirement to "all columns" beneath it.
 
-Copied from ``spark_rapids_tpu/plan/pruning.py``. In the port a pruned
+Copied from ``spark_rapids_tpu/plan/pruning.py``; unlike the JAX package, a
+projection also drops the outputs that nothing above it reads. In the port a pruned
 ``LocalRelation`` selects its ``HostBatch``'s columns without copying them
 (``HostBatch.select``) and keeps the original batch as ``source``, which the
 session's upload cache keys on.
@@ -22,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Set
 
-from ..expr import Expression, UnresolvedAttribute
+from ..expr import Expression, UnresolvedAttribute, output_name
 from ..types import Schema
 from . import logical as L
 
@@ -61,8 +62,16 @@ def prune_columns(plan: L.LogicalPlan, required: Optional[Set[str]] = None):
             )
         return L.FileScan(plan.paths, plan.file_format, sub, dict(plan.options))
     if isinstance(plan, L.Project):
-        child = prune_columns(plan.child, _names_of(plan.exprs))
-        return dataclasses.replace(plan, child=child)
+        exprs = plan.exprs
+        if required is not None:
+            # outputs no parent reads go too (Catalyst's ColumnPruning; the
+            # JAX package keeps them): a renaming projection over a whole
+            # table, as the SQL compiler makes for a self-joined dimension,
+            # would otherwise carry every column through each join above
+            kept = [e for e in exprs if output_name(e) in required]
+            exprs = kept or exprs[:1]
+        child = prune_columns(plan.child, _names_of(exprs))
+        return dataclasses.replace(plan, exprs=list(exprs), child=child)
     if isinstance(plan, L.Aggregate):
         child = prune_columns(
             plan.child, _names_of(plan.grouping) | _names_of(plan.aggregates)

@@ -9,15 +9,20 @@ The device is explicit: ``TorchSession(conf, device=None)`` runs on
 ``cuda`` and raises where no card is present, unless the caller passes
 ``device="cpu"`` (the tests do). It never falls back to the CPU on its own.
 
-The DataFrame surface so far: ``create_dataframe``, ``select``,
-``filter``, ``agg``, ``group_by``, ``sort``, ``limit``, ``union``,
+The DataFrame surface so far: ``create_dataframe``, ``select`` (window
+expressions pulled into ``Window`` nodes), ``filter``, ``agg``,
+``group_by``, ``rollup``, ``cube``, ``sort``, ``limit``, ``union``,
+``distinct``, ``drop``, ``drop_duplicates``, ``intersect``, ``subtract``,
 ``repartition``, ``join``, ``cross_join``, ``with_column`` and
-``with_column_renamed``, with the actions ``collect`` and ``explain``.
+``with_column_renamed``, with the actions ``collect`` and ``explain``;
+and the SQL front-end: ``sql(text, params)`` over the temp views that
+``create_or_replace_temp_view`` registers (a plain dict: the JAX session's
+result-cache version bumps wait for the caches slice).
 Columns from a dict carry no nulls except strings (None); pass a
 ``HostBatch`` or an Arrow table for nullable fixed-width columns. Plans are column-pruned before
 planning (``plan/pruning.py``), and the session keeps the device batches of
 its in-memory tables in an upload cache (``_h2d_cache``, filled by
-``HostToDeviceExec``), as the JAX session does. SQL, ``df.cache()``,
+``HostToDeviceExec``), as the JAX session does. ``df.cache()``,
 scheduling and the service layers come with later slices.
 """
 from __future__ import annotations
@@ -39,7 +44,7 @@ from .columnar.host import (
 )
 from .config import TpuConf
 from .exec.cpu_join import extract_equi_join_keys
-from .expr import Alias, Expression, UnresolvedAttribute
+from .expr import Alias, Expression, UnresolvedAttribute, bind, output_name
 from .functions import Column
 from .plan import logical as L
 from .plan.overrides import GpuOverrides
@@ -83,6 +88,33 @@ class TorchSession:
         # id (the entry pins the source), byte-bounded LRU in insertion order
         self._h2d_cache: dict = {}
         self._h2d_lock = threading.Lock()
+        # SQL temp views: lower-cased name -> DataFrame
+        self._temp_views: dict = {}
+
+    # ── SQL ─────────────────────────────────────────────────────────────
+    def sql(self, text: str, params=None) -> "DataFrame":
+        """A SELECT statement over the registered temp views (``sql/``).
+        ``params`` binds the statement's ``?`` placeholders positionally,
+        on the AST (``sql/parser.py::bind_parameters``), so values are
+        always literals, never spliced text."""
+        from .sql import Compiler, bind_parameters, parse
+
+        q = parse(text)
+        if params is not None:
+            q = bind_parameters(q, params)
+        return Compiler(self).compile(q)
+
+    def create_or_replace_temp_view(self, name: str, df: "DataFrame") -> None:
+        self._temp_views[name.lower()] = df
+
+    def drop_temp_view(self, name: str) -> bool:
+        return self._temp_views.pop(name.lower(), None) is not None
+
+    def table(self, name: str) -> "DataFrame":
+        try:
+            return self._temp_views[name.lower()]
+        except KeyError:
+            raise ValueError(f"unknown table {name!r}") from None
 
     def create_dataframe(
         self,
@@ -231,6 +263,51 @@ class TorchSession:
             raise AssertionError(f"execs unexpectedly not on device: {msg}")
 
 
+def _extract_windows(
+    exprs: List[Expression], plan: L.LogicalPlan
+) -> tuple:
+    """Pull WindowExpressions out of a projection into Window nodes below it
+    (Spark's ExtractWindowExpressions): expressions sharing a
+    (partition_by, order_by) spec land in one Window node; the projection
+    references the appended columns. The JAX session's ``_extract_windows``."""
+    from .expr.base import map_child_exprs
+    from .expr.windows import WindowExpression, WindowOrder, WindowSpec, contains_window
+
+    if not any(contains_window(e) for e in exprs):
+        return exprs, plan
+
+    groups: dict = {}  # (partition_by, order_by) -> list[(name, wexpr)]
+    counter = [0]
+    child_schema = plan.schema
+
+    def pull(e: Expression) -> Expression:
+        if isinstance(e, WindowExpression):
+            # resolve against the child schema now: the Window node's own
+            # schema needs the function's type before planning
+            spec = WindowSpec(
+                tuple(bind(p, child_schema) for p in e.spec.partition_by),
+                tuple(
+                    WindowOrder(bind(o.child, child_schema), o.ascending, o.nulls_first)
+                    for o in e.spec.order_by
+                ),
+                e.spec.frame,
+            )
+            e = WindowExpression(bind(e.function, child_schema), spec)
+            key = (spec.partition_by, spec.order_by)
+            name = f"__w{counter[0]}"
+            counter[0] += 1
+            groups.setdefault(key, []).append((name, e))
+            return UnresolvedAttribute(name)
+        if not e.children():
+            return e
+        return map_child_exprs(e, pull)
+
+    new_exprs = [pull(e) for e in exprs]
+    for cols in groups.values():
+        plan = L.Window(cols, plan)
+    return new_exprs, plan
+
+
 def _batch_from_dict(data: dict, schema: Optional[Schema]) -> HostBatch:
     from .types import BOOLEAN, DOUBLE, FLOAT, INT, LONG, STRING, BYTE, SHORT
 
@@ -321,7 +398,8 @@ class DataFrame:
 
     # ── transformations ─────────────────────────────────────────────────
     def select(self, *cols) -> "DataFrame":
-        return DataFrame(self._session, L.Project(_to_exprs(cols), self._plan))
+        exprs, plan = _extract_windows(_to_exprs(cols), self._plan)
+        return DataFrame(self._session, L.Project(exprs, plan))
 
     def filter(self, condition: Union[Column, Expression]) -> "DataFrame":
         e = condition.expr if isinstance(condition, Column) else condition
@@ -333,6 +411,21 @@ class DataFrame:
         return GroupedData(self, _to_exprs(cols))
 
     groupBy = group_by
+
+    def rollup(self, *cols) -> "GroupedData":
+        """ROLLUP grouping sets: (all), (all-1), …, ()."""
+        exprs = _to_exprs(cols)
+        sets = [list(range(k)) for k in range(len(exprs), -1, -1)]
+        return GroupedData(self, exprs, grouping_sets=sets)
+
+    def cube(self, *cols) -> "GroupedData":
+        """CUBE grouping sets: every subset of the grouping columns."""
+        exprs = _to_exprs(cols)
+        n = len(exprs)
+        sets = [
+            [i for i in range(n) if mask & (1 << i)] for mask in range(2**n - 1, -1, -1)
+        ]
+        return GroupedData(self, exprs, grouping_sets=sets)
 
     def agg(self, *aggs) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
@@ -375,7 +468,8 @@ class DataFrame:
                 exprs.append(UnresolvedAttribute(f.name))
         if not replaced:
             exprs.append(Alias(c.expr, name))
-        return DataFrame(self._session, L.Project(exprs, self._plan))
+        exprs, plan = _extract_windows(exprs, self._plan)
+        return DataFrame(self._session, L.Project(exprs, plan))
 
     withColumn = with_column
 
@@ -434,6 +528,72 @@ class DataFrame:
             L.Join(self._plan, other._plan, "cross", [], [], None, False),
         )
 
+    def distinct(self) -> "DataFrame":
+        """Spark plans Distinct as Aggregate(all columns); so does this."""
+        cols = [UnresolvedAttribute(n) for n in self.schema.names]
+        return DataFrame(self._session, L.Aggregate(cols, list(cols), self._plan))
+
+    def drop(self, *cols: str) -> "DataFrame":
+        """Project out the named columns (pyspark: unknown names ignored)."""
+        gone = set(cols)
+        return self.select(*[n for n in self.schema.names if n not in gone])
+
+    def _set_op(self, other: "DataFrame", keep_matched: bool) -> "DataFrame":
+        """Null-safe INTERSECT/EXCEPT: tag each side, union, group by all
+        columns (GROUP BY treats nulls as equal: Spark's set-op null
+        semantics), then filter on side presence."""
+        from .functions import col, lit
+        from .functions import max as max_fn
+
+        names = list(self.schema.names)
+        left = self.with_column("__side_l", lit(1)).with_column("__side_r", lit(0))
+        right = other.with_column("__side_l", lit(0)).with_column("__side_r", lit(1))
+        grouped = (
+            left.union(right)
+            .group_by(*names)
+            .agg(
+                max_fn(col("__side_l")).alias("__hl"),
+                max_fn(col("__side_r")).alias("__hr"),
+            )
+        )
+        cond = (col("__hl") == 1) & (
+            (col("__hr") == 1) if keep_matched else (col("__hr") == 0)
+        )
+        return grouped.filter(cond).select(*names)
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows present in both frames (Spark INTERSECT, null-safe)."""
+        return self._set_op(other, keep_matched=True)
+
+    def subtract(self, other: "DataFrame") -> "DataFrame":
+        """Distinct rows of this frame absent from the other (Spark EXCEPT,
+        null-safe)."""
+        return self._set_op(other, keep_matched=False)
+
+    def drop_duplicates(self, subset: Optional[List[str]] = None) -> "DataFrame":
+        if subset is None:
+            return self.distinct()
+        from .functions import col
+        from .functions import first as first_fn
+
+        keys = [UnresolvedAttribute(n) for n in subset]
+        keep = set(subset)
+        # output keeps the original column order (pyspark semantics)
+        aggs: List[Expression] = []
+        for f in self.schema:
+            if f.name in keep:
+                aggs.append(UnresolvedAttribute(f.name))
+            else:
+                aggs.append(Alias(first_fn(col(f.name)).expr, f.name))
+        return DataFrame(self._session, L.Aggregate(keys, aggs, self._plan))
+
+    dropDuplicates = drop_duplicates
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        self._session.create_or_replace_temp_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
+
     # ── actions ─────────────────────────────────────────────────────────
     def to_host(self) -> HostBatch:
         """The result as one ``HostBatch``."""
@@ -448,15 +608,69 @@ class DataFrame:
         return s
 
 
+#: the grouping-id column of a rollup/cube aggregate's Expand
+GROUPING_ID = "__grouping_id"
+
+
 class GroupedData:
-    def __init__(self, df: DataFrame, grouping: List[Expression]):
+    def __init__(
+        self,
+        df: DataFrame,
+        grouping: List[Expression],
+        grouping_sets: Optional[List[List[int]]] = None,
+    ):
         self._df = df
         self._grouping = grouping
+        self._grouping_sets = grouping_sets
 
     def agg(self, *aggs) -> DataFrame:
         agg_exprs = [a.expr if isinstance(a, Column) else a for a in aggs]
+        if self._grouping_sets is not None:
+            return self._agg_grouping_sets(agg_exprs)
         # Spark: group-by output = grouping columns ++ aggregates
         all_out = list(self._grouping) + agg_exprs
         return DataFrame(
             self._df._session, L.Aggregate(self._grouping, all_out, self._df._plan)
+        )
+
+    def _agg_grouping_sets(self, agg_exprs: List[Expression]) -> DataFrame:
+        """rollup/cube: Expand fans each row out once per grouping set with
+        non-member keys nulled and a grouping-id column, then a plain
+        aggregate groups on [keys…, grouping_id] (Spark's
+        ResolveGroupingAnalytics → Expand plan; the JAX session's
+        ``_agg_grouping_sets``)."""
+        from .expr import Literal
+        from .types import INT
+
+        child_schema = self._df.schema
+        n_keys = len(self._grouping)
+        names = list(child_schema.names)
+        key_names = [f"__key{i}" for i in range(n_keys)]
+        out_names = names + key_names + [GROUPING_ID]
+        projections: List[List[Expression]] = []
+        for s in self._grouping_sets:
+            proj: List[Expression] = [UnresolvedAttribute(nm) for nm in names]
+            for i, g in enumerate(self._grouping):
+                if i in s:
+                    proj.append(Alias(g, key_names[i]))
+                else:
+                    dt = bind(g, child_schema).data_type
+                    proj.append(Alias(Literal(None, dt), key_names[i]))
+            gid = sum((1 << (n_keys - 1 - i)) for i in range(n_keys) if i not in s)
+            proj.append(Alias(Literal(gid, INT), GROUPING_ID))
+            projections.append(proj)
+        expand = L.Expand(projections, out_names, self._df._plan)
+        grouping = [UnresolvedAttribute(nm) for nm in key_names] + [
+            UnresolvedAttribute(GROUPING_ID)
+        ]
+        # output: the original grouping names, then the aggregates (gid
+        # internal); aggregate inputs read the original columns, passed
+        # through the Expand unchanged, as in Spark's plan
+        out_keys = [
+            Alias(UnresolvedAttribute(kn), output_name(g))
+            for kn, g in zip(key_names, self._grouping)
+        ]
+        return DataFrame(
+            self._df._session,
+            L.Aggregate(grouping, out_keys + agg_exprs, expand),
         )

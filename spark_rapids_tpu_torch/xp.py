@@ -98,6 +98,9 @@ class TorchNamespace:
         return torch.arange(*args, dtype=td, device=self.device)
 
     # ── shape ───────────────────────────────────────────────────────────
+    def concatenate(self, arrays, axis=0):
+        return torch.cat([self.asarray(a) for a in arrays], dim=axis)
+
     def broadcast_to(self, x, shape):
         return torch.broadcast_to(self.asarray(x), shape)
 
@@ -119,6 +122,41 @@ class TorchNamespace:
 
     def maximum(self, a, b):
         return torch.maximum(self.asarray(a), self.asarray(b))
+
+    def minimum(self, a, b):
+        return torch.minimum(self.asarray(a), self.asarray(b))
+
+    def trunc(self, x):
+        return torch.trunc(self.asarray(x))
+
+    def floor(self, x):
+        return torch.floor(self.asarray(x))
+
+    def round(self, x):
+        """Half to even, as numpy's ``round``."""
+        return torch.round(self.asarray(x))
+
+    def abs(self, x):
+        return torch.abs(self.asarray(x))
+
+    def sign(self, x):
+        return torch.sign(self.asarray(x))
+
+    def sqrt(self, x):
+        return torch.sqrt(self.asarray(x))
+
+    def isfinite(self, x):
+        return torch.isfinite(self.asarray(x))
+
+    def zeros_like(self, x):
+        return torch.zeros_like(self.asarray(x))
+
+    def full_like(self, x, fill):
+        return torch.full_like(self.asarray(x), _pyscalar(fill))
+
+    def mod(self, a, b):
+        """numpy's ``mod``: the sign of the divisor."""
+        return torch.remainder(self.asarray(a), _pyscalar(b))
 
     def clip(self, x, lo, hi):
         return torch.clamp(self.asarray(x), _pyscalar(lo), _pyscalar(hi))

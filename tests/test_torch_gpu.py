@@ -4,8 +4,10 @@ queries on the card against the port's CPU engine, from one partition and
 from 4 input partitions at 8 shuffle partitions (through the device
 exchange and the upload cache); TPC-H queries with top-N and ``Like`` on
 the card against the CPU engine, and the byte-NFA and the radix select on
-a CUDA tensor against the same functions on the CPU. Each test decides in its
-body whether a card is present and skips where none is.
+a CUDA tensor against the same functions on the CPU; the window operator and
+the nested-loop and cartesian joins on the card against the CPU engine, and
+TPC-DS q2, q47, q64, q67 and q95 from SQL text at SF 0.01. Each test decides
+in its body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only the port: ``python -m pytest --noconftest -m gpu
@@ -18,13 +20,16 @@ import torch
 
 from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch.ops import strings_kernels as SK
+from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch.testing import (
     GRID,
     SPLIT_GRID,
     check_match_starts,
     grid_lengths,
     rows_equal,
+    tpcds_check,
 )
+from spark_rapids_tpu_torch.window import Window
 from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_orders_lineitem, gen_table
 from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES, tpch_query
 
@@ -155,3 +160,90 @@ def test_like_nfa_and_radix_select_on_gpu_match_cpu():
         assert int(radix_select_kth(words.cuda(), k)) == int(radix_select_kth(words, k)) == int(
             torch.sort(words).values[k - 1]
         ), k
+
+
+def _window_join_table(n: int, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "k": rng.integers(0, 40, n).astype(np.int64),
+        "o": rng.integers(0, 50, n).astype(np.int64),
+        "v": rng.standard_normal(n),
+        "s": [f"s{int(x)}" for x in rng.integers(0, 30, n)],
+    }
+
+
+@pytest.mark.gpu
+def test_window_operator_on_gpu_matches_cpu_engine():
+    """Ranks, lead/lag, running, bounded, numeric RANGE and whole-partition
+    frames (sum, avg, min, max, string min) over 20,000 rows on the card
+    (strict mode) against the port's CPU engine."""
+    _need_gpu()
+    data = _window_join_table(20_000, 91)
+
+    def build(s):
+        w = Window.partition_by("k").order_by("o", "s")
+        return (s.create_dataframe(data, num_partitions=2)
+                .with_column("rn", F.row_number().over(w))
+                .with_column("r", F.rank().over(Window.partition_by("k").order_by("o")))
+                .with_column("dr", F.dense_rank().over(Window.partition_by("k").order_by("o")))
+                .with_column("lg", F.lag(F.col("v"), 2).over(w))
+                .with_column("run", F.sum(F.col("v")).over(w.rows_between(Window.unbounded_preceding, 0)))
+                .with_column("bmax", F.max(F.col("v")).over(w.rows_between(-5, 3)))
+                .with_column("rng", F.avg(F.col("v")).over(
+                    Window.partition_by("k").order_by("o").range_between(-3, 3)))
+                .with_column("smin", F.min(F.col("s")).over(Window.partition_by("k"))))
+
+    got = build(TorchSession({"spark.rapids.sql.test.enabled": True,
+                              "spark.sql.shuffle.partitions": 4}, device="cuda")).collect()
+    torch.cuda.synchronize()
+    want = build(TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")).collect()
+    ok, msg = rows_equal(got, want)
+    assert ok, msg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["cross", "inner", "left", "full", "semi", "anti"])
+def test_nested_loop_and_cartesian_joins_on_gpu_match_cpu_engine(how):
+    """A cross join and a non-equi join of every type on the card (strict
+    mode; the pair space over ``MAX_PAIR_CAP``, so the stream is chunked)
+    against the port's CPU engine."""
+    _need_gpu()
+    left = _window_join_table(1500, 92)
+    right = _window_join_table(700, 93)
+
+    def build(s):
+        lt = s.create_dataframe(left, num_partitions=2)
+        rt = s.create_dataframe({"b": right["o"], "w": right["v"]})
+        if how == "cross":
+            return lt.cross_join(rt)
+        return lt.join(rt, on=(F.col("o") < F.col("b") - 40) & (F.col("v") < F.col("w")), how=how)
+
+    gpu = TorchSession({"spark.rapids.sql.test.enabled": True}, device="cuda")
+    got = build(gpu).collect()
+    torch.cuda.synchronize()
+    want = build(TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")).collect()
+    ok, msg = rows_equal(got, want)
+    assert want and ok, msg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [2, 47, 64, 67, 95])
+def test_tpcds_query_on_gpu_matches_cpu_engine(q):
+    """TPC-DS from SQL text at SF 0.01 on the card, nothing off the device
+    but the scans (strict mode), rows equal to the port's CPU engine within
+    ``tests/test_tpcds.py``'s tolerance."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.tpcds import register_tables, tpcds_sql
+
+    conf = {"spark.rapids.sql.incompatibleOps.enabled": True}
+    gpu = TorchSession({**conf, "spark.rapids.sql.test.enabled": True}, device="cuda")
+    register_tables(gpu, 0.01)
+    df = gpu.sql(tpcds_sql(q))
+    got = df.collect()
+    torch.cuda.synchronize()
+    cpu = TorchSession({**conf, "spark.rapids.sql.enabled": False}, device="cpu")
+    register_tables(cpu, 0.01)
+    ok, msg = tpcds_check(tpcds_sql(q), df, cpu.sql(tpcds_sql(q)).collect(), got)
+    assert ok, msg

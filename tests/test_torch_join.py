@@ -16,8 +16,10 @@ DataFrame's ``join``) against the JAX package, on the CPU at a small size.
   (device="cpu", strict mode), the port's CPU engine and the JAX CPU
   engine, a few also through the JAX device engine on JAX-CPU. Rows are
   compared order-insensitively, floats within the harness's tolerance.
-* Nested-loop and cartesian joins stay on the port's CPU engine with their
-  reason in the explain.
+* Nested-loop and cartesian joins on the device (``GpuBroadcastNestedLoopJoinExec``,
+  ``GpuCartesianProductExec``): mirrors of ``tests/test_cartesian.py`` and
+  the cross and non-equi cases of ``tests/test_broadcast_joins.py``, and a
+  stream chunked under a small pair cap.
 
 Inputs come from numpy seeds (or the reference's ``data_gen`` tables) and
 enter both packages as the same arrays."""
@@ -429,8 +431,9 @@ def test_join_falls_back_per_node_with_its_rows():
 @pytest.mark.parametrize("how", ["cross", "inner", "left", "full", "semi", "anti"])
 def test_nested_loop_and_cartesian_stay_on_the_cpu_engine(how):
     """Cross joins and non-equi conditions plan a cartesian product or a
-    nested-loop join, which have no device form in the port yet: they run
-    on the CPU engine, name their reason, and give the JAX engine's rows."""
+    nested-loop join. (The name is from the slices that kept them on the
+    CPU engine.) Both now run on the device in strict mode, and give the
+    JAX CPU engine's rows."""
     lt = gen_table([("a", JT.INT)], 40, seed=56)
     rt = gen_table([("b", JT.INT)], 30, seed=57)
 
@@ -440,13 +443,123 @@ def test_nested_loop_and_cartesian_stay_on_the_cpu_engine(how):
             return left.cross_join(s.create_dataframe(rt))
         return left.join(s.create_dataframe(rt), on=F.col("a") < F.col("b"), how=how)
 
-    dev = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
+    dev = _port()
     got = build(PF, dev).collect()
     node = "CpuCartesianProductExec" if how in ("cross", "inner") else "CpuNestedLoopJoinExec"
-    reasons = [r for e in dev._last_overrides.explain for r in e.reasons]
-    assert f"exec {node} has no device implementation" in reasons, reasons
+    assert any(e.node.startswith(node.replace("Exec", "")) and e.on_device
+               for e in dev._last_overrides.explain), dev._last_overrides.explain
     _assert_rows_equal(got, build(JF, cpu_session()).collect(), f"{how}: port vs JAX")
     assert got
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full"])
+def test_hash_join_output_cut_to_the_batch_size(how):
+    """A many-to-many key (each key 30 × 20 rows) under a batch-size target
+    of a few hundred output rows: each probe batch's pairs come out in
+    several batches of whole probe rows, and the rows equal the JAX CPU
+    engine's, shuffled and broadcast."""
+    lt, rt = _two_tables(60, n_left=300, n_right=200, groups=10)
+    for conf in (NO_BC, {}):
+        small = {**conf, "spark.rapids.sql.batchSizeBytes": 8192}
+
+        def build(F, s):
+            return s.create_dataframe(lt, num_partitions=2).join(
+                s.create_dataframe(rt), on=[("k", "k")], how=how)
+
+        dev = _port(small)
+        got = build(PF, dev).collect()
+        assert dev._last_metrics["joinProbeSyncs"] > 2, dev._last_metrics
+        _assert_rows_equal(got, build(JF, cpu_session(conf)).collect(), f"{how} {conf}")
+
+
+def _nlj_check(build, node: str):
+    """``build(F, session)`` through the port's device engine (strict mode,
+    ``node`` on the device) and CPU engine, held to the JAX CPU engine."""
+    want = build(JF, cpu_session()).collect()
+    dev = _port()
+    got = build(PF, dev).collect()
+    assert any(e.node.startswith(node) and e.on_device for e in dev._last_overrides.explain)
+    _assert_rows_equal(got, want, "port device engine vs JAX")
+    _assert_rows_equal(build(PF, _port(enabled=False)).collect(), want, "port CPU engine vs JAX")
+    return got
+
+
+def _cartesian_tables():
+    rng = np.random.default_rng(5)
+    lt = pa.table({"a": rng.integers(0, 10, 40), "x": rng.standard_normal(40)})
+    rt = pa.table({"b": rng.integers(0, 10, 30), "y": rng.standard_normal(30)})
+    return lt, rt
+
+
+def test_cross_join_pairwise():
+    """``tests/test_cartesian.py``: 3 × 2 partitions, one task per pair."""
+    lt, rt = _cartesian_tables()
+    rows = _nlj_check(
+        lambda F, s: s.create_dataframe(lt, num_partitions=3).cross_join(
+            s.create_dataframe(rt, num_partitions=2)),
+        "CpuCartesianProduct",
+    )
+    assert len(rows) == 40 * 30
+
+
+def test_conditional_non_equi_join_uses_cartesian():
+    lt, rt = _cartesian_tables()
+    rows = _nlj_check(
+        lambda F, s: s.create_dataframe(lt, num_partitions=2).join(
+            s.create_dataframe(rt, num_partitions=2), on=F.col("a") < F.col("b"), how="inner"),
+        "CpuCartesianProduct",
+    )
+    want = sum(1 for a in lt.column("a").to_pylist() for b in rt.column("b").to_pylist() if a < b)
+    assert len(rows) == want
+
+
+def test_cross_join_empty_side():
+    lt = pa.table({"a": pa.array([], type=pa.int64())})
+    rt = pa.table({"b": [1, 2, 3]})
+    assert _nlj_check(
+        lambda F, s: s.create_dataframe(lt).cross_join(s.create_dataframe(rt)),
+        "CpuCartesianProduct",
+    ) == []
+
+
+def test_broadcast_cross_join():
+    """``tests/test_broadcast_joins.py::test_cross_join``."""
+    lt = gen_table([("a", JT.INT)], 40, seed=54)
+    rt = gen_table([("b", JT.INT)], 30, seed=55)
+    _nlj_check(
+        lambda F, s: s.create_dataframe(lt, num_partitions=2).cross_join(s.create_dataframe(rt)),
+        "CpuCartesianProduct",
+    )
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "right", "full", "semi", "anti"])
+def test_non_equi_join(how):
+    """``tests/test_broadcast_joins.py::test_non_equi_join``: the outer,
+    semi and anti shapes take the nested-loop join, inner the cartesian."""
+    lt = gen_table([("a", JT.INT)], 60, seed=56)
+    rt = gen_table([("b", JT.INT)], 45, seed=57)
+    _nlj_check(
+        lambda F, s: s.create_dataframe(lt, num_partitions=2).join(
+            s.create_dataframe(rt), on=F.col("a") < F.col("b"), how=how),
+        "CpuCartesianProduct" if how == "inner" else "CpuNestedLoopJoin",
+    )
+
+
+@pytest.mark.parametrize("how", ["left", "full", "semi", "anti"])
+def test_nested_loop_join_chunks_the_stream(how, monkeypatch):
+    """A pair space over ``MAX_PAIR_CAP`` splits the stream side into chunks
+    over its capacity (the last chunk past the live rows): the rows and the
+    matched flags stay those of one pass."""
+    from spark_rapids_tpu_torch.exec import gpu_join as GJ
+
+    monkeypatch.setattr(GJ.GpuBroadcastNestedLoopJoinExec, "MAX_PAIR_CAP", 256)
+    lt = gen_table([("a", JT.INT)], 150, seed=58)
+    rt = gen_table([("b", JT.INT)], 70, seed=59)
+    _nlj_check(
+        lambda F, s: s.create_dataframe(lt).join(
+            s.create_dataframe(rt), on=F.col("a") < F.col("b") - 3, how=how),
+        "CpuNestedLoopJoin",
+    )
 
 
 def test_with_column_and_rename():
@@ -497,3 +610,20 @@ def test_year_in_and_divide_on_the_device():
     assert [r[0] for r in got] == [1, 1900, 1969, 1970, 1970, 1971, 2000, 9999]
     _assert_rows_equal(got, build(PF, _port(enabled=False)).collect(), "device vs CPU engine")
     _assert_rows_equal(got, build(JF, cpu_session()).collect(), "port vs JAX CPU engine")
+
+
+def test_aggregate_packs_its_held_input_past_the_batch_size():
+    """A complete aggregate over a join whose filtered output comes in many
+    batches (a small batch-size target cuts the join's pairs): the held
+    batches are filtered and packed as they pass the target, and the rows
+    equal the JAX CPU engine's."""
+    lt, rt = _two_tables(61, n_left=300, n_right=200, groups=10)
+
+    def build(F, s):
+        j = s.create_dataframe(lt).join(s.create_dataframe(rt), on=[("k", "k")], how="inner")
+        return j.filter(F.col("lv") < F.col("rv")).group_by("k").agg(
+            F.sum(F.col("lv")).alias("s"), F.count(F.col("rv")).alias("c"))
+
+    dev = _port({"spark.rapids.sql.batchSizeBytes": 8192})
+    got = build(PF, dev).collect()
+    _assert_rows_equal(got, build(JF, cpu_session()).collect(), "packed aggregate input")

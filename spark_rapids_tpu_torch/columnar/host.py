@@ -254,14 +254,14 @@ def to_pylist(col: HostColumn) -> list:
         return _py_strings(col).tolist()
     if isinstance(dt, NullType):
         return [None] * len(valid)
-    vals = col.data.tolist()
+    vals = [v if ok else None for v, ok in zip(col.data.tolist(), valid)]
     if isinstance(dt, DateType):
-        vals = [_EPOCH_DATE + _dt.timedelta(days=v) for v in vals]
-    elif isinstance(dt, TimestampType):
-        vals = [_EPOCH_TS + _dt.timedelta(microseconds=v) for v in vals]
-    elif isinstance(dt, DecimalType):
-        vals = [_dec.Decimal(v).scaleb(-dt.scale) for v in vals]
-    return [v if ok else None for v, ok in zip(vals, valid)]
+        return [None if v is None else _EPOCH_DATE + _dt.timedelta(days=v) for v in vals]
+    if isinstance(dt, TimestampType):
+        return [None if v is None else _EPOCH_TS + _dt.timedelta(microseconds=v) for v in vals]
+    if isinstance(dt, DecimalType):
+        return [None if v is None else _dec.Decimal(v).scaleb(-dt.scale) for v in vals]
+    return vals
 
 
 def batch_rows(batch: HostBatch) -> list:

@@ -33,6 +33,7 @@ from ..ops.hash import murmur3_rows, partition_ids
 from ..plan.logical import SortOrder
 from ..plan.physical import Exec, ExecContext, PartitionSet
 from ..types import NullType, Schema, StringType, StructField
+from ..xp import NUMPY
 from . import cpu_kernels as ck
 
 
@@ -56,7 +57,7 @@ class _HostVals:
 
 
 def _cpu_ctx(rb: HostBatch, schema: Schema) -> Ctx:
-    return Ctx(np, rb.num_rows, False, _HostVals(rb))
+    return Ctx(NUMPY, rb.num_rows, False, _HostVals(rb))
 
 
 def _val_to_np(ctx: Ctx, val) -> tuple[np.ndarray, np.ndarray]:

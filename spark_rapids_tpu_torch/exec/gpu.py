@@ -315,16 +315,74 @@ class GpuCoalesceBatchesExec(Exec):
 # ── project / filter ────────────────────────────────────────────────────────
 
 
+def has_error_site(e: Expression) -> bool:
+    """Fusion guard (the JAX package's ``_expr_has_error_site``):
+    expressions that raise through the device error channel (ANSI casts,
+    ANSI integral arithmetic) keep their own project or filter, whose run
+    reads the channel; a fused copy would swallow the error."""
+    from ..expr.arithmetic import AnsiArithmetic
+    from ..expr.cast import Cast
+
+    if isinstance(e, Cast) and e.ansi:
+        return True
+    if isinstance(e, AnsiArithmetic) and e.ansi:
+        return True
+    return any(has_error_site(c) for c in e.children())
+
+
+def fusable_filter(condition: Expression) -> bool:
+    """A filter may fold into the operator above it as a liveness mask
+    unless it reads task values or raises through the error channel."""
+    return not (contains_task_dependent(condition) or has_error_site(condition))
+
+
+def raise_errors(c: Ctx, live) -> None:
+    """The device error channel (the JAX package's ``_error_flags`` and
+    ``_ErrorCheckingKernel``): each ANSI site the expressions registered
+    while evaluating is one flag, its row mask reduced over the live rows;
+    the flags cross to the host in one sync, and only where a site exists,
+    and the first that fired raises ``AnsiError`` with its message."""
+    if not c.errors:
+        return
+    from ..expr.base import AnsiError
+
+    flags = torch.stack([(mask & live).any() for _, mask in c.errors]).cpu()
+    if bool(flags.any()):
+        raise AnsiError(c.errors[int(torch.argmax(flags.to(torch.uint8)))][0])
+
+
+def run_batches(fn, it, needs_task: bool):
+    """Drive ``fn(batch, task_vals)`` over device batches (the JAX package's
+    ``task.run_device``). Task values are sampled only where the
+    expressions read them; the running row base of
+    ``monotonically_increasing_id`` stays a device scalar, so no batch pays
+    a sync for it."""
+    from ..xp import namespace
+    from . import task
+
+    if not needs_task:
+        for db in it:
+            yield fn(db, None)
+        return
+    base = None
+    for db in it:
+        tv = task.task_vals(namespace(db.device), row_base=base)
+        out = fn(db, tv)
+        base = tv.row_base + db.num_rows.to(torch.int64)
+        yield out
+
+
 def project_fn(exprs: tuple, schema: Schema):
     """The projection of one device batch (the JAX package's
-    ``project_kernel``)."""
+    ``project_kernel``), raising its ANSI errors."""
 
-    def _project(batch: DeviceBatch):
-        c = Ctx.for_device(batch)
+    def _project(batch: DeviceBatch, tvals=None):
+        c = Ctx.for_device(batch, task=tvals)
         cols = [val_to_column(c, e.eval(c), e.data_type) for e in exprs]
         # keep padding rows inert
         live = batch.row_mask()
         cols = [dc_replace(col, validity=col.validity & live) for col in cols]
+        raise_errors(c, live)
         return DeviceBatch(schema, cols, batch.num_rows)
 
     return _project
@@ -332,12 +390,13 @@ def project_fn(exprs: tuple, schema: Schema):
 
 def filter_fn(condition: Expression):
     """The filter of one device batch: evaluate, then compact (the JAX
-    package's ``filter_kernel``)."""
+    package's ``filter_kernel``), raising its ANSI errors."""
 
-    def _filter(batch: DeviceBatch):
-        c = Ctx.for_device(batch)
+    def _filter(batch: DeviceBatch, tvals=None):
+        c = Ctx.for_device(batch, task=tvals)
         v = condition.eval(c)
         keep = c.broadcast_bool(v.data) & v.full_valid(c)
+        raise_errors(c, batch.row_mask())
         return compact(batch, keep)
 
     return _filter
@@ -371,7 +430,10 @@ class GpuProjectExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         fn = project_fn(tuple(self.exprs), self._schema)
-        return self.children[0].execute(ctx).map_partitions(lambda it: map(fn, it))
+        needs_task = any(contains_task_dependent(e) for e in self.exprs)
+        return self.children[0].execute(ctx).map_partitions(
+            lambda it: run_batches(fn, it, needs_task)
+        )
 
     def node_string(self):
         return f"GpuProject [{', '.join(map(str, self.exprs))}]"
@@ -392,7 +454,10 @@ class GpuFilterExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         fn = filter_fn(self.condition)
-        return self.children[0].execute(ctx).map_partitions(lambda it: map(fn, it))
+        needs_task = contains_task_dependent(self.condition)
+        return self.children[0].execute(ctx).map_partitions(
+            lambda it: run_batches(fn, it, needs_task)
+        )
 
     def node_string(self):
         return f"GpuFilter {self.condition}"
@@ -579,11 +644,14 @@ class GpuHashAggregateExec(Exec):
         """(effective child, fused pre_filter) — the JAX package's
         filter-fusion decision (``exec/tpu.py`` ``_fused_child``): a child
         filter's predicate folds into the aggregate as a liveness mask, and
-        the compaction gather of every column is skipped. The JAX package
-        keeps filters with task-dependent or error-raising expressions
-        standalone; the port's overrides keep those off the device."""
+        the compaction gather of every column is skipped. Filters with
+        task-dependent or error-raising expressions stay standalone."""
         child = self.children[0]
-        if self.mode in ("partial", "complete") and isinstance(child, GpuFilterExec):
+        if (
+            self.mode in ("partial", "complete")
+            and isinstance(child, GpuFilterExec)
+            and fusable_filter(child.condition)
+        ):
             return child.children[0], child.condition
         return child, None
 
@@ -609,7 +677,6 @@ class GpuHashAggregateExec(Exec):
         device = ctx.device
         target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
         pack_filter = None if pre_filter is None else filter_fn(pre_filter)
-        packable = pre_filter is None or not contains_task_dependent(pre_filter)
 
         def run(it):
             if self.mode == "partial":
@@ -638,7 +705,7 @@ class GpuHashAggregateExec(Exec):
             for db in it:
                 pending.append(db)
                 held += db.size_bytes()
-                if held > target and len(pending) > 1 and packable:
+                if held > target and len(pending) > 1:
                     if pack_filter is not None:
                         pending = [pack_filter(b) for b in pending]
                     batches.append(concat_device(pending, counts=row_counts(pending)))
@@ -959,13 +1026,16 @@ class GpuShuffleExchangeExec(Exec):
         kind = self._kind()
         exchange_child = self.children[0]
         pre_filter = None
-        if isinstance(exchange_child, GpuFilterExec) and kind in ("hash", "range"):
+        if (
+            isinstance(exchange_child, GpuFilterExec)
+            and kind in ("hash", "range")
+            and fusable_filter(exchange_child.condition)
+        ):
             # fuse the filter into the bucketing: its rows fall out during
             # the partition sort, skipping the filter's own compaction.
             # Round-robin balances by row position, so a fused filter would
-            # skew it; hash/range pids are value-based. (The port's
-            # overrides keep task-dependent and error-raising filters off
-            # the device.)
+            # skew it; hash/range pids are value-based. Task-dependent and
+            # error-raising filters keep their own run.
             pre_filter = exchange_child.condition
             exchange_child = exchange_child.children[0]
         fn = self._scatter_fn(kind, nparts, pre_filter)

@@ -14,10 +14,9 @@ run as device programs. Instead the task-dependent values are packaged as
 function; ``Ctx.task`` exposes them to expression ``eval``. The host-side
 ``TaskInfo`` is the source of truth the operators sample per batch.
 
-Copied from ``spark_rapids_tpu/exec/task.py`` for the CPU engine. The
-port's overrides keep task-dependent expressions off the device, so the
-device-side pieces (the TaskVals pytree, ``zero_vals``, ``run_device``) are
-left out.
+Copied from ``spark_rapids_tpu/exec/task.py``. On the device ``TaskVals``
+holds torch scalars, and ``exec/gpu.py::run_batches`` takes the place of
+``run_device``; ``zero_vals`` is left out (nothing compiles per shape).
 """
 from __future__ import annotations
 

@@ -435,11 +435,11 @@ class _PairMoment(AggregateFunction):
 
     def evaluate(self, ctx: Ctx, buffers: Sequence[Val]) -> Val:
         xp = ctx.xp
-        n = ctx.broadcast(buffers[0].data).astype(xp.float64)
+        n = xp.astype(ctx.broadcast(buffers[0].data), xp.float64)
         sx = ctx.broadcast(buffers[1].data)
         sy = ctx.broadcast(buffers[2].data)
         sxy = ctx.broadcast(buffers[3].data)
-        nan = xp.float64(float("nan"))
+        nan = float("nan")
         safe_n = xp.where(n > 0, n, 1.0)
         cxy = sxy / safe_n - (sx / safe_n) * (sy / safe_n)
         if self.is_corr:
@@ -466,7 +466,7 @@ class _PairMoment(AggregateFunction):
         else:
             data = cxy
             valid = n >= 1
-        return Val(data.astype(xp.float64), valid)
+        return Val(xp.astype(data, xp.float64), valid)
 
     def __str__(self):
         name = (

@@ -9,8 +9,14 @@ semantics implemented here (both backends, bit-identical to CPU Spark):
 * ``IntegralDivide``/``Remainder``/``Pmod`` are NULL on zero divisors.
 * Decimal add/sub/multiply follow Spark's DecimalPrecision result types,
   gated to 64-bit precision like the reference (TypeChecks DECIMAL_64).
+* Under ANSI mode (``ansi=True``, set by the session's ANSI rewrite)
+  integral ``+``, ``-`` and ``*`` raise ``AnsiError`` on overflow, as
+  Spark's ``failOnError`` arithmetic does; the device raises it through the
+  error channel of ``exec/gpu.py``.
 
-Copied from ``spark_rapids_tpu/expr/arithmetic.py``.
+Copied from ``spark_rapids_tpu/expr/arithmetic.py``. The JAX package has no
+ANSI arithmetic (its integral ops always wrap); ``AnsiArithmetic`` is the
+port's own.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..types import (
     LONG,
     LongType,
 )
-from .base import BinaryExpression, Ctx, Expression, UnaryExpression, Val, and_valid
+from .base import BinaryExpression, Ctx, Expression, UnaryExpression
 
 
 def _is_float(dt: DataType) -> bool:
@@ -45,10 +51,26 @@ def _java_rem(xp, l, r):
     return l - _java_div(xp, l, r) * r
 
 
+class AnsiArithmetic(BinaryExpression):
+    """Integral ``+``/``-``/``*`` whose ANSI form registers an error site
+    on overflow (null inputs never raise). Subclasses give ``_overflow``
+    over the wrapped result."""
+
+    ansi: bool = False
+
+    def _register_errors(self, ctx: Ctx, l, r, data, valid) -> None:
+        if self.ansi and isinstance(self.data_type, IntegralType):
+            ctx.register_error(
+                f"[ARITHMETIC_OVERFLOW] {self.data_type.simple_string} overflow in {self}",
+                self._overflow(ctx.xp, l, r, data) & ctx.broadcast_bool(valid),
+            )
+
+
 @dataclass(frozen=True)
-class Add(BinaryExpression):
+class Add(AnsiArithmetic):
     l: Expression
     r: Expression
+    ansi: bool = False
 
     @property
     def data_type(self) -> DataType:
@@ -66,14 +88,19 @@ class Add(BinaryExpression):
             l, r = _rescale_pair(ctx, self, l, r)
         return l + r
 
+    @staticmethod
+    def _overflow(xp, l, r, res):
+        return ((l ^ res) & (r ^ res)) < 0
+
     def __str__(self):
         return f"({self.l} + {self.r})"
 
 
 @dataclass(frozen=True)
-class Subtract(BinaryExpression):
+class Subtract(AnsiArithmetic):
     l: Expression
     r: Expression
+    ansi: bool = False
 
     @property
     def data_type(self) -> DataType:
@@ -91,14 +118,19 @@ class Subtract(BinaryExpression):
             l, r = _rescale_pair(ctx, self, l, r)
         return l - r
 
+    @staticmethod
+    def _overflow(xp, l, r, res):
+        return ((l ^ r) & (l ^ res)) < 0
+
     def __str__(self):
         return f"({self.l} - {self.r})"
 
 
 @dataclass(frozen=True)
-class Multiply(BinaryExpression):
+class Multiply(AnsiArithmetic):
     l: Expression
     r: Expression
+    ansi: bool = False
 
     @property
     def data_type(self) -> DataType:
@@ -118,6 +150,18 @@ class Multiply(BinaryExpression):
     def _compute(self, ctx: Ctx, l, r):
         # decimal: unscaled product already has scale s1+s2 — no rescale needed
         return l * r
+
+    def _overflow(self, xp, l, r, res):
+        if self.data_type.np_dtype.itemsize < 8:
+            exact = xp.astype(xp.asarray(l), xp.int64) * xp.astype(xp.asarray(r), xp.int64)
+            return exact != xp.astype(xp.asarray(res), xp.int64)
+        # 64 bits: the wrapped product divided back (r == -1 overflows only
+        # at the minimum, and never divides)
+        lo = -(2**63)
+        bad_r = (r == 0) | (r == -1)
+        safe = xp.where(bad_r, 1, r)
+        back = _java_div(xp, res, safe)
+        return xp.where(r == -1, l == lo, ~bad_r & (back != l))
 
     def __str__(self):
         return f"({self.l} * {self.r})"
@@ -164,11 +208,11 @@ class Divide(BinaryExpression):
             out_scale = self.data_type.scale
             # unscaled result = l * 10^(out_scale - s1 + s2) / r, ROUND_HALF_UP
             shift = out_scale - lt.scale + rt.scale
-            num = l.astype(xp.int64) * (10**shift)
+            num = xp.astype(l, xp.int64) * (10**shift)
             denom = xp.where(r == 0, xp.ones_like(r), r)
             q = _java_div(xp, num, denom)  # truncate toward zero
             rem = num - q * denom  # sign of num (or 0)
-            sign = xp.sign(num).astype(xp.int64) * xp.sign(denom).astype(xp.int64)
+            sign = xp.astype(xp.sign(num), xp.int64) * xp.astype(xp.sign(denom), xp.int64)
             adj = xp.where(2 * xp.abs(rem) >= xp.abs(denom), sign, 0)
             return q + adj, r != 0
         denom_zero = r == 0
@@ -194,7 +238,7 @@ class IntegralDivide(BinaryExpression):
         xp = ctx.xp
         zero = r == 0
         safe = xp.where(zero, xp.ones_like(r), r)
-        return _java_div(xp, l, safe).astype(xp.int64), ~zero
+        return xp.astype(_java_div(xp, l, safe), xp.int64), ~zero
 
     def __str__(self):
         return f"({self.l} div {self.r})"

@@ -150,8 +150,10 @@ class Ctx:
 
     @staticmethod
     def for_cpu(columns: list[tuple[np.ndarray, np.ndarray]], n: int, task=None) -> "Ctx":
+        from ..xp import NUMPY
+
         cols = [Val(d, v) for d, v in columns]
-        return Ctx(np, n, False, cols, task=task)
+        return Ctx(NUMPY, n, False, cols, task=task)
 
 
 @dataclass(frozen=True)
@@ -338,7 +340,8 @@ class UnaryExpression(Expression):
 
 class BinaryExpression(Expression):
     """Null-propagating binary op: implement ``_compute(ctx, l, r)`` which may
-    also return (data, extra_valid) to add result-dependent nullability."""
+    also return (data, extra_valid) to add result-dependent nullability, and
+    ``_register_errors`` where the op raises through the ANSI error channel."""
 
     @property
     def left(self) -> Expression:
@@ -358,10 +361,14 @@ class BinaryExpression(Expression):
         else:
             data = out
             valid = and_valid(ctx, l.valid, r.valid)
+        self._register_errors(ctx, l.data, r.data, data, valid)
         return Val(data, valid)
 
     def _compute(self, ctx: Ctx, l, r):
         raise NotImplementedError
+
+    def _register_errors(self, ctx: Ctx, l, r, data, valid) -> None:
+        """Register the op's error sites over its inputs and result."""
 
 
 # ── binding / coercion ──────────────────────────────────────────────────────

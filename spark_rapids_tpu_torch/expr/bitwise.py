@@ -79,7 +79,7 @@ class _Shift(BinaryExpression):
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
         dt = self.l.data_type
-        n = (r.astype(xp.int32) & _width_mask(dt)).astype(xp.int32)
+        n = xp.astype(xp.astype(r, xp.int32) & _width_mask(dt), xp.int32)
         return self._shift(ctx, l, n, dt)
 
 
@@ -89,7 +89,7 @@ class ShiftLeft(_Shift):
     r: Expression
 
     def _shift(self, ctx, v, n, dt):
-        return (v << n).astype(dt.np_dtype)
+        return ctx.xp.astype(v << n, dt.np_dtype)
 
 
 @dataclass(frozen=True)
@@ -100,7 +100,7 @@ class ShiftRight(_Shift):
     r: Expression
 
     def _shift(self, ctx, v, n, dt):
-        return (v >> n).astype(dt.np_dtype)
+        return ctx.xp.astype(v >> n, dt.np_dtype)
 
 
 @dataclass(frozen=True)
@@ -111,7 +111,14 @@ class ShiftRightUnsigned(_Shift):
     r: Expression
 
     def _shift(self, ctx, v, n, dt):
+        # in signed int64 lanes (torch has no >> on uint64 and no uint32
+        # shifts): a 64-bit value shifts arithmetically and drops the n sign
+        # copies it pulled in; a narrower one shifts its 32-bit pattern
         xp = ctx.xp
-        udt = xp.uint64 if dt.np_dtype.itemsize == 8 else xp.uint32
-        out = v.astype(udt) >> n.astype(udt)
-        return out.astype(dt.np_dtype)
+        n = xp.astype(n, xp.int64)
+        if dt.np_dtype.itemsize == 8:
+            v = xp.astype(v, xp.int64)
+            high = (xp.full_like(v, -1) << (63 - n)) << 1  # the top n bits
+            return (v >> n) & ~high
+        out = (xp.astype(v, xp.int64) & 0xFFFFFFFF) >> n
+        return xp.astype(out, dt.np_dtype)

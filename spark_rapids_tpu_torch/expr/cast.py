@@ -140,7 +140,7 @@ with np.errstate(over="ignore"):
 
 def _pow2f(xp, k):
     """Exact 2.0**k via table (k clipped to ±1100; beyond is 0/inf)."""
-    return xp.take(xp.asarray(_POW2), xp.clip(k + 1100, 0, 2200).astype(xp.int32))
+    return xp.take(xp.asarray(_POW2), xp.astype(xp.clip(k + 1100, 0, 2200), xp.int32))
 
 
 def _two_prod(xp, a, b):
@@ -186,13 +186,13 @@ def _dec_to_float(xp, d, r):
     double-double product with the 10^r tables; the only rounding is the
     final one (subnormal results double-round — the same corner every
     table-driven strtod shares)."""
-    idx = xp.clip(r - _DD_MIN_S, 0, 700).astype(xp.int32)
+    idx = xp.astype(xp.clip(r - _DD_MIN_S, 0, 700), xp.int32)
     mh = xp.take(xp.asarray(_DD_HI), idx)
     ml = xp.take(xp.asarray(_DD_LO), idx)
     E = xp.take(xp.asarray(_DD_E), idx)
-    d = d.astype(xp.int64)
-    d_a = ((d >> 30) << 30).astype(xp.float64)  # ≤ 2^60, 30 trailing zeros
-    d_b = (d & ((1 << 30) - 1)).astype(xp.float64)
+    d = xp.astype(d, xp.int64)
+    d_a = xp.astype((d >> 30) << 30, xp.float64)  # ≤ 2^60, 30 trailing zeros
+    d_b = xp.astype(d & ((1 << 30) - 1), xp.float64)
     p1, e1 = _two_prod(xp, d_a, mh)
     p2, e2 = _two_prod(xp, d_b, mh)
     s, e3 = _two_sum(xp, p1, p2)
@@ -219,7 +219,7 @@ def _digits_msd(xp, mag, k):
     cols = []
     m = mag
     for _ in range(k):
-        cols.append((m % 10).astype(xp.uint8))
+        cols.append(xp.astype(m % 10, xp.uint8))
         m = m // 10
     return xp.stack(cols[::-1], axis=1)
 
@@ -229,7 +229,7 @@ def _first_sig(xp, digits):
     nz = digits != 0
     k = digits.shape[1]
     has = nz.any(axis=1)
-    return xp.where(has, xp.argmax(nz, axis=1), k - 1).astype(xp.int32)
+    return xp.astype(xp.where(has, xp.argmax(nz, axis=1), k - 1), xp.int32)
 
 
 def _pack(ctx: Ctx, slots, keep, min_width: int):
@@ -248,8 +248,8 @@ def _dev_trim(ctx: Ctx, data, lengths):
     in_len = idx < lengths[:, None]
     nonspace = (data > 0x20) & in_len
     any_ = nonspace.any(axis=1)
-    start = xp.argmax(nonspace, axis=1).astype(xp.int32)
-    last = (w - 1) - xp.argmax(nonspace[:, ::-1], axis=1).astype(xp.int32)
+    start = xp.astype(xp.argmax(nonspace, axis=1), xp.int32)
+    last = (w - 1) - xp.astype(xp.argmax(xp.flip(nonspace, 1), axis=1), xp.int32)
     end = xp.where(any_, last + 1, start)
     return start, end, any_
 
@@ -267,7 +267,7 @@ def _parse_digits(ctx: Ctx, ch, a, b, max_digits=None):
     val = xp.zeros(n, dtype=xp.int64)
     for j in range(w):
         u = use[:, j] & is_digit[:, j]
-        d = (ch[:, j] - 48).astype(xp.int64)
+        d = xp.astype(ch[:, j] - 48, xp.int64)
         val = xp.where(u, val * 10 + d, val)
     return val, ok
 
@@ -279,7 +279,7 @@ def _find_char(ctx: Ctx, ch, c, a, b):
     idx = xp.arange(w, dtype=xp.int32)[None, :]
     hit = (ch == c) & (idx >= a[:, None]) & (idx < b[:, None])
     any_ = hit.any(axis=1)
-    first = xp.argmax(hit, axis=1).astype(xp.int32)
+    first = xp.astype(xp.argmax(hit, axis=1), xp.int32)
     return xp.where(any_, first, b), any_
 
 
@@ -288,7 +288,7 @@ def _char_at(ctx: Ctx, ch, i):
     xp = ctx.xp
     w = ch.shape[1]
     i = xp.clip(i, 0, w - 1)
-    return xp.take_along_axis(ch, i[:, None].astype(xp.int32), axis=1)[:, 0]
+    return xp.take_along_axis(ch, xp.astype(i[:, None], xp.int32), axis=1)[:, 0]
 
 
 def _days_in_month(xp, y, m):
@@ -357,30 +357,30 @@ class Cast(UnaryExpression):
             return data != 0, None
         if isinstance(frm, BooleanType):
             if isinstance(to, TimestampType):
-                return data.astype(np.int64) * US_PER_SECOND, None
+                return xp.astype(data, np.int64) * US_PER_SECOND, None
             if isinstance(to, DecimalType):
                 # true → 1 scaled to the target (unscaled = 10^scale), not
                 # the raw 0/1 bit as unscaled
-                unscaled = data.astype(np.int64) * (10**to.scale)
+                unscaled = xp.astype(data, np.int64) * (10**to.scale)
                 if to.scale >= to.precision:
                     # decimal(p,s) with s >= p cannot represent 1
                     return unscaled, data == 0
                 return unscaled, None
-            return data.astype(to.np_dtype), None
+            return xp.astype(data, to.np_dtype), None
         if isinstance(frm, DateType) and isinstance(to, TimestampType):
-            return data.astype(np.int64) * MICROS_PER_DAY, None
+            return xp.astype(data, np.int64) * MICROS_PER_DAY, None
         if isinstance(frm, TimestampType) and isinstance(to, DateType):
             # floor-div towards -inf (Spark: DateTimeUtils.microsToDays)
-            return (data // MICROS_PER_DAY).astype(np.int32), None
+            return xp.astype(data // MICROS_PER_DAY, np.int32), None
         if isinstance(frm, TimestampType):
             # timestamp → numeric: seconds (Spark: micros / 1e6, floor for
             # integral targets, exact fraction for fractional ones)
             if isinstance(to, (FloatType, DoubleType)):
-                return _int_div_pow10(xp, data, 6).astype(to.np_dtype), None
+                return xp.astype(_int_div_pow10(xp, data, 6), to.np_dtype), None
             if isinstance(to, DecimalType):
                 # seconds (incl. fraction) at to.scale, HALF_UP
                 sh = to.scale - 6
-                micros = data.astype(np.int64)
+                micros = xp.astype(data, np.int64)
                 if sh >= 0:
                     unscaled = micros * (10**sh)
                     lim = (2**63 - 1) // (10**sh)
@@ -394,13 +394,13 @@ class Cast(UnaryExpression):
                     q = micros // f
                     r = micros - q * f
                     up = (2 * r > f) | ((2 * r == f) & (micros >= 0))
-                    unscaled = q + up.astype(xp.int64)
+                    unscaled = q + xp.astype(up, xp.int64)
                     ok = None
                 lim2 = 10**to.precision - 1
                 inb = (unscaled >= -lim2) & (unscaled <= lim2)
                 return unscaled, inb if ok is None else (ok & inb)
             secs = xp.floor_divide(data, US_PER_SECOND)
-            out = secs.astype(to.np_dtype)
+            out = xp.astype(secs, to.np_dtype)
             if self.ansi and to.np_dtype != np.dtype(np.int64):
                 lo, hi = _INT_BOUNDS[to.np_dtype]
                 return out, (secs >= lo) & (secs <= hi)
@@ -408,7 +408,7 @@ class Cast(UnaryExpression):
         if isinstance(to, TimestampType):
             # numeric → timestamp: value is seconds
             if isinstance(frm, (FloatType, DoubleType)):
-                micros = data.astype(np.float64) * US_PER_SECOND
+                micros = xp.astype(data, np.float64) * US_PER_SECOND
                 out = _float_to_int(xp, micros, np.dtype(np.int64))
                 ok = ~xp.isnan(data) & ~xp.isinf(data)
                 return out, ok
@@ -417,7 +417,7 @@ class Cast(UnaryExpression):
                 return _float_to_int(
                     xp, secs * US_PER_SECOND, np.dtype(np.int64)
                 ), None
-            return data.astype(np.int64) * US_PER_SECOND, None
+            return xp.astype(data, np.int64) * US_PER_SECOND, None
         if isinstance(frm, DecimalType) or isinstance(to, DecimalType):
             return self._decimal_cast(ctx, data, frm, to)
         if isinstance(to, (FloatType, DoubleType)):
@@ -433,7 +433,7 @@ class Cast(UnaryExpression):
         out = xp.astype(xp.asarray(data), to.np_dtype)
         if self.ansi and to.np_dtype.itemsize < data.dtype.itemsize:
             lo, hi = _INT_BOUNDS[to.np_dtype]
-            src = data.astype(np.int64)
+            src = xp.astype(data, np.int64)
             return out, (src >= lo) & (src <= hi)
         return out, None
 
@@ -457,9 +457,7 @@ class Cast(UnaryExpression):
         if isinstance(frm, DecimalType):
             # decimal → integral/float: value = unscaled / 10^scale
             if isinstance(to, (FloatType, DoubleType)):
-                return _int_div_pow10(xp, data, frm.scale).astype(
-                    to.np_dtype
-                ), None
+                return xp.astype(_int_div_pow10(xp, data, frm.scale), to.np_dtype), None
             # Spark truncates toward zero for decimal→int (integer-exact:
             # the float quotient can flip trunc at integer boundaries)
             q = data
@@ -467,10 +465,10 @@ class Cast(UnaryExpression):
                 p = 10**frm.scale
                 q0 = data // p
                 r = data - q0 * p
-                q = q0 + ((q0 < 0) & (r != 0)).astype(np.int64)
+                q = q0 + xp.astype((q0 < 0) & (r != 0), np.int64)
             lo, hi = _INT_BOUNDS[to.np_dtype]
             ok = (q >= lo) & (q <= hi)
-            return q.astype(to.np_dtype), ok
+            return xp.astype(q, to.np_dtype), ok
         if isinstance(to, DecimalType):
             if isinstance(frm, (FloatType, DoubleType)):
                 scaled = data * (10.0**to.scale)
@@ -480,11 +478,11 @@ class Cast(UnaryExpression):
                 )
                 lo, hi = -(10**to.precision) + 1, 10**to.precision - 1
                 ok = (~xp.isnan(data)) & (unscaled >= lo) & (unscaled <= hi)
-                return unscaled.astype(np.int64), ok
-            unscaled = data.astype(np.int64) * (10**to.scale)
+                return xp.astype(unscaled, np.int64), ok
+            unscaled = xp.astype(data, np.int64) * (10**to.scale)
             lo, hi = -(10**to.precision) + 1, 10**to.precision - 1
-            ok = (data.astype(np.int64) <= hi // (10**to.scale)) & (
-                data.astype(np.int64) >= lo // (10**to.scale)
+            ok = (xp.astype(data, np.int64) <= hi // (10**to.scale)) & (
+                xp.astype(data, np.int64) >= lo // (10**to.scale)
             )
             return unscaled, ok
         raise TypeError(f"unsupported cast {frm} -> {to}")
@@ -525,15 +523,15 @@ class Cast(UnaryExpression):
         xp = ctx.xp
         data = ctx.broadcast(v.data)
         if isinstance(frm, BooleanType):
-            b = data.astype(bool)
+            b = xp.astype(data, bool)
             t = xp.asarray(np.frombuffer(b"true\x00", dtype=np.uint8))
             f = xp.asarray(np.frombuffer(b"false", dtype=np.uint8))
             slots = xp.where(b[:, None], t[None, :], f[None, :])
-            lens = xp.where(b, 4, 5).astype(xp.int32)
+            lens = xp.astype(xp.where(b, 4, 5), xp.int32)
             from ..columnar.device import bucket_width
 
             w = bucket_width(5)
-            out = xp.pad(slots.astype(xp.uint8), ((0, 0), (0, w - 5)))
+            out = xp.pad(xp.astype(slots, xp.uint8), ((0, 0), (0, w - 5)))
             return Val(out, v.valid, lens)
         if isinstance(frm, DateType):
             packed, lens = _dev_date_str(ctx, data)
@@ -607,7 +605,7 @@ class Cast(UnaryExpression):
 def _dev_int_str(ctx: Ctx, data, src_dtype):
     """Integral → string bytes: sign + significant digits."""
     xp = ctx.xp
-    v = data.astype(xp.int64)
+    v = xp.astype(data, xp.int64)
     k = _INT_DIGITS[np.dtype(src_dtype)]
     is_min = v == I64_MIN if k == 19 else xp.zeros(v.shape, dtype=bool)
     mag = xp.abs(xp.where(is_min, 0, v))
@@ -615,8 +613,8 @@ def _dev_int_str(ctx: Ctx, data, src_dtype):
     first = _first_sig(xp, D)
     neg = v < 0
     colidx = xp.arange(k, dtype=xp.int32)[None, :]
-    sign_col = xp.where(neg, ord("-"), 0).astype(xp.uint8)[:, None]
-    slots = xp.concatenate([sign_col, (D + 48).astype(xp.uint8)], axis=1)
+    sign_col = xp.astype(xp.where(neg, ord("-"), 0), xp.uint8)[:, None]
+    slots = xp.concatenate([sign_col, xp.astype(D + 48, xp.uint8)], axis=1)
     keep = xp.concatenate(
         [neg[:, None], colidx >= first[:, None]], axis=1
     )
@@ -625,25 +623,25 @@ def _dev_int_str(ctx: Ctx, data, src_dtype):
         cbytes = np.zeros(packed.shape[1], dtype=np.uint8)
         cbytes[: len(LONG_MIN_STR)] = np.frombuffer(LONG_MIN_STR, dtype=np.uint8)
         packed = xp.where(is_min[:, None], xp.asarray(cbytes)[None, :], packed)
-        lens = xp.where(is_min, len(LONG_MIN_STR), lens).astype(xp.int32)
+        lens = xp.astype(xp.where(is_min, len(LONG_MIN_STR), lens), xp.int32)
     return packed, lens
 
 
 def _ymd_slots(xp, y, m, d):
     """[sign][y7][-][m2][-][d2] slot matrix + keep for a civil date."""
     neg = y < 0
-    ymag = xp.abs(y.astype(xp.int64))
+    ymag = xp.abs(xp.astype(y, xp.int64))
     Dy = _digits_msd(xp, ymag, 7)
     first = _first_sig(xp, Dy)
     first = xp.minimum(first, 3)  # at least 4 year digits (zero-padded)
-    Dm = _digits_msd(xp, m.astype(xp.int64), 2)
-    Dd = _digits_msd(xp, d.astype(xp.int64), 2)
+    Dm = _digits_msd(xp, xp.astype(m, xp.int64), 2)
+    Dd = _digits_msd(xp, xp.astype(d, xp.int64), 2)
     n = y.shape[0]
     dash = xp.full((n, 1), ord("-"), dtype=xp.uint8)
-    sign_col = xp.where(neg, ord("-"), 0).astype(xp.uint8)[:, None]
+    sign_col = xp.astype(xp.where(neg, ord("-"), 0), xp.uint8)[:, None]
     slots = xp.concatenate(
-        [sign_col, (Dy + 48).astype(xp.uint8), dash, (Dm + 48).astype(xp.uint8),
-         dash, (Dd + 48).astype(xp.uint8)],
+        [sign_col, xp.astype(Dy + 48, xp.uint8), dash, xp.astype(Dm + 48, xp.uint8),
+         dash, xp.astype(Dd + 48, xp.uint8)],
         axis=1,
     )
     colidx = xp.arange(7, dtype=xp.int32)[None, :]
@@ -671,20 +669,20 @@ def _dev_ts_str(ctx: Ctx, micros):
     from .datetime import civil_from_days
 
     xp = ctx.xp
-    micros = micros.astype(xp.int64)
+    micros = xp.astype(micros, xp.int64)
     days = xp.floor_divide(micros, MICROS_PER_DAY)
     tod = micros - days * MICROS_PER_DAY
-    y, m, d = civil_from_days(xp, days.astype(xp.int32))
+    y, m, d = civil_from_days(xp, xp.astype(days, xp.int32))
     slots_d, keep_d = _ymd_slots(xp, y, m, d)
     secs = tod // US_PER_SECOND
-    frac = (tod - secs * US_PER_SECOND).astype(xp.int64)
+    frac = xp.astype(tod - secs * US_PER_SECOND, xp.int64)
     hh = secs // 3600
     mi = (secs // 60) % 60
     ss = secs % 60
     n = micros.shape[0]
 
     def two(v):
-        return (_digits_msd(xp, v.astype(xp.int64), 2) + 48).astype(xp.uint8)
+        return xp.astype(_digits_msd(xp, xp.astype(v, xp.int64), 2) + 48, xp.uint8)
 
     sp = xp.full((n, 1), ord(" "), dtype=xp.uint8)
     col = xp.full((n, 1), ord(":"), dtype=xp.uint8)
@@ -692,12 +690,12 @@ def _dev_ts_str(ctx: Ctx, micros):
     F = _digits_msd(xp, frac, 6)
     has_frac = frac > 0
     # keep fraction digits up to the last nonzero
-    last_nz = 5 - xp.argmax((F != 0)[:, ::-1], axis=1).astype(xp.int32)
+    last_nz = 5 - xp.astype(xp.argmax(xp.flip(F != 0, 1), axis=1), xp.int32)
     fidx = xp.arange(6, dtype=xp.int32)[None, :]
     keep_f = has_frac[:, None] & (fidx <= last_nz[:, None])
     slots = xp.concatenate(
         [slots_d, sp, two(hh), col, two(mi), col, two(ss), dot,
-         (F + 48).astype(xp.uint8)],
+         xp.astype(F + 48, xp.uint8)],
         axis=1,
     )
     ones2 = xp.ones((n, 2), dtype=bool)
@@ -715,16 +713,16 @@ def _dev_decimal_str(ctx: Ctx, unscaled, scale: int):
     cap scale at the plain-notation region (planner gates scale > 6 where
     Java switches to scientific notation)."""
     xp = ctx.xp
-    v = unscaled.astype(xp.int64)
+    v = xp.astype(unscaled, xp.int64)
     neg = v < 0
     mag = xp.abs(v)
     D = _digits_msd(xp, mag, 19)
     n = v.shape[0]
-    sign_col = xp.where(neg, ord("-"), 0).astype(xp.uint8)[:, None]
+    sign_col = xp.astype(xp.where(neg, ord("-"), 0), xp.uint8)[:, None]
     if scale == 0:
         first = _first_sig(xp, D)
         colidx = xp.arange(19, dtype=xp.int32)[None, :]
-        slots = xp.concatenate([sign_col, (D + 48).astype(xp.uint8)], axis=1)
+        slots = xp.concatenate([sign_col, xp.astype(D + 48, xp.uint8)], axis=1)
         keep = xp.concatenate([neg[:, None], colidx >= first[:, None]], axis=1)
         return _pack(ctx, slots, keep, 20)
     k_int = 19 - scale
@@ -733,7 +731,7 @@ def _dev_decimal_str(ctx: Ctx, unscaled, scale: int):
     colidx = xp.arange(k_int, dtype=xp.int32)[None, :]
     dot = xp.full((n, 1), ord("."), dtype=xp.uint8)
     slots = xp.concatenate(
-        [sign_col, (Di + 48).astype(xp.uint8), dot, (Df + 48).astype(xp.uint8)],
+        [sign_col, xp.astype(Di + 48, xp.uint8), dot, xp.astype(Df + 48, xp.uint8)],
         axis=1,
     )
     keep = xp.concatenate(
@@ -757,7 +755,7 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
     analogous formatting divergences)."""
     xp = ctx.xp
     maxd = 9 if is32 else 17
-    x = data.astype(xp.float64)
+    x = xp.astype(data, xp.float64)
     mag = xp.abs(x)
     nan = xp.isnan(x)
     inf = xp.isinf(x)
@@ -766,7 +764,7 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
     safe = xp.where(nan | inf | zero, 1.0, mag)
     # exact binary mantissa: safe = m2 · 2^(be-52) with m2 ∈ [2^52, 2^53)
     # (power-of-two scaling is exact; log2 only seeds the integer estimate)
-    be = xp.floor(xp.log2(safe)).astype(xp.int64)
+    be = xp.astype(xp.floor(xp.log2(safe)), xp.int64)
 
     def _m2(b):
         u = 52 - b
@@ -777,18 +775,18 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
     for _ in range(2):
         be = (
             be
-            + (m2f >= 2.0**53).astype(be.dtype)
-            - (m2f < 2.0**52).astype(be.dtype)
+            + xp.astype(m2f >= 2.0**53, be.dtype)
+            - xp.astype(m2f < 2.0**52, be.dtype)
         )
         m2f = _m2(be)
     t = be - 52
     # correctly rounded maxd-digit decimal mantissa via the double-double
     # 10^s tables: only the final round of (m2 · 2^t · 10^s) is inexact
-    e10 = xp.floor(xp.log10(safe)).astype(xp.int64)
+    e10 = xp.astype(xp.floor(xp.log10(safe)), xp.int64)
     m_full = xp.zeros(x.shape, dtype=xp.int64)
     for _ in range(2):
         s = (maxd - 1) - e10
-        idx = xp.clip(s - _DD_MIN_S, 0, 700).astype(xp.int32)
+        idx = xp.astype(xp.clip(s - _DD_MIN_S, 0, 700), xp.int32)
         mh = xp.take(xp.asarray(_DD_HI), idx)
         ml = xp.take(xp.asarray(_DD_LO), idx)
         E = xp.take(xp.asarray(_DD_E), idx)
@@ -797,20 +795,20 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
         tot_err = err + m2f * (ml * p2)
         r0 = xp.round(p)
         rem = (p - r0) + tot_err
-        m_full = r0.astype(xp.int64) + xp.round(rem).astype(xp.int64)
+        m_full = xp.astype(r0, xp.int64) + xp.astype(xp.round(rem), xp.int64)
         # signed distance (true − m_full) in digit units: breaks exact-half
         # ties when rounding to shorter digit counts below
         frac_rem = rem - xp.round(rem)
         e10 = (
             e10
-            + (m_full >= 10**maxd).astype(e10.dtype)
-            - (m_full < 10 ** (maxd - 1)).astype(e10.dtype)
+            + xp.astype(m_full >= 10**maxd, e10.dtype)
+            - xp.astype(m_full < 10 ** (maxd - 1), e10.dtype)
         )
     m_full = xp.where(m_full >= 10**maxd, m_full // 10, m_full)
     m_full = xp.where(m_full < 10 ** (maxd - 1), m_full * 10, m_full)
     # shortest round-trip prefix length
     cmp_t = xp.float32 if is32 else xp.float64
-    orig = xp.abs(data).astype(cmp_t)
+    orig = xp.astype(xp.abs(data), cmp_t)
     best_len = xp.full(x.shape, maxd, dtype=xp.int32)
     best_m = m_full
     best_e = e10
@@ -821,13 +819,13 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
         half = div // 2
         at_half = r == half
         up_at_half = (frac_rem > 0) | ((frac_rem == 0) & (q % 2 == 1))
-        q = q + ((r > half) | (at_half & up_at_half)).astype(xp.int64)
+        q = q + xp.astype((r > half) | (at_half & up_at_half), xp.int64)
         bumped = q >= 10**L
         q2 = xp.where(bumped, q // 10, q)
         eL = e10 + bumped
         rexp = eL - (L - 1)
         recon = _dec_to_float(xp, q2, rexp)
-        ok = recon.astype(cmp_t) == orig
+        ok = xp.astype(recon, cmp_t) == orig
         best_len = xp.where(ok, L, best_len)
         best_m = xp.where(ok, q2 * (10 ** (maxd - L)), best_m)
         best_e = xp.where(ok, eL, best_e)
@@ -838,23 +836,23 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
     plain = (a >= -3) & (a < 7) & ~(nan | inf)
     # layout: [sign][8 int digits][.][frac digits][E][-][3 exp digits]
     # int part for plain: a+1 digits (a "0" placeholder when value < 1)
-    int_cnt = xp.where(plain, xp.maximum(a + 1, 1), 1).astype(xp.int32)
+    int_cnt = xp.astype(xp.where(plain, xp.maximum(a + 1, 1), 1), xp.int32)
     islots = []
     ikeeps = []
     for j in range(8):
         jj = xp.full((n,), j, dtype=xp.int32)
         if j < maxd:
-            dig = D[:, j].astype(xp.uint8)
+            dig = xp.astype(D[:, j], xp.uint8)
         else:
             dig = xp.zeros(n, dtype=xp.uint8)
         # leading "0" when |x| < 1 (int_cnt == 1 & a < 0 → digit "0")
         use_zero = plain & (a < 0) & (jj == 0)
         dig = xp.where(use_zero, 0, dig)
-        islots.append((dig + 48).astype(xp.uint8))
+        islots.append(xp.astype(dig + 48, xp.uint8))
         ikeeps.append(jj < int_cnt)
     # fraction digits: for plain: digits int_cnt.. (skip when a<0: leading
     # zeros then all nd digits); scientific: digits 1..
-    zcnt = xp.where(plain & (a < 0), -a - 1, 0).astype(xp.int32)  # 0.00ddd
+    zcnt = xp.astype(xp.where(plain & (a < 0), -a - 1, 0), xp.int32)  # 0.00ddd
     fstart = xp.where(plain & (a >= 0), int_cnt, xp.where(plain, 0, 1))
     fslots = []
     fkeeps = []
@@ -865,20 +863,18 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
         didx = jj - zcnt + fstart
         dig = xp.zeros(n, dtype=xp.int64)
         for k in range(maxd):
-            dig = xp.where(didx == k, D[:, k].astype(xp.int64), dig)
+            dig = xp.where(didx == k, xp.astype(D[:, k], xp.int64), dig)
         dig = xp.where(is_zero_pad, 0, dig)
         in_digits = (didx >= fstart) & (didx < nd)
         keep = is_zero_pad | in_digits
-        fslots.append((dig + 48).astype(xp.uint8))
+        fslots.append(xp.astype(dig + 48, xp.uint8))
         fkeeps.append(keep)
     # at least one fraction digit: when none kept, keep "0"
     any_frac = fkeeps[0]
     for kf in fkeeps[1:]:
         any_frac = any_frac | kf
     fkeeps[0] = fkeeps[0] | ~any_frac
-    fslots[0] = xp.where(fkeeps[0] & ~any_frac, ord("0"), fslots[0]).astype(
-        xp.uint8
-    )
+    fslots[0] = xp.astype(xp.where(fkeeps[0] & ~any_frac, ord("0"), fslots[0]), xp.uint8)
     # exponent slots
     aneg = a < 0
     amag = xp.abs(a)
@@ -887,13 +883,13 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
     sci = ~plain & ~(nan | inf)
     dotc = xp.full((n, 1), ord("."), dtype=xp.uint8)
     slots = xp.concatenate(
-        [xp.where(neg, ord("-"), 0).astype(xp.uint8)[:, None]]
+        [xp.astype(xp.where(neg, ord("-"), 0), xp.uint8)[:, None]]
         + [s[:, None] for s in islots]
         + [dotc]
         + [s[:, None] for s in fslots]
         + [xp.full((n, 1), ord("E"), dtype=xp.uint8),
            xp.full((n, 1), ord("-"), dtype=xp.uint8)]
-        + [(Ae[:, k] + 48).astype(xp.uint8)[:, None] for k in range(3)],
+        + [xp.astype(Ae[:, k] + 48, xp.uint8)[:, None] for k in range(3)],
         axis=1,
     )
     keep = xp.concatenate(
@@ -918,7 +914,7 @@ def _dev_float_str(ctx: Ctx, data, is32: bool):
         cb = np.zeros(packed.shape[1], dtype=np.uint8)
         cb[: len(txt)] = np.frombuffer(txt, dtype=np.uint8)
         packed = xp.where(mask[:, None], xp.asarray(cb)[None, :], packed)
-        lens = xp.where(mask, len(txt), lens).astype(xp.int32)
+        lens = xp.astype(xp.where(mask, len(txt), lens), xp.int32)
     return packed, lens
 
 
@@ -935,12 +931,12 @@ def _dev_str_to_int(ctx: Ctx, ch, start, end, to: DataType, ansi: bool = False):
     first_ch = _char_at(ctx, ch, start)
     has_sign = (first_ch == ord("-")) | (first_ch == ord("+"))
     neg = first_ch == ord("-")
-    dstart = start + has_sign.astype(xp.int32)
+    dstart = start + xp.astype(has_sign, xp.int32)
     is_digit = (ch >= 48) & (ch <= 57)
     in_region = (idx >= dstart[:, None]) & (idx < end[:, None])
     dot_in = (ch == ord(".")) & in_region
     has_dot = dot_in.any(axis=1)
-    first_dot = xp.argmax(dot_in, axis=1).astype(xp.int32)
+    first_dot = xp.astype(xp.argmax(dot_in, axis=1), xp.int32)
     int_end = xp.where(has_dot, first_dot, end)
     digit_region = (idx >= dstart[:, None]) & (idx < int_end[:, None])
     frac_region = (idx > int_end[:, None]) & (idx < end[:, None])
@@ -964,7 +960,7 @@ def _dev_str_to_int(ctx: Ctx, ch, start, end, to: DataType, ansi: bool = False):
     acc = xp.zeros(n, dtype=xp.int64)
     overflow = xp.zeros(n, dtype=bool)
     for j in range(w):
-        d = (ch[:, j] - 48).astype(xp.int64)
+        d = xp.astype(ch[:, j] - 48, xp.int64)
         use = digit_region[:, j] & is_digit[:, j]
         overflow = overflow | (use & (acc < multmin))
         nxt = acc * 10
@@ -974,15 +970,15 @@ def _dev_str_to_int(ctx: Ctx, ch, start, end, to: DataType, ansi: bool = False):
     ok = ok_chars & has_digit & ~overflow
     lo, hi = _INT_BOUNDS[to.np_dtype]
     ok = ok & (out >= lo) & (out <= hi)
-    return out.astype(to.np_dtype), ok
+    return xp.astype(out, to.np_dtype), ok
 
 
 def _dev_str_to_bool(ctx: Ctx, ch, start, end):
     """Spark StringUtils.isTrueString/isFalseString (case-insensitive)."""
     xp = ctx.xp
-    lower = xp.where(
+    lower = xp.astype(xp.where(
         (ch >= ord("A")) & (ch <= ord("Z")), ch + 32, ch
-    ).astype(xp.uint8)
+    ), xp.uint8)
     ln = end - start
 
     def matches(tok: bytes):
@@ -1010,7 +1006,7 @@ def _dev_parse_date_part(ctx: Ctx, ch, start, end):
     first_ch = _char_at(ctx, ch, start)
     has_sign = (first_ch == ord("-")) | (first_ch == ord("+"))
     neg = first_ch == ord("-")
-    p = start + has_sign.astype(xp.int32)
+    p = start + xp.astype(has_sign, xp.int32)
     d1, f1 = _find_char(ctx, ch, ord("-"), p, end)
     d2, f2 = _find_char(ctx, ch, ord("-"), d1 + 1, end)
     y_end = xp.where(f1, d1, end)
@@ -1021,14 +1017,14 @@ def _dev_parse_date_part(ctx: Ctx, ch, start, end):
     mv = xp.where(f1, mv, 1)
     dv = xp.where(f2, dv, 1)
     ok = y_ok & xp.where(f1, m_ok, True) & xp.where(f2, dd_ok, True)
-    y = xp.where(neg, -yv, yv).astype(xp.int32)
-    m = mv.astype(xp.int32)
-    d = dv.astype(xp.int32)
+    y = xp.astype(xp.where(neg, -yv, yv), xp.int32)
+    m = xp.astype(mv, xp.int32)
+    d = xp.astype(dv, xp.int32)
     ok = ok & (m >= 1) & (m <= 12) & (d >= 1)
     m_c = xp.clip(m, 1, 12)
     ok = ok & (d <= _days_in_month(xp, y, m_c))
     days = days_from_civil(xp, y, m_c, xp.clip(d, 1, 31))
-    return days.astype(xp.int32), ok
+    return xp.astype(days, xp.int32), ok
 
 
 def _dev_str_to_date(ctx: Ctx, ch, start, end):
@@ -1079,7 +1075,7 @@ def _dev_str_to_ts(ctx: Ctx, ch, start, end):
         0,
     )
     ok = d_ok & xp.where(has_time, time_ok, True)
-    micros = days.astype(xp.int64) * MICROS_PER_DAY + tod
+    micros = xp.astype(days, xp.int64) * MICROS_PER_DAY + tod
     return micros, ok
 
 
@@ -1090,11 +1086,11 @@ def _dev_str_to_float(ctx: Ctx, ch, start, end, to: DataType):
     exponents (the reference gates castStringToFloat for the same class)."""
     xp = ctx.xp
     n, w = ch.shape
-    lower = xp.where((ch >= 65) & (ch <= 90), ch + 32, ch).astype(xp.uint8)
+    lower = xp.astype(xp.where((ch >= 65) & (ch <= 90), ch + 32, ch), xp.uint8)
     first_ch = _char_at(ctx, ch, start)
     has_sign = (first_ch == ord("-")) | (first_ch == ord("+"))
     neg = first_ch == ord("-")
-    p = start + has_sign.astype(xp.int32)
+    p = start + xp.astype(has_sign, xp.int32)
     ln = end - p
 
     def matches(tok: bytes):
@@ -1124,15 +1120,15 @@ def _dev_str_to_float(ctx: Ctx, ch, start, end, to: DataType):
         in_int = (idx[0, j] >= p) & (idx[0, j] < int_end)
         in_frac = has_dot & (idx[0, j] > dot) & (idx[0, j] < mant_end)
         dig = is_digit[:, j]
-        d = (ch[:, j] - 48).astype(xp.int64)
+        d = xp.astype(ch[:, j] - 48, xp.int64)
         bad = bad | ((in_int | in_frac) & ~dig)
         room = ndig < 18
         take_int = in_int & dig
         take_frac = in_frac & dig
         acc = xp.where((take_int | take_frac) & room, acc * 10 + d, acc)
-        ndig = ndig + ((take_int | take_frac) & room).astype(xp.int32)
-        extra_exp = extra_exp + (take_int & ~room).astype(xp.int32)
-        frac_cnt = frac_cnt + (take_frac & room).astype(xp.int32)
+        ndig = ndig + xp.astype((take_int | take_frac) & room, xp.int32)
+        extra_exp = extra_exp + xp.astype(take_int & ~room, xp.int32)
+        frac_cnt = frac_cnt + xp.astype(take_frac & room, xp.int32)
         int_any = int_any | take_int
         frac_any = frac_any | take_frac
     # exponent
@@ -1142,10 +1138,10 @@ def _dev_str_to_float(ctx: Ctx, ch, start, end, to: DataType):
     # 8 exponent digits: anything past ±350 saturates to ±inf / 0 in
     # _dec_to_float exactly like strtod overflow/underflow
     ev, e_ok = _parse_digits(
-        ctx, ch, e_pos + 1 + e_sign.astype(xp.int32), end, max_digits=8
+        ctx, ch, e_pos + 1 + xp.astype(e_sign, xp.int32), end, max_digits=8
     )
     ev = xp.clip(ev, 0, 100_000)
-    ev = xp.where(e_neg, -ev, ev).astype(xp.int32)
+    ev = xp.astype(xp.where(e_neg, -ev, ev), xp.int32)
     exp_total = xp.where(has_e, ev, 0) + extra_exp - frac_cnt
     # negative exponents divide by the (exactly representable for |e| ≤ 22)
     # power instead of multiplying by its inexact reciprocal — the strtod
@@ -1155,7 +1151,7 @@ def _dev_str_to_float(ctx: Ctx, ch, start, end, to: DataType):
     out = xp.where(is_inf, xp.inf, xp.where(is_nan, xp.nan, val))
     out = xp.where(neg, -out, out)
     ok = ok_num | is_inf | is_nan
-    return out.astype(to.np_dtype), ok
+    return xp.astype(out, to.np_dtype), ok
 
 
 def _dev_str_to_decimal(ctx: Ctx, ch, start, end, to: DecimalType):
@@ -1163,11 +1159,11 @@ def _dev_str_to_decimal(ctx: Ctx, ch, start, end, to: DecimalType):
     rounding HALF_UP (Spark Decimal.changePrecision)."""
     xp = ctx.xp
     n, w = ch.shape
-    lower = xp.where((ch >= 65) & (ch <= 90), ch + 32, ch).astype(xp.uint8)
+    lower = xp.astype(xp.where((ch >= 65) & (ch <= 90), ch + 32, ch), xp.uint8)
     first_ch = _char_at(ctx, ch, start)
     has_sign = (first_ch == ord("-")) | (first_ch == ord("+"))
     neg = first_ch == ord("-")
-    p = start + has_sign.astype(xp.int32)
+    p = start + xp.astype(has_sign, xp.int32)
     e_pos, has_e = _find_char(ctx, lower, ord("e"), p, end)
     mant_end = xp.where(has_e, e_pos, end)
     dot, has_dot = _find_char(ctx, ch, ord("."), p, mant_end)
@@ -1184,21 +1180,21 @@ def _dev_str_to_decimal(ctx: Ctx, ch, start, end, to: DecimalType):
         in_int = (idx[0, j] >= p) & (idx[0, j] < int_end)
         in_frac = has_dot & (idx[0, j] > dot) & (idx[0, j] < mant_end)
         dig = is_digit[:, j]
-        d = (ch[:, j] - 48).astype(xp.int64)
+        d = xp.astype(ch[:, j] - 48, xp.int64)
         bad = bad | ((in_int | in_frac) & ~dig)
         take = (in_int | in_frac) & dig
         overflow = overflow | (take & (acc > hi // 10))
         acc = xp.where(take, acc * 10 + d, acc)
-        frac_cnt = frac_cnt + (in_frac & dig).astype(xp.int32)
+        frac_cnt = frac_cnt + xp.astype(in_frac & dig, xp.int32)
         any_dig = any_dig | take
     e_first = _char_at(ctx, ch, e_pos + 1)
     e_sign = (e_first == ord("-")) | (e_first == ord("+"))
     e_neg = e_first == ord("-")
     ev, e_ok = _parse_digits(
-        ctx, ch, e_pos + 1 + e_sign.astype(xp.int32), end, max_digits=4
+        ctx, ch, e_pos + 1 + xp.astype(e_sign, xp.int32), end, max_digits=4
     )
     ev = xp.clip(ev, 0, 10_000)
-    ev = xp.where(e_neg, -ev, ev).astype(xp.int32)
+    ev = xp.astype(xp.where(e_neg, -ev, ev), xp.int32)
     shift = to.scale - frac_cnt + xp.where(has_e, ev, 0)
     # apply shift: multiply (overflow-check) or divide with HALF_UP rounding
     out = acc
@@ -1212,7 +1208,7 @@ def _dev_str_to_decimal(ctx: Ctx, ch, start, end, to: DecimalType):
         pw = 10**s
         q = out // pw
         r = out - q * pw
-        q = q + (2 * r >= pw).astype(xp.int64)
+        q = q + xp.astype(2 * r >= pw, xp.int64)
         out = xp.where(dn, q, out)
     overflow = overflow | ((shift > 18) & (acc != 0))
     out = xp.where(xp.abs(shift) > 18, 0, out)

@@ -51,7 +51,7 @@ def civil_from_days(xp, z):
 
 def days_from_civil(xp, y, m, d):
     """(year, month, day) → days since epoch. Hinnant days_from_civil."""
-    y = xp.astype(y, xp.int64) - (m <= 2)
+    y = xp.astype(y, xp.int64) - xp.astype(m <= 2, xp.int64)
     era = xp.floor_divide(y, 400)
     yoe = y - era * 400
     doy = xp.floor_divide(153 * (m + xp.where(m > 2, -3, 9)) + 2, 5) + d - 1
@@ -114,7 +114,7 @@ class Quarter(_DateField):
     def _field(self, ctx, days):
         xp = ctx.xp
         _, m, _ = civil_from_days(xp, days)
-        return (xp.floor_divide(m - 1, 3) + 1).astype(xp.int32)
+        return xp.astype(xp.floor_divide(m - 1, 3) + 1, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -125,7 +125,7 @@ class DayOfWeek(_DateField):
 
     def _field(self, ctx, days):
         xp = ctx.xp
-        return (xp.mod(days.astype(xp.int64) + 4, 7) + 1).astype(xp.int32)
+        return xp.astype(xp.mod(xp.astype(days, xp.int64) + 4, 7) + 1, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -136,7 +136,7 @@ class WeekDay(_DateField):
 
     def _field(self, ctx, days):
         xp = ctx.xp
-        return xp.mod(days.astype(xp.int64) + 3, 7).astype(xp.int32)
+        return xp.astype(xp.mod(xp.astype(days, xp.int64) + 3, 7), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -149,7 +149,7 @@ class DayOfYear(_DateField):
         jan1 = days_from_civil(
             xp, y, xp.full_like(y, 1), xp.full_like(y, 1)
         )
-        return (days - jan1 + 1).astype(xp.int32)
+        return xp.astype(days - jan1 + 1, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -163,22 +163,22 @@ class WeekOfYear(_DateField):
         xp = ctx.xp
         y, _, _ = civil_from_days(xp, days)
         # ISO weekday 1..7 (1970-01-01 was a Thursday = 4)
-        dow = (xp.mod(days.astype(xp.int64), 7) + 3) % 7 + 1
+        dow = (xp.mod(xp.astype(days, xp.int64), 7) + 3) % 7 + 1
         jan1 = days_from_civil(xp, y, xp.full_like(y, 1), xp.full_like(y, 1))
-        doy = (days - jan1 + 1).astype(xp.int64)
+        doy = xp.astype(days - jan1 + 1, xp.int64)
         w = xp.floor_divide(doy - dow + 10, 7)
 
         def weeks_in(year):
             j1 = days_from_civil(
                 xp, year, xp.full_like(year, 1), xp.full_like(year, 1)
             )
-            jdow = (xp.mod(j1.astype(xp.int64), 7) + 3) % 7 + 1
+            jdow = (xp.mod(xp.astype(j1, xp.int64), 7) + 3) % 7 + 1
             leap = ((year % 4 == 0) & (year % 100 != 0)) | (year % 400 == 0)
-            return 52 + ((jdow == 4) | (leap & (jdow == 3))).astype(xp.int64)
+            return 52 + xp.astype((jdow == 4) | (leap & (jdow == 3)), xp.int64)
 
         w = xp.where(w < 1, weeks_in(y - 1), w)
         w = xp.where(w > weeks_in(y), 1, w)
-        return w.astype(xp.int32)
+        return xp.astype(w, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -197,7 +197,7 @@ class LastDay(UnaryExpression):
         y, m, _ = civil_from_days(xp, days)
         ny = xp.where(m == 12, y + 1, y)
         nm = xp.where(m == 12, 1, m + 1)
-        return (days_from_civil(xp, ny, nm, xp.full_like(nm, 1)) - 1).astype(xp.int32)
+        return xp.astype(days_from_civil(xp, ny, nm, xp.full_like(nm, 1)) - 1, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -215,7 +215,7 @@ class DateAdd(BinaryExpression):
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
         days = _as_days(ctx, self.start, ctx.broadcast(l))
-        return (days + r.astype(xp.int32)).astype(xp.int32)
+        return xp.astype(days + xp.astype(r, xp.int32), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -230,7 +230,7 @@ class DateSub(BinaryExpression):
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
         days = _as_days(ctx, self.start, ctx.broadcast(l))
-        return (days - r.astype(xp.int32)).astype(xp.int32)
+        return xp.astype(days - xp.astype(r, xp.int32), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -248,7 +248,7 @@ class DateDiff(BinaryExpression):
         xp = ctx.xp
         le = _as_days(ctx, self.end, ctx.broadcast(l))
         rs = _as_days(ctx, self.start, ctx.broadcast(r))
-        return (le - rs).astype(xp.int32)
+        return xp.astype(le - rs, xp.int32)
 
 
 @dataclass(frozen=True)
@@ -266,9 +266,9 @@ class AddMonths(BinaryExpression):
         xp = ctx.xp
         days = _as_days(ctx, self.start, ctx.broadcast(l))
         y, m, d = civil_from_days(xp, days)
-        total = y.astype(xp.int64) * 12 + (m - 1) + r.astype(xp.int64)
-        ny = xp.floor_divide(total, 12).astype(xp.int32)
-        nm = (xp.mod(total, 12) + 1).astype(xp.int32)
+        total = xp.astype(y, xp.int64) * 12 + (m - 1) + xp.astype(r, xp.int64)
+        ny = xp.astype(xp.floor_divide(total, 12), xp.int32)
+        nm = xp.astype(xp.mod(total, 12) + 1, xp.int32)
         # clamp day to last day of target month
         ny2 = xp.where(nm == 12, ny + 1, ny)
         nm2 = xp.where(nm == 12, 1, nm + 1)
@@ -332,12 +332,12 @@ class TimeAdd(BinaryExpression):
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
         iv = _interval_literal(self.interval)
-        us = ctx.broadcast(l).astype(xp.int64)
+        us = xp.astype(ctx.broadcast(l), xp.int64)
         if iv.months:
             day = xp.floor_divide(us, US_PER_DAY)
             tod = us - day * US_PER_DAY
-            day = _add_months_days(xp, day.astype(xp.int32), iv.months, 0)
-            us = day.astype(xp.int64) * US_PER_DAY + tod
+            day = _add_months_days(xp, xp.astype(day, xp.int32), iv.months, 0)
+            us = xp.astype(day, xp.int64) * US_PER_DAY + tod
         return us + iv.days * US_PER_DAY + iv.microseconds
 
 
@@ -381,7 +381,7 @@ class _TimeField(UnaryExpression):
         c = self.child.eval(ctx)
         xp = ctx.xp
         secs = xp.floor_divide(
-            ctx.broadcast(c.data).astype(xp.int64), US_PER_SECOND
+            xp.astype(ctx.broadcast(c.data), xp.int64), US_PER_SECOND
         )
         return Val(self._field(ctx, secs), c.valid)
 
@@ -392,7 +392,7 @@ class Hour(_TimeField):
 
     def _field(self, ctx, secs):
         xp = ctx.xp
-        return xp.mod(xp.floor_divide(secs, 3600), 24).astype(xp.int32)
+        return xp.astype(xp.mod(xp.floor_divide(secs, 3600), 24), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -401,7 +401,7 @@ class Minute(_TimeField):
 
     def _field(self, ctx, secs):
         xp = ctx.xp
-        return xp.mod(xp.floor_divide(secs, 60), 60).astype(xp.int32)
+        return xp.astype(xp.mod(xp.floor_divide(secs, 60), 60), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -410,7 +410,7 @@ class Second(_TimeField):
 
     def _field(self, ctx, secs):
         xp = ctx.xp
-        return xp.mod(secs, 60).astype(xp.int32)
+        return xp.astype(xp.mod(secs, 60), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -430,5 +430,5 @@ class UnixTimestamp(UnaryExpression):
     def _compute(self, ctx: Ctx, data):
         xp = ctx.xp
         if isinstance(self.child.data_type, DateType):
-            return data.astype(xp.int64) * 86400
-        return xp.floor_divide(data.astype(xp.int64), US_PER_SECOND)
+            return xp.astype(data, xp.int64) * 86400
+        return xp.floor_divide(xp.astype(data, xp.int64), US_PER_SECOND)

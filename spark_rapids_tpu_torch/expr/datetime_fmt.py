@@ -83,15 +83,15 @@ def pattern_supported(fmt: str) -> bool:
 
 
 def _fields_from_micros(xp, micros):
-    micros = micros.astype(xp.int64)
+    micros = xp.astype(micros, xp.int64)
     days = xp.floor_divide(micros, MICROS_PER_DAY)
     tod = micros - days * MICROS_PER_DAY
-    y, mo, d = civil_from_days(xp, days.astype(xp.int32))
+    y, mo, d = civil_from_days(xp, xp.astype(days, xp.int32))
     secs = tod // US_PER_SECOND
     return {
-        "yyyy": y.astype(xp.int64),
-        "MM": mo.astype(xp.int64),
-        "dd": d.astype(xp.int64),
+        "yyyy": xp.astype(y, xp.int64),
+        "MM": xp.astype(mo, xp.int64),
+        "dd": xp.astype(d, xp.int64),
         "HH": secs // 3600,
         "mm": (secs // 60) % 60,
         "ss": secs % 60,
@@ -114,7 +114,7 @@ def _format_device(ctx: Ctx, micros, pattern) -> tuple:
         if kind == "tok":
             k = _TOKENS[text]
             d = _digits_msd(xp, fields[text], k)
-            slots.append((d + 48).astype(xp.uint8))
+            slots.append(xp.astype(d + 48, xp.uint8))
             keeps.append(xp.ones((n, k), dtype=bool))
             width += k
         elif kind == "unp":
@@ -123,10 +123,10 @@ def _format_device(ctx: Ctx, micros, pattern) -> tuple:
             d = _digits_msd(xp, val, k)
             # keep digit j iff some digit at position <= j is nonzero, or
             # it's the last digit
-            nz = (xp.cumsum((d != 0).astype(xp.int32), axis=1) > 0) | (
+            nz = (xp.cumsum(xp.astype(d != 0, xp.int32), axis=1) > 0) | (
                 xp.arange(k)[None, :] == k - 1
             )
-            slots.append((d + 48).astype(xp.uint8))
+            slots.append(xp.astype(d + 48, xp.uint8))
             keeps.append(nz)
             width += k
         else:
@@ -189,8 +189,8 @@ class DateFormatClass(Expression):
         xp = ctx.xp
         data = ctx.broadcast(v.data)
         if isinstance(self.child.data_type, DateType):
-            return data.astype(xp.int64) * MICROS_PER_DAY
-        return data.astype(xp.int64)
+            return xp.astype(data, xp.int64) * MICROS_PER_DAY
+        return xp.astype(data, xp.int64)
 
     def eval(self, ctx: Ctx) -> Val:
         v = self.child.eval(ctx)
@@ -227,7 +227,7 @@ class FromUnixTime(Expression):
         v = self.child.eval(ctx)
         pattern = parse_pattern(self.fmt.value)
         xp = ctx.xp
-        micros = ctx.broadcast(v.data).astype(xp.int64) * US_PER_SECOND
+        micros = xp.astype(ctx.broadcast(v.data), xp.int64) * US_PER_SECOND
         if ctx.is_device:
             data, lens = _format_device(ctx, micros, pattern)
             return Val(data, v.valid, lens)
@@ -290,9 +290,9 @@ def _parse_device(ctx: Ctx, val: Val, pattern):
                     isd = (c >= 48) & (c <= 57) & ((cur + j) < end)
                     run = isd if run is None else (run & isd)
                     acc = xp.where(
-                        run, acc * 10 + (c - 48).astype(xp.int64), acc
+                        run, acc * 10 + xp.astype(c - 48, xp.int64), acc
                     )
-                    width = width + run.astype(xp.int32)
+                    width = width + xp.astype(run, xp.int32)
                 fields[_UNP_FIELD[text]] = acc
                 ok = ok & (width >= 1)
                 cur = cur + width
@@ -306,9 +306,9 @@ def _parse_device(ctx: Ctx, val: Val, pattern):
         ok = ok & (cur == end)
     from .cast import _days_in_month
 
-    y = fields["yyyy"].astype(xp.int32)
-    mo = xp.clip(fields["MM"], 1, 12).astype(xp.int32)
-    d = xp.clip(fields["dd"], 1, 31).astype(xp.int32)
+    y = xp.astype(fields["yyyy"], xp.int32)
+    mo = xp.astype(xp.clip(fields["MM"], 1, 12), xp.int32)
+    d = xp.astype(xp.clip(fields["dd"], 1, 31), xp.int32)
     ok = (
         ok
         & (fields["MM"] >= 1)
@@ -320,7 +320,7 @@ def _parse_device(ctx: Ctx, val: Val, pattern):
         & (fields["mm"] < 60)
         & (fields["ss"] < 60)
     )
-    days = days_from_civil(xp, y, mo, d).astype(xp.int64)
+    days = xp.astype(days_from_civil(xp, y, mo, d), xp.int64)
     micros = days * MICROS_PER_DAY + (
         fields["HH"] * 3600 + fields["mm"] * 60 + fields["ss"]
     ) * US_PER_SECOND
@@ -405,7 +405,7 @@ class ToUnixTimestamp(Expression):
             tv = Cast(self.child, TimestampType()).eval(ctx)
             xp = ctx.xp
             return Val(
-                xp.floor_divide(ctx.broadcast(tv.data).astype(xp.int64), US_PER_SECOND),
+                xp.floor_divide(xp.astype(ctx.broadcast(tv.data), xp.int64), US_PER_SECOND),
                 tv.valid,
             )
         if ctx.is_device:
@@ -451,7 +451,7 @@ class ParseToDate(Expression):
         xp = ctx.xp
         if ctx.is_device:
             micros, ok = _parse_device(ctx, v, pattern)
-            days = xp.floor_divide(micros, MICROS_PER_DAY).astype(xp.int32)
+            days = xp.astype(xp.floor_divide(micros, MICROS_PER_DAY), xp.int32)
             return Val(days, v.full_valid(ctx) & ok)
         from .strings import _cpu_strs
 

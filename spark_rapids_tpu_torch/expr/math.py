@@ -38,7 +38,7 @@ class _DoubleFn(UnaryExpression):
 
     def _compute(self, ctx: Ctx, data):
         xp = ctx.xp
-        return self._fn(xp, data.astype(xp.float64))
+        return self._fn(xp, xp.astype(data, xp.float64))
 
 
 def _mk_double_fn(name: str, fn, doc: str = ""):
@@ -107,7 +107,7 @@ class _DomainLog(UnaryExpression):
     def eval(self, ctx: Ctx) -> Val:
         c = self.child.eval(ctx)
         xp = ctx.xp
-        x = ctx.broadcast(c.data).astype(xp.float64)
+        x = xp.astype(ctx.broadcast(c.data), xp.float64)
         # Spark's Logarithm nulls only when input <= bound; NaN input is NOT
         # <= bound in Java, so log(NaN) stays NaN (not NULL)
         ok = (x > self.lower) | xp.isnan(x)
@@ -159,8 +159,8 @@ class Logarithm(BinaryExpression):
 
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
-        b = l.astype(xp.float64)
-        x = r.astype(xp.float64)
+        b = xp.astype(l, xp.float64)
+        x = xp.astype(r, xp.float64)
         # NaN operands are not <= 0 in Java, so they flow through as NaN
         ok = ((b > 0.0) | xp.isnan(b)) & ((x > 0.0) | xp.isnan(x))
         data = xp.log(xp.where(ok, x, 1.0)) / xp.log(xp.where(ok, b, 2.0))
@@ -178,7 +178,7 @@ class Pow(BinaryExpression):
 
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
-        return xp.power(l.astype(xp.float64), r.astype(xp.float64))
+        return xp.power(xp.astype(l, xp.float64), xp.astype(r, xp.float64))
 
 
 @dataclass(frozen=True)
@@ -192,7 +192,7 @@ class Atan2(BinaryExpression):
 
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
-        return xp.arctan2(l.astype(xp.float64), r.astype(xp.float64))
+        return xp.arctan2(xp.astype(l, xp.float64), xp.astype(r, xp.float64))
 
 
 @dataclass(frozen=True)
@@ -206,7 +206,7 @@ class Hypot(BinaryExpression):
 
     def _compute(self, ctx: Ctx, l, r):
         xp = ctx.xp
-        return xp.hypot(l.astype(xp.float64), r.astype(xp.float64))
+        return xp.hypot(xp.astype(l, xp.float64), xp.astype(r, xp.float64))
 
 
 _LONG_MIN, _LONG_MAX = -(2**63), 2**63 - 1
@@ -226,11 +226,11 @@ class _FloorCeil(UnaryExpression):
         xp = ctx.xp
         if isinstance(self.child.data_type, IntegralType):
             return data
-        x = self._rnd(xp, data.astype(xp.float64))
+        x = self._rnd(xp, xp.astype(data, xp.float64))
         oob_hi = x >= float(_LONG_MAX)
         oob_lo = x <= float(_LONG_MIN)
         safe = xp.where(xp.isnan(x) | oob_hi | oob_lo, 0.0, x)
-        out = safe.astype(xp.int64)
+        out = xp.astype(safe, xp.int64)
         # Java toLong saturation at the boundaries (float(_LONG_MAX) == 2^63
         # itself overflows an int64 cast, hence the masked fix-up)
         out = xp.where(oob_hi, _LONG_MAX, out)
@@ -280,15 +280,15 @@ class _RoundBase(Expression):
             if d >= 0:
                 return Val(data, c.valid)
             p = 10 ** (-d)
-            x = data.astype(xp.int64)
+            x = xp.astype(data, xp.int64)
             q = xp.floor_divide(x, p)  # rem = x - q*p is in [0, p)
             rem2 = (x - q * p) * 2
             if self.half_even:
                 up = (rem2 > p) | ((rem2 == p) & (xp.mod(q, 2) != 0))
             else:  # HALF_UP: ties go away from zero
                 up = (rem2 > p) | ((rem2 == p) & (x >= 0))
-            out = q + up.astype(xp.int64)
-            return Val((out * p).astype(dt.np_dtype), c.valid)
+            out = q + xp.astype(up, xp.int64)
+            return Val(xp.astype(out * p, dt.np_dtype), c.valid)
         if ctx.is_device:
             # incompat-gated device path (reference GpuRound/GpuBRound via
             # cudf round — "may round slightly differently"): arithmetic in
@@ -343,7 +343,7 @@ class _RoundBase(Expression):
                         _dec.Decimal(1).scaleb(-d), rounding=mode
                     )
                 )
-        return Val(out.astype(dt.np_dtype), c.valid)
+        return Val(xp.astype(out, dt.np_dtype), c.valid)
 
 
 @dataclass(frozen=True)

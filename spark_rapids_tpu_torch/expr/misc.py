@@ -282,12 +282,12 @@ class Rand(Expression, TaskDependent):
         t = _require_task(ctx, "rand()")
         idx = xp.asarray(t.row_base, dtype=xp.int64) + xp.arange(ctx.n, dtype=xp.int64)
         pid = xp.asarray(t.part_id, dtype=xp.uint32)
-        s1 = (xp.asarray(np.uint32(self.seed & 0xFFFFFFFF)) ^ (pid * np.uint32(0x9E3779B9))).astype(xp.uint32)
-        s2 = (s1 + np.uint32(0x85EBCA6B)).astype(xp.uint32)
-        a = hash_long(xp, idx, s1).astype(xp.uint32)
-        b = hash_long(xp, idx, s2).astype(xp.uint32)
-        hi = (a >> np.uint32(5)).astype(xp.float64)  # 27 bits
-        lo = (b >> np.uint32(6)).astype(xp.float64)  # 26 bits
+        s1 = xp.astype(xp.asarray(np.uint32(self.seed & 0xFFFFFFFF)) ^ (pid * np.uint32(0x9E3779B9)), xp.uint32)
+        s2 = xp.astype(s1 + np.uint32(0x85EBCA6B), xp.uint32)
+        a = xp.astype(hash_long(xp, idx, s1), xp.uint32)
+        b = xp.astype(hash_long(xp, idx, s2), xp.uint32)
+        hi = xp.astype(a >> np.uint32(5), xp.float64)  # 27 bits
+        lo = xp.astype(b >> np.uint32(6), xp.float64)  # 26 bits
         u = (hi * np.float64(1 << 26) + lo) * np.float64(1.0 / (1 << 53))
         return Val(u, xp.asarray(True))
 

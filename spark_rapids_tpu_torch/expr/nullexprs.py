@@ -156,5 +156,5 @@ class AtLeastNNonNulls(Expression):
             ok = v.full_valid(ctx)
             if isinstance(e.data_type, (FloatType, DoubleType)):
                 ok = ok & ~xp.isnan(v.full_data(ctx))
-            count = count + ok.astype(xp.int32)
+            count = count + xp.astype(ok, xp.int32)
         return Val(count >= self.n, xp.ones(ctx.n, dtype=bool))

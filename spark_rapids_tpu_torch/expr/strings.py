@@ -21,11 +21,11 @@ semantics: trim removes ASCII 32 only, replace('','x') is identity, …).
 
 Copied from ``spark_rapids_tpu/expr/strings.py``. ``Like``'s byte-NFA,
 a ``lax.scan`` there, is ``like_nfa`` here: a host loop over the width of
-whole-column torch ops. The other device paths that call jax directly
-(``_greedy_matches`` and the associative scans) raise
-``NotImplementedError`` on the device until their slice of the port lands;
-the port's overrides keep those expressions on the CPU engine.
-``_match_starts`` runs the hand-written kernel.
+whole-column torch ops; so is replace's ``_greedy_matches``. The
+associative scans are ``cummax``/``cummin``, ``.at[].set`` an indexed
+write into the plane the expression allocated. ``_match_starts`` runs the
+hand-written kernel (``Contains``, ``StringLocate``, ``SubstringIndex``,
+``StringReplace``).
 """
 from __future__ import annotations
 
@@ -142,7 +142,7 @@ class Length(Expression):
         if ctx.is_device:
             data, lengths = dev_str(ctx, c)
             _, _, nchars = char_index(ctx, data, lengths)
-            return Val(nchars.astype(ctx.xp.int32), c.valid)
+            return Val(ctx.xp.astype(nchars, ctx.xp.int32), c.valid)
         s = _cpu_strs(ctx, c)
         out = np.asarray([len(x) if x is not None else 0 for x in s], dtype=np.int32)
         return Val(out, c.valid)
@@ -208,7 +208,7 @@ class InitCap(Expression):
             xp = ctx.xp
             data, lengths = dev_str(ctx, c)
             lower_shift = ((data >= ord("A")) & (data <= ord("Z"))) * 32
-            low = (data + lower_shift.astype(xp.uint8)).astype(xp.uint8)
+            low = xp.astype(data + xp.astype(lower_shift, xp.uint8), xp.uint8)
             prev_space = xp.concatenate(
                 [
                     xp.full((ctx.n, 1), True),
@@ -219,7 +219,7 @@ class InitCap(Expression):
             up_shift = (
                 prev_space & (low >= ord("a")) & (low <= ord("z"))
             ) * 32
-            out = (low - up_shift.astype(xp.uint8)).astype(xp.uint8)
+            out = xp.astype(low - xp.astype(up_shift, xp.uint8), xp.uint8)
             return Val(out, c.valid, lengths)
         s = _cpu_strs(ctx, c)
         out = []
@@ -273,17 +273,21 @@ class Reverse(Expression):
         mask = byte_mask(ctx, w, lengths)
         out_pos = xp.where(mask, out_pos, w)  # park padding writes off-row
         out = xp.zeros((ctx.n, w + 1), dtype=xp.uint8)
-        rows = xp.arange(ctx.n, dtype=xp.int32)[:, None]
-        out = out.at[rows, out_pos].set(xp.where(mask, data, 0))
+        rows = xp.arange(ctx.n, dtype=xp.int64)[:, None]
+        # the JAX package's ``out.at[rows, out_pos].set``: a scatter into the
+        # plane this function allocated
+        out[rows, xp.astype(out_pos, xp.int64)] = xp.where(mask, data, 0)
         return Val(out[:, :w], c.valid, lengths)
 
 
 def _cummax(xp, a):
-    raise NotImplementedError("cummax over the byte plane has no device implementation in the torch port yet")
+    """Running maximum along the row (``lax.associative_scan(maximum)``)."""
+    return xp.cummax(a, axis=1)
 
 
 def _rev_cummin(xp, a):
-    raise NotImplementedError("reverse cummin over the byte plane has no device implementation in the torch port yet")
+    """Running minimum from the row's end (the reversed associative scan)."""
+    return xp.flip(xp.cummin(xp.flip(a, 1), axis=1), 1)
 
 
 @dataclass(frozen=True)
@@ -308,7 +312,7 @@ class Ascii(Expression):
         xp = ctx.xp
         data, lengths = dev_str(ctx, c)
         w = data.shape[1]
-        b = [data[:, i].astype(xp.int32) if i < w else xp.zeros(ctx.n, xp.int32) for i in range(4)]
+        b = [xp.astype(data[:, i], xp.int32) if i < w else xp.zeros(ctx.n, xp.int32) for i in range(4)]
         b0 = b[0]
         one = b0  # ascii
         two = ((b0 & 0x1F) << 6) | (b[1] & 0x3F)
@@ -324,7 +328,7 @@ class Ascii(Expression):
             one,
             xp.where(b0 < 0xE0, two, xp.where(b0 < 0xF0, three, four)),
         )
-        return Val(xp.where(lengths > 0, cp, 0).astype(xp.int32), c.valid)
+        return Val(xp.astype(xp.where(lengths > 0, cp, 0), xp.int32), c.valid)
 
 
 # ── substring / trim / pad ─────────────────────────────────────────────────
@@ -433,11 +437,11 @@ class _TrimBase(Expression):
         keep = mask
         if self.trim_left:
             # leading run of members: cumprod over membership
-            lead = xp.cumprod(member.astype(xp.int32), axis=1).astype(bool)
+            lead = xp.astype(xp.cumprod(xp.astype(member, xp.int32), axis=1), bool)
             keep = keep & ~lead
         if self.trim_right:
             pos = xp.arange(w, dtype=xp.int32)[None, :]
-            last_keep = xp.where(~member & mask, pos, -1).max(axis=1)
+            last_keep = xp.max(xp.where(~member & mask, pos, -1), axis=1)
             trail = pos > last_keep[:, None]
             keep = keep & ~trail
         out, new_len = compact_bytes(ctx, data, keep)
@@ -505,7 +509,7 @@ class _PadBase(Expression):
         data, lengths = dev_str(ctx, c)
         w = data.shape[1]
         idx, _, nchars = char_index(ctx, data, lengths)
-        want = xp.broadcast_to(xp.asarray(ln.data), (ctx.n,)).astype(xp.int32)
+        want = xp.astype(xp.broadcast_to(xp.asarray(ln.data), (ctx.n,)), xp.int32)
         want = xp.maximum(want, 0)
         pad = self.pad.value if isinstance(self.pad, Literal) else " "
         pad_b = pad.encode("utf-8")[:1] or b" "
@@ -683,24 +687,40 @@ class StringReplace(Expression):
         return Val(out, valid, new_len)
 
 
-def _match_starts(ctx: Ctx, data, lengths, pat: bytes):
+def _match_starts(ctx: Ctx, data, lengths, pat: bytes, consumer: str):
     """bool[n, w]: literal ``pat`` matches starting at each byte position.
     On the device it is the hand-written kernel of ops/strings_kernels.py
-    (its plain torch version when the plane lies on the CPU)."""
+    (its plain torch version when the plane lies on the CPU); ``consumer``
+    names the expression, whose launches the kernel's wrapper counts."""
     from ..ops import strings_kernels as SK
 
     return SK.match_starts(
         ctx.xp.astype(data, ctx.xp.uint8).contiguous(),
         ctx.xp.astype(lengths, ctx.xp.int32).contiguous(),
         pat,
+        consumer=consumer,
     )
 
 
 def _greedy_matches(ctx: Ctx, data, lengths, pat: bytes):
     """Non-overlapping greedy-left match starts (str.replace semantics).
-    The reference runs a ``lax.scan`` over the width; the port has no
-    device version yet (replace stays on the CPU engine)."""
-    raise NotImplementedError("_greedy_matches has no device implementation in the torch port yet")
+    The JAX package runs a ``lax.scan`` over the width; here it is a host
+    loop over the ``W`` byte positions of whole-column ops (no host sync),
+    each step taking the matches that start at or after the row's next free
+    byte."""
+    xp = ctx.xp
+    matches = _match_starts(ctx, data, lengths, pat, "replace")
+    L = len(pat)
+    w = data.shape[1]
+    if L == 1:
+        return matches
+    next_free = xp.zeros(ctx.n, dtype=xp.int32)
+    sel = []
+    for i in range(w):
+        m = matches[:, i] & (next_free <= i)
+        next_free = xp.where(m, i + L, next_free)
+        sel.append(m)
+    return xp.stack(sel, axis=1)
 
 
 def _window_or(ctx: Ctx, starts, L: int):
@@ -796,7 +816,7 @@ class Contains(_SearchBase):
         xp = ctx.xp
         if len(pat) == 0:
             return xp.ones(ctx.n, dtype=bool)
-        return _match_starts(ctx, data, lengths, pat).any(axis=1)
+        return _match_starts(ctx, data, lengths, pat, "contains").any(axis=1)
 
 
 @dataclass(frozen=True)
@@ -863,24 +883,24 @@ class SubstringIndex(Expression):
                 valid,
                 xp.zeros(ctx.n, dtype=xp.int32),
             )
-        m = _match_starts(ctx, data, lengths, pat)
-        cum = xp.cumsum(m.astype(xp.int32), axis=1)
+        m = _match_starts(ctx, data, lengths, pat, "substring_index")
+        cum = xp.cumsum(xp.astype(m, xp.int32), axis=1)
         total = cum[:, -1]
         L = len(pat)
         pos_j = xp.arange(w, dtype=xp.int32)[None, :]
         if count > 0:
             sel = m & (cum == count)
             has = total >= count
-            j = xp.argmax(sel, axis=1).astype(xp.int32)
-            new_len = xp.where(has, j, lengths).astype(xp.int32)
+            j = xp.astype(xp.argmax(sel, axis=1), xp.int32)
+            new_len = xp.astype(xp.where(has, j, lengths), xp.int32)
             keep = pos_j < new_len[:, None]
-            out = xp.where(keep, data, 0).astype(xp.uint8)
+            out = xp.astype(xp.where(keep, data, 0), xp.uint8)
             return Val(out, valid, new_len)
         k = -count
-        rcount = total[:, None] - cum + m.astype(xp.int32)
+        rcount = total[:, None] - cum + xp.astype(m, xp.int32)
         sel = m & (rcount == k)
         has = total >= k
-        j = xp.argmax(sel, axis=1).astype(xp.int32)
+        j = xp.astype(xp.argmax(sel, axis=1), xp.int32)
         start = xp.where(has, j + L, 0)
         keep = (pos_j >= start[:, None]) & (pos_j < lengths[:, None])
         out, new_len = compact_bytes(ctx, data, keep)
@@ -923,14 +943,14 @@ class StringLocate(Expression):
             out = xp.where(
                 (pos0 >= 1) & (xp.asarray(pos0) <= nchars + 1), pos0, 0
             )
-            return Val(out.astype(xp.int32), valid)
+            return Val(xp.astype(out, xp.int32), valid)
         if pos0 < 1:
             return Val(xp.zeros(ctx.n, dtype=xp.int32), valid)
-        m = _match_starts(ctx, data, lengths, pat)
+        m = _match_starts(ctx, data, lengths, pat, "locate")
         cpos = idx + 1  # 1-based char position of each byte
         cand = xp.where(m & (cpos >= pos0), cpos, 2**30)
-        best = cand.min(axis=1)
-        return Val(xp.where(best < 2**30, best, 0).astype(xp.int32), valid)
+        best = xp.min(cand, axis=1)
+        return Val(xp.astype(xp.where(best < 2**30, best, 0), xp.int32), valid)
 
     @staticmethod
     def _cpu_one(x, sub, pos):

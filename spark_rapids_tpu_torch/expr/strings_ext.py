@@ -153,10 +153,10 @@ class StringTranslate(Expression):
             lut[ord(ch)] = -1 if to is None else ord(to)
         lut_d = xp.asarray(lut)
         data, lengths = dev_str(ctx, c)
-        mapped = lut_d[data.astype(xp.int32)]
+        mapped = lut_d[xp.astype(data, xp.int32)]
         keep = byte_mask(ctx, data.shape[1], lengths) & (mapped >= 0)
         out, new_len = compact_bytes(
-            ctx, xp.where(mapped >= 0, mapped, 0).astype(xp.uint8), keep,
+            ctx, xp.astype(xp.where(mapped >= 0, mapped, 0), xp.uint8), keep,
             out_width=data.shape[1],
         )
         return Val(out, c.valid, new_len)
@@ -274,9 +274,9 @@ class StringSplit(Expression):
                 raise NotImplementedError("multi-byte split has no device implementation in the torch port yet")
 
         if self.limit > 0:
-            order = xp.cumsum(take.astype(xp.int32), axis=1)
+            order = xp.cumsum(xp.astype(take, xp.int32), axis=1)
             take = take & (order <= self.limit - 1)
-        ndelim = take.sum(axis=1).astype(xp.int32)
+        ndelim = xp.astype(take.sum(axis=1), xp.int32)
         ntok = ndelim + 1
         W = self.max_tokens
         if self.limit > 0:
@@ -288,25 +288,25 @@ class StringSplit(Expression):
             f"conf or disable spark.rapids.sql.expression.StringSplit",
             (ntok > W) & ctx.broadcast_bool(v.valid),
         )
-        cum = xp.cumsum(take.astype(xp.int32), axis=1)
+        cum = xp.cumsum(xp.astype(take, xp.int32), axis=1)
         big = xp.int32(w)
         # delimiter positions in order: d_pos[:, t] = argmin over j of
         # (take & cum == t+1) — W is small and static, a python loop fuses
         d_pos = []
         for t in range(W - 1):
             cond = take & (cum == t + 1)
-            d_pos.append(xp.where(cond, idx[None, :], big).min(axis=1))
+            d_pos.append(xp.min(xp.where(cond, idx[None, :], big), axis=1))
         if d_pos:
             d_pos_m = xp.stack(d_pos, axis=1)  # [n, W-1]
         else:
             d_pos_m = xp.zeros((n, 0), dtype=xp.int32)
         starts = xp.concatenate(
-            [xp.zeros((n, 1), xp.int32), (d_pos_m + m).astype(xp.int32)], axis=1
+            [xp.zeros((n, 1), xp.int32), xp.astype(d_pos_m + m, xp.int32)], axis=1
         )  # [n, W]
         tpos = xp.arange(W, dtype=xp.int32)[None, :]
         last = tpos == (xp.minimum(ntok, W)[:, None] - 1)
         ends = xp.concatenate(
-            [d_pos_m.astype(xp.int32), xp.full((n, 1), w, xp.int32)], axis=1
+            [xp.astype(d_pos_m, xp.int32), xp.full((n, 1), w, xp.int32)], axis=1
         )
         ends = xp.where(last, lengths[:, None], ends)
         tok_live = tpos < xp.minimum(ntok, W)[:, None]
@@ -317,18 +317,18 @@ class StringSplit(Expression):
             xp.broadcast_to(ch[:, None, :], (n, W, w)), src, axis=2
         )
         el_live = cidx < tlen[:, :, None]
-        edata = xp.where(el_live, gathered, 0).astype(xp.uint8)
+        edata = xp.astype(xp.where(el_live, gathered, 0), xp.uint8)
         valid = ctx.broadcast_bool(v.valid)
         elem = DeviceColumn(
             STRING,
             edata,
             tok_live & valid[:, None],
-            tlen.astype(xp.int32),
+            xp.astype(tlen, xp.int32),
         )
         return Val(
             None,
             valid,
-            xp.where(valid, xp.minimum(ntok, W), 0).astype(xp.int32),
+            xp.astype(xp.where(valid, xp.minimum(ntok, W), 0), xp.int32),
             (elem,),
         )
 
@@ -482,14 +482,14 @@ def _json_masks(xp, b):
     is the documented divergence of the span-based device path."""
     prev = xp.pad(b[:, :-1], ((0, 0), (1, 0)))
     quote = (b == ord('"')) & (prev != ord("\\"))
-    cums = xp.cumsum(quote.astype(xp.int32), axis=1)
+    cums = xp.cumsum(xp.astype(quote, xp.int32), axis=1)
     in_str = (cums % 2) == 1  # opening quote .. char before closing quote
     # brackets inside string literals are data, not structure
     struct = ~in_str
     opens = ((b == ord("{")) | (b == ord("["))) & struct
     closes = ((b == ord("}")) | (b == ord("]"))) & struct
-    depth = xp.cumsum(opens.astype(xp.int32) - closes.astype(xp.int32), axis=1)
-    depth_before = depth - opens.astype(xp.int32) + closes.astype(xp.int32)
+    depth = xp.cumsum(xp.astype(opens, xp.int32) - xp.astype(closes, xp.int32), axis=1)
+    depth_before = depth - xp.astype(opens, xp.int32) + xp.astype(closes, xp.int32)
     return in_str, depth, depth_before
 
 
@@ -497,7 +497,7 @@ def _first_at_or_after(xp, mask, start, w):
     """Per row: smallest position >= start where mask holds, else w."""
     pos = xp.arange(w, dtype=xp.int32)[None, :]
     cand = xp.where(mask & (pos >= start[:, None]), pos, w)
-    return cand.min(axis=1).astype(xp.int32)
+    return xp.astype(xp.min(cand, axis=1), xp.int32)
 
 
 @dataclass(frozen=True)
@@ -558,7 +558,7 @@ class GetJsonObject(Expression):
         well_formed = (end_depth == 0) & ~end_in_str
         # value span [lo, hi) — the root value, trailing whitespace trimmed
         lo = _first_at_or_after(xp, nonspace, xp.zeros(n, xp.int32), w)
-        hi = (xp.where(nonspace, pos, -1).max(axis=1) + 1).astype(xp.int32)
+        hi = xp.astype(xp.max(xp.where(nonspace, pos, -1), axis=1) + 1, xp.int32)
         ok = (lo < hi) & well_formed
         for kind, v in steps:
             # container must open the span
@@ -572,7 +572,7 @@ class GetJsonObject(Expression):
             if kind == "key":
                 ok = ok & (first == ord("{"))
                 pat = b'"' + str(v).encode("utf-8") + b'"'
-                m = _match_starts(ctx, data, lengths, pat)
+                m = _match_starts(ctx, data, lengths, pat, "get_json_object")
                 # per-candidate ':' validation distinguishes a KEY from a
                 # string VALUE with the same bytes at the same depth
                 after_key = xp.clip(pos + len(pat), 0, w - 1)
@@ -587,7 +587,7 @@ class GetJsonObject(Expression):
                     & (colon_ch == ord(":"))
                     & (colon_at < hi[:, None])
                 )
-                kpos = xp.where(cand, pos, w).min(axis=1).astype(xp.int32)
+                kpos = xp.astype(xp.min(xp.where(cand, pos, w), axis=1), xp.int32)
                 ok = ok & (kpos < w)
                 colon = xp.take_along_axis(
                     colon_at, xp.clip(kpos, 0, w - 1)[:, None], axis=1
@@ -604,9 +604,9 @@ class GetJsonObject(Expression):
                 if v == 0:
                     vstart = _first_at_or_after(xp, nonspace, lo + 1, w)
                 else:
-                    ccount = xp.cumsum(commas.astype(xp.int32), axis=1)
+                    ccount = xp.cumsum(xp.astype(commas, xp.int32), axis=1)
                     at_v = commas & (ccount == v)
-                    cpos = xp.where(at_v, pos, w).min(axis=1).astype(xp.int32)
+                    cpos = xp.astype(xp.min(xp.where(at_v, pos, w), axis=1), xp.int32)
                     ok = ok & (cpos < w)
                     vstart = _first_at_or_after(xp, nonspace, cpos + 1, w)
                 # the selected entry must exist (not past the close bracket)
@@ -623,13 +623,13 @@ class GetJsonObject(Expression):
             vend = _first_at_or_after(xp, sep, vstart, w)
             vend = xp.minimum(vend, hi)
             # trim trailing whitespace: last nonspace in [vstart, vend)
-            lastns = xp.where(
+            lastns = xp.max(xp.where(
                 nonspace & (pos >= vstart[:, None]) & (pos < vend[:, None]),
                 pos,
                 -1,
-            ).max(axis=1)
+            ), axis=1)
             lo = vstart
-            hi = (lastns + 1).astype(xp.int32)
+            hi = xp.astype(lastns + 1, xp.int32)
             ok = ok & (lo < hi)
         # unquote string results
         first = xp.take_along_axis(data, xp.clip(lo, 0, w - 1)[:, None], axis=1)[:, 0]

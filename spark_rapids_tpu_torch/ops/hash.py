@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..xp import is_torch
 from ..types import (
     BooleanType,
     ByteType,
@@ -127,7 +128,7 @@ def _fmix(xp, h1, length):
 
 
 def hash_int(xp, x_i32, seed_u32):
-    if xp is not np:
+    if is_torch(xp):
         x = x_i32.to(torch.int64) & _MASK  # two's complement low 32 bits
         return _t_fmix(_t_mix_h1(_t_lanes(seed_u32, x), _t_mix_k1(x)), 4)
     k1 = _mix_k1(xp, _u32(xp, x_i32))
@@ -136,7 +137,7 @@ def hash_int(xp, x_i32, seed_u32):
 
 
 def hash_long(xp, x_i64, seed_u32):
-    if xp is not np:
+    if is_torch(xp):
         x = x_i64.to(torch.int64)
         h1 = _t_mix_h1(_t_lanes(seed_u32, x), _t_mix_k1(x & _MASK))
         h1 = _t_mix_h1(h1, _t_mix_k1((x >> 32) & _MASK))
@@ -159,7 +160,7 @@ def hash_bytes_padded(xp, data_u8, lengths, seed_u32):
     (under jit in the JAX package one fused program; in torch about 1.25·W
     steps of a few launches each).
     """
-    if xp is not np:
+    if is_torch(xp):
         return _t_hash_bytes_padded(data_u8, lengths, seed_u32)
     n, width = data_u8.shape
     lengths = xp.asarray(lengths).astype(xp.int32)
@@ -211,7 +212,7 @@ def _t_hash_bytes_padded(data_u8, lengths, seed):
 def _float_norm(xp, x, is_double: bool):
     # Spark normalizes -0.0 to 0.0 before hashing; NaN is canonical already
     # in the JVM (Float.floatToIntBits collapses NaNs).
-    if xp is not np:
+    if is_torch(xp):
         x = torch.where(x == 0, 0.0, x)
         return torch.where(torch.isnan(x), float("nan"), x)
     zero = xp.zeros_like(x)
@@ -277,7 +278,7 @@ def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
     from ..types import is_complex
 
     if is_complex(dt):
-        assert xp is np, "complex hash keys are gated off the device path"
+        assert not is_torch(xp), "complex hash keys are gated off the device path"
         v = np.asarray(valid).astype(bool)
         seeds = np.broadcast_to(np.asarray(seed_u32, dtype=np.uint32), (len(v),)).copy()
         out = seeds.copy()
@@ -285,10 +286,10 @@ def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
             if v[i] and data[i] is not None:
                 out[i] = _hash_scalar_np(dt, data[i], seeds[i])
         return out
-    if xp is not np:
+    if is_torch(xp):
         return _t_hash_column(dt, data, valid, lengths, seed_u32)
     if isinstance(dt, StringType):
-        if xp is np and (getattr(data, "ndim", 1) != 2 or lengths is None):
+        if not is_torch(xp) and (getattr(data, "ndim", 1) != 2 or lengths is None):
             data, lengths = np_strings_to_padded(data, np.asarray(valid).astype(bool))
         h = hash_bytes_padded(xp, data, lengths, seed_u32)
     elif isinstance(dt, BooleanType):
@@ -340,7 +341,7 @@ def _t_hash_column(dt: DataType, data, valid, lengths, seed):
 
 def murmur3_rows(xp, cols: list[tuple[DataType, Any, Any, Any]], n: int, seed: int = DEFAULT_SEED):
     """Row hash over columns [(dtype, data, valid, lengths)] → int32[n]."""
-    if xp is not np:
+    if is_torch(xp):
         h = torch.full((n,), seed & _MASK, dtype=torch.int64, device=xp.device)
         for dt, data, valid, lengths in cols:
             h = hash_column(xp, dt, data, valid, lengths, h)
@@ -354,7 +355,7 @@ def murmur3_rows(xp, cols: list[tuple[DataType, Any, Any, Any]], n: int, seed: i
 
 def partition_ids(xp, row_hash_i32, num_partitions: int):
     """Spark's ``Pmod(hash, n)`` — non-negative modulus."""
-    if xp is not np:
+    if is_torch(xp):
         # torch's % on tensors is the floor modulus, as numpy's
         return (row_hash_i32.to(torch.int64) % num_partitions).to(torch.int32)
     m = row_hash_i32 % np.int32(num_partitions)

@@ -1,8 +1,8 @@
 """Substring search over the padded byte plane — the port of
 ``spark_rapids_tpu/ops/pallas_strings.py``.
 
-``match_starts`` is the mask behind ``Contains`` (and, in later slices,
-``StringLocate``, ``SubstringIndex``, replace and split). On a CUDA tensor it
+``match_starts`` is the mask behind ``Contains``, ``StringLocate``,
+``SubstringIndex`` and ``StringReplace``. On a CUDA tensor it
 launches the hand-written kernel in ``csrc/match_starts.cu`` (built for
 ``sm_90a`` at first use, loaded with ctypes) or raises; on a CPU tensor it
 runs ``match_starts_plain``, the same function in plain torch. Nothing falls
@@ -13,7 +13,8 @@ The kernel has two paths in one source. ``vec16`` (16-byte loads and
 stores) takes planes with ``W % 16 == 0`` whose data and output start on a
 16-byte boundary; every other plane (``W = 8``, ``W = 130``, a view at an
 odd storage offset) takes ``bytes``, the same tiling with byte loads and
-stores. ``LAUNCHES_BY_PATH`` counts the launches of each.
+stores. ``LAUNCHES_BY_PATH`` counts the launches of each, and
+``LAUNCHES_BY_CONSUMER`` the same launches by the expression that asked.
 
 The TPU kernel's gating (the Mosaic subprocess probe, its TTL cache, the
 process kill switch and ``spark.rapids.sql.pallas.enabled``) has no
@@ -32,6 +33,17 @@ import torch
 LAUNCHES = 0
 #: the same launches by kernel path (see :func:`kernel_path`)
 LAUNCHES_BY_PATH = {"vec16": 0, "bytes": 0}
+#: the same launches by consumer (the expression that asked for the mask;
+#: ``"direct"`` for a call from outside the expressions)
+LAUNCHES_BY_CONSUMER = {"contains": 0, "locate": 0, "substring_index": 0, "replace": 0}
+
+
+def reset_counts() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    LAUNCHES_BY_PATH.update(dict.fromkeys(LAUNCHES_BY_PATH, 0))
+    LAUNCHES_BY_CONSUMER.update(dict.fromkeys(LAUNCHES_BY_CONSUMER, 0))
 
 
 def match_starts_plain(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch.Tensor:
@@ -90,10 +102,13 @@ def kernel_path(w: int, data_ptr: int, out_ptr: int) -> str:
     return "vec16" if w % 16 == 0 and data_ptr % 16 == 0 and out_ptr % 16 == 0 else "bytes"
 
 
-def match_starts(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch.Tensor:
+def match_starts(
+    data: torch.Tensor, lengths: torch.Tensor, pat: bytes, consumer: str = "direct"
+) -> torch.Tensor:
     """bool[n, W]: element ``[i, j]`` is True iff ``pat`` occurs at byte
     ``j`` of row ``i`` and ``j + len(pat) <= lengths[i]``. ``L == 0`` or
-    ``L > W`` gives all False without a launch."""
+    ``L > W`` gives all False without a launch. ``consumer`` names the
+    caller in ``LAUNCHES_BY_CONSUMER``."""
     global LAUNCHES
     if data.ndim != 2:
         raise ValueError(f"match_starts wants a [n, W] byte plane, got shape {tuple(data.shape)}")
@@ -139,4 +154,5 @@ def match_starts(data: torch.Tensor, lengths: torch.Tensor, pat: bytes) -> torch
         raise RuntimeError(f"match_starts kernel launch failed ({path} path): cudaError {err}")
     LAUNCHES += 1
     LAUNCHES_BY_PATH[path] += 1
+    LAUNCHES_BY_CONSUMER[consumer] = LAUNCHES_BY_CONSUMER.get(consumer, 0) + 1
     return out

@@ -7,19 +7,23 @@ GpuTransitionOverrides.scala (transition insertion).
 The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
 tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
-pass, but its rules cover only what the port runs on the device so far —
-project, filter, grouped and ungrouped aggregation, sort, top-N, expand,
-the coalesce, the shuffle exchange, union, limit, the shuffled and
-broadcast hash joins, the broadcast exchange, the nested-loop and cartesian
-joins and the window, over the expressions of the 22 TPC-H and 96 TPC-DS
-queries (``InSet`` for a resolved IN-subquery, ``Like``, ``Substring``,
-``StartsWith``/``EndsWith``, rounding, interval date arithmetic, the
-stddev family and the window functions among them), ``contains`` and
-``hash``. Each added expression rule copies its check and reason from
-``spark_rapids_tpu/plan/overrides.py``. Every other node stays on the CPU
-engine with its reason in the explain, which is the system's own per-node
-fallback. (The JAX table binds ``exec.tpu`` directly, so it cannot be
-shared.)
+pass. Its exec rules cover project, filter, grouped and ungrouped
+aggregation, sort, top-N, expand, the coalesce, the shuffle exchange,
+union, limit, the shuffled and broadcast hash joins, the broadcast
+exchange, the nested-loop and cartesian joins and the window. Its
+expression rules are the JAX package's, check and reason for check and
+reason, for the whole scalar surface the port runs on the device:
+arithmetic (decimal included), predicates, null handling, the GpuCast
+matrix (``can_cast_on_device``; ANSI casts raise through the device error
+channel of the project and filter), dates, date patterns, math, bitwise, strings (over the
+``match_starts`` kernel where they search), ``md5``, the task-context
+expressions, the aggregates but the collect family, and the windows. What
+the port does not run yet has no rule (nested types, ``GetJsonObject``,
+``Rand``, the input-file expressions, UDFs) or, like ``RLike`` and the
+regex functions, keeps the JAX package's CPU-engine rule. Every other node
+stays on the CPU engine with its reason in the explain, which is the
+system's own per-node fallback. (The JAX table binds ``exec.tpu``
+directly, so it cannot be shared.)
 """
 from __future__ import annotations
 
@@ -38,15 +42,19 @@ from ..expr import Expression, bind
 from ..expr import aggregates as agg
 from ..expr import arithmetic as ar
 from ..expr import conditional as cond
+from ..expr import bitwise as bw
 from ..expr import datetime as dtx
+from ..expr import datetime_fmt as dfmt
 from ..expr import math as mx
-from ..expr import windows as W
 from ..expr import misc as msc
+from ..expr import nullexprs as nx
 from ..expr import predicates as pred
 from ..expr import strings as st
+from ..expr import strings_ext as sx
 from ..expr import subquery as sq
+from ..expr import windows as W
 from ..expr.base import Alias, BoundReference, Literal
-from ..expr.cast import Cast
+from ..expr.cast import Cast, can_cast_on_device
 from ..types import (
     BooleanType,
     ByteType,
@@ -98,16 +106,12 @@ def _float_agg_check(e, conf: TpuConf) -> Optional[str]:
 
 
 def _cast_check(e: Cast, conf: TpuConf) -> Optional[str]:
-    frm, to = e.c.data_type, e.to
-    if e.ansi:
-        return "ANSI-mode cast runs on CPU (device error channel not in the torch port yet)"
-    # numeric → integral truncates toward zero and saturates (Java's
-    # double → long), as the JAX package's ``_float_to_int``
-    ok = isinstance(to, _FLOATING) and isinstance(frm, _NUMERIC) or (
-        isinstance(to, _INTEGRAL) and isinstance(frm, _NUMERIC)
-    )
-    if not ok:
-        return f"cast {frm} -> {to} is not supported on device in the torch port yet"
+    """The JAX package's GpuCast type matrix (``can_cast_on_device``); an
+    ANSI cast raises through the device error channel of the project and
+    filter (``exec/gpu.py``), and keeps any other exec on the CPU engine
+    (``GpuOverrides._convert``)."""
+    if not can_cast_on_device(e.c.data_type, e.to, conf):
+        return f"cast {e.c.data_type} -> {e.to} is not supported on device (config-gated)"
     return None
 
 
@@ -143,86 +147,110 @@ def _like_check(e, conf: TpuConf) -> Optional[str]:
     return None
 
 
-def _no_decimal_arith(e, conf: TpuConf) -> Optional[str]:
-    if isinstance(e.data_type, DecimalType):
-        return f"decimal {type(e).__name__} is not in the torch port yet"
+def _pad_check(e, conf: TpuConf) -> Optional[str]:
+    p = e.pad
+    if not st.is_string_literal(p):
+        return "pad must be a string literal for the device path"
+    if len(p.value.encode("utf-8")) != 1:
+        return "device pad requires a single-byte pad string"
+    if not isinstance(e.length, Literal):
+        return "pad length must be a literal for the device path"
     return None
 
 
-def _integral_only(e, conf: TpuConf) -> Optional[str]:
-    if not isinstance(e.data_type, _INTEGRAL):
-        return f"{type(e).__name__} over {e.data_type.simple_string} is not in the torch port yet"
+def _locate_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.substr):
+        return "locate substring must be a string literal for the device path"
+    if not isinstance(e.start, Literal):
+        return "locate start must be a literal for the device path"
     return None
 
 
-_EXPR_RULES: dict = {}
+def _repeat_check(e, conf: TpuConf) -> Optional[str]:
+    if not isinstance(e.times, Literal):
+        return "repeat count must be a literal for the device path"
+    return None
 
 
-def _expr(cls, name=None, check=None):
-    _EXPR_RULES[cls] = ExprRule(cls, name or cls.__name__, check)
+def _replace_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.search) or not st.is_string_literal(e.replacement):
+        return "replace search/replacement must be string literals for the device path"
+    return None
 
 
-for _cls in (
-    BoundReference,
-    Literal,
-    Alias,
-    pred.EqualTo,
-    pred.LessThan,
-    pred.LessThanOrEqual,
-    pred.GreaterThan,
-    pred.GreaterThanOrEqual,
-    pred.And,
-    pred.Or,
-    pred.Not,
-    pred.IsNull,
-    pred.IsNotNull,
-    pred.In,
-    sq.InSet,
-    dtx.Year,
-    agg.Count,
-    agg.First,
-    agg.Last,
-):
-    _expr(_cls)
-for _cls in (ar.Add, ar.Subtract, ar.Multiply, ar.Divide):
-    _expr(_cls, check=_no_decimal_arith)
-_expr(ar.Remainder, check=_integral_only)
-_expr(cond.CaseWhen)
-_expr(cond.If)
-_expr(cond.Coalesce)
-_expr(agg.Sum, check=_float_agg_check)
-_expr(agg.Average, check=_float_agg_check)
-_expr(agg.Min, check=_minmax_check)
-_expr(agg.Max, check=_minmax_check)
-_expr(Cast, check=_cast_check)
-_expr(st.Contains, check=_lit_check("pattern", "contains pattern"))
-_expr(st.Substring)
-_expr(st.StartsWith, check=_lit_check("pattern", "startswith pattern"))
-_expr(st.EndsWith, check=_lit_check("pattern", "endswith pattern"))
-_expr(st.Like, check=_like_check)
-_expr(msc.Murmur3Hash)
-for _cls in (ar.UnaryMinus, ar.Abs):
-    _expr(_cls, check=_no_decimal_arith)
-_expr(st.Upper)
-_expr(st.Concat)
-for _cls in (agg.StddevSamp, agg.StddevPop, agg.VarianceSamp, agg.VariancePop):
-    _expr(_cls)
+def _trim_check(e, conf: TpuConf) -> Optional[str]:
+    if e.trim_str is not None and not st.is_string_literal(e.trim_str):
+        return "trim character set must be a string literal for the device path"
+    return None
+
+
+def _substring_index_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.delim):
+        return "substring_index delimiter must be a string literal for the device path"
+    if not isinstance(e.count, Literal):
+        return "substring_index count must be a literal for the device path"
+    return None
+
+
+def _integral_sig(e, conf: TpuConf) -> Optional[str]:
+    """The JAX package's integral TypeSig of the bitwise rules."""
+    for c in e.children():
+        dt = c.data_type
+        if not isinstance(dt, _INTEGRAL):
+            return (
+                f"{type(e).__name__} input type {dt.simple_string} is outside its "
+                "device signature (Byte+Integer+Long+Short)"
+            )
+    return None
+
+
+def _greatest_check(e, conf: TpuConf) -> Optional[str]:
+    if any(isinstance(x.data_type, StringType) for x in e.exprs):
+        return "greatest/least over strings is CPU-only"
+    return None
+
+
+def _translate_check(e, conf: TpuConf) -> Optional[str]:
+    if not sx.translate_args_ascii(e):
+        return "translate on device requires ASCII literal from/to arguments"
+    return None
+
+
+def _cpu_regex_check(what: str):
+    def check(e, conf: TpuConf) -> Optional[str]:
+        return (
+            f"{what} executes on the CPU engine (the reference leans on "
+            "cuDF's device regex/JSON engines — no XLA analogue)"
+        )
+
+    return check
+
+
+def _fmt_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.fmt):
+        return "datetime pattern must be a string literal"
+    # parsers scan fixed offsets, so unpadded single-letter tokens are
+    # format-only (ToUnixTimestamp/ParseToDate reject them)
+    if not dfmt.pattern_supported(e.fmt.value):
+        return (
+            f"datetime pattern {e.fmt.value!r} is outside the device-"
+            "supported token subset (yyyy MM dd HH mm ss + literals; "
+            "y M d H m s when formatting)"
+        )
+    return None
 
 
 def _interval_check(e, conf: TpuConf) -> Optional[str]:
-    """Literal-interval gate, the reference's GpuDateAddInterval restriction
-    (GpuOverrides.scala:1348,1369)."""
+    """Literal-interval gate, the reference's GpuTimeAdd/GpuDateAddInterval
+    restriction (GpuOverrides.scala:1348,1369)."""
     from ..types import CalendarIntervalType
 
     itv = e.interval
     if not (isinstance(itv, Literal) and isinstance(itv.data_type, CalendarIntervalType)):
         return "interval operand must be a literal CalendarInterval for the device path"
-    if itv.value[2] != 0:
+    if isinstance(e, dtx.DateAddInterval) and itv.value[2] != 0:
         return "date + interval with a sub-day component is an error in Spark"
     return None
-
-
-_expr(dtx.DateAddInterval, check=_interval_check)
 
 
 def _round_check(e, conf: TpuConf) -> Optional[str]:
@@ -236,13 +264,127 @@ def _round_check(e, conf: TpuConf) -> Optional[str]:
             "Spark's java BigDecimal semantics; enable "
             "spark.rapids.sql.incompatibleOps.enabled"
         )
-    if isinstance(e.child.data_type, DecimalType):
-        return "decimal round is not in the torch port yet"
     return None
 
 
+_EXPR_RULES: dict = {}
+
+
+def _expr(cls, name=None, check=None):
+    _EXPR_RULES[cls] = ExprRule(cls, name or cls.__name__, check)
+
+
+# the JAX package's expression rules (spark_rapids_tpu/plan/overrides.py),
+# with its checks and reasons, for every expression the port runs on the
+# device
+for _cls in (
+    BoundReference,
+    Literal,
+    Alias,
+    ar.Add,
+    ar.Subtract,
+    ar.Multiply,
+    ar.Divide,
+    ar.IntegralDivide,
+    ar.Remainder,
+    ar.Pmod,
+    ar.UnaryMinus,
+    ar.UnaryPositive,
+    ar.Abs,
+    pred.EqualTo,
+    pred.EqualNullSafe,
+    pred.LessThan,
+    pred.LessThanOrEqual,
+    pred.GreaterThan,
+    pred.GreaterThanOrEqual,
+    pred.And,
+    pred.Or,
+    pred.Not,
+    pred.IsNull,
+    pred.IsNotNull,
+    pred.IsNaN,
+    pred.In,
+    sq.InSet,
+    cond.If,
+    cond.CaseWhen,
+    cond.Coalesce,
+    agg.Count,
+    agg.First,
+    agg.Last,
+    agg.StddevSamp,
+    agg.StddevPop,
+    agg.VarianceSamp,
+    agg.VariancePop,
+    agg.CovarPop,
+    agg.CovarSamp,
+    agg.Corr,
+):
+    _expr(_cls)
+_expr(agg.Sum, check=_float_agg_check)
+_expr(agg.Average, check=_float_agg_check)
+_expr(agg.Min, check=_minmax_check)
+_expr(agg.Max, check=_minmax_check)
+_expr(Cast, check=_cast_check)
+
+for _cls in (st.Length, st.Upper, st.Lower, st.InitCap, st.Reverse, st.Ascii, st.Substring,
+             st.Concat):
+    _expr(_cls)
+_expr(st.StartsWith, check=_lit_check("pattern", "startswith pattern"))
+_expr(st.EndsWith, check=_lit_check("pattern", "endswith pattern"))
+_expr(st.Contains, check=_lit_check("pattern", "contains pattern"))
+_expr(st.Like, check=_like_check)
+_expr(st.StringReplace, check=_replace_check)
+_expr(st.StringRepeat, check=_repeat_check)
+_expr(st.StringLocate, check=_locate_check)
+_expr(st.SubstringIndex, check=_substring_index_check)
+_expr(st.StringLPad, check=_pad_check)
+_expr(st.StringRPad, check=_pad_check)
+_expr(st.StringTrim, check=_trim_check)
+_expr(st.StringTrimLeft, check=_trim_check)
+_expr(st.StringTrimRight, check=_trim_check)
+
+_expr(dtx.TimeAdd, check=_interval_check)
+_expr(dtx.DateAddInterval, check=_interval_check)
+for _cls in (
+    dtx.Year, dtx.Month, dtx.DayOfMonth, dtx.Quarter, dtx.DayOfWeek, dtx.WeekDay,
+    dtx.WeekOfYear, dtx.DayOfYear, dtx.LastDay, dtx.DateAdd, dtx.DateSub, dtx.DateDiff,
+    dtx.AddMonths, dtx.Hour, dtx.Minute, dtx.Second, dtx.UnixTimestamp,
+):
+    _expr(_cls)
+
+for _cls in (
+    mx.Sqrt, mx.Cbrt, mx.Exp, mx.Expm1, mx.Sin, mx.Cos, mx.Tan,
+    mx.Asin, mx.Acos, mx.Atan, mx.Sinh, mx.Cosh, mx.Tanh,
+    mx.Asinh, mx.Acosh, mx.Atanh, mx.Cot,
+    mx.ToDegrees, mx.ToRadians, mx.Rint, mx.Signum,
+    mx.Log, mx.Log10, mx.Log2, mx.Log1p, mx.Logarithm,
+    mx.Pow, mx.Atan2, mx.Hypot, mx.Floor, mx.Ceil,
+    nx.NaNvl, nx.Nvl2, nx.AtLeastNNonNulls,
+):
+    _expr(_cls)
+for _cls in (
+    bw.BitwiseAnd, bw.BitwiseOr, bw.BitwiseXor, bw.BitwiseNot,
+    bw.ShiftLeft, bw.ShiftRight, bw.ShiftRightUnsigned,
+):
+    _expr(_cls, check=_integral_sig)
 _expr(mx.Round, check=_round_check)
 _expr(mx.BRound, check=_round_check)
+_expr(nx.Greatest, check=_greatest_check)
+_expr(nx.Least, check=_greatest_check)
+
+for _cls in (msc.Murmur3Hash, msc.Md5, msc.SparkPartitionID, msc.MonotonicallyIncreasingID,
+             msc.NormalizeNaNAndZero):
+    _expr(_cls)
+
+_expr(sx.ConcatWs)
+_expr(sx.StringTranslate, check=_translate_check)
+_expr(sx.RLike, check=_cpu_regex_check("rlike"))
+_expr(sx.RegExpReplace, check=_cpu_regex_check("regexp_replace"))
+_expr(sx.RegExpExtract, check=_cpu_regex_check("regexp_extract"))
+_expr(dfmt.DateFormatClass, check=_fmt_check)
+_expr(dfmt.FromUnixTime, check=_fmt_check)
+_expr(dfmt.ToUnixTimestamp, check=_fmt_check)
+_expr(dfmt.ParseToDate, check=_fmt_check)
 
 
 def _window_check(e, conf: TpuConf) -> Optional[str]:
@@ -549,6 +691,16 @@ class GpuOverrides:
                     reasons.append(why)
             for e in rule.exprs_of(plan):
                 _check_expr_tree(e, self.conf, reasons)
+            if not isinstance(plan, (C.CpuProjectExec, C.CpuFilterExec)):
+                # the ANSI error channel is read by the device project and
+                # filter only; an error site anywhere else (a grouping key,
+                # an aggregate input, a sort key, a join condition) keeps
+                # its exec on the CPU engine, whose eval raises inline
+                if any(G.has_error_site(e) for e in rule.exprs_of(plan)):
+                    reasons.append(
+                        "ANSI-mode cast or arithmetic outside project/filter "
+                        "runs on CPU (device error channel not wired here)"
+                    )
         if reasons:
             self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
             return plan.with_new_children(children)

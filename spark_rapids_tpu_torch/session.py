@@ -214,12 +214,16 @@ class TorchSession:
             # Spark resolves ansiEnabled into Cast at analysis time
             import dataclasses as _dc
 
+            from .expr.arithmetic import AnsiArithmetic
             from .expr.cast import Cast
 
+            # casts as in the JAX package; integral + - * also raise on
+            # overflow (Spark's failOnError arithmetic, which the JAX
+            # package does not model)
             lp = L.transform_expressions(
                 lp,
                 lambda e: _dc.replace(e, ansi=True)
-                if isinstance(e, Cast) and not e.ansi
+                if isinstance(e, (Cast, AnsiArithmetic)) and not e.ansi
                 else e,
             )
         lp = prune_columns(lp)

@@ -5,6 +5,7 @@ everything else exact), with ``tests/test_tpcds.py``'s slack on rounded
 columns for TPC-DS (``tpcds_check``)."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -186,9 +187,9 @@ def rows_equal(ref, got, round_cols=None, round_slack: float = 0.0) -> tuple:
     return True, ""
 
 
-def tpcds_check(text: str, df, ref_rows, got_rows) -> tuple:
-    """``rows_equal`` with the slack ``tests/test_tpcds.py`` gives a
-    query text: 0.011 on the columns ``output_round_columns`` finds in
+def tpcds_slack(text: str, df) -> tuple:
+    """The slack ``tests/test_tpcds.py`` gives a query text, as ``(columns,
+    slack)``: 0.011 on the columns ``output_round_columns`` finds in
     ``df``'s plan when the text holds ``round(``, else none."""
     from .plan.logical import output_round_columns
 
@@ -199,4 +200,450 @@ def tpcds_check(text: str, df, ref_rows, got_rows) -> tuple:
             cols = output_round_columns(df._plan)
         except Exception:
             cols = None  # unknown shape: the slack stays plan-wide
-    return rows_equal(ref_rows, got_rows, cols, slack)
+    return cols, slack
+
+
+def tpcds_check(text: str, df, ref_rows, got_rows) -> tuple:
+    """``rows_equal`` with the slack of :func:`tpcds_slack`."""
+    return rows_equal(ref_rows, got_rows, *tpcds_slack(text, df))
+
+
+# ── the golden corpus (tests/golden/*.json) without pyarrow ─────────────────
+#
+# ``tests/test_golden.py`` and ``tests/test_golden_queries.py`` hold both JAX
+# engines to literal fixtures derived from Spark's published semantics. The
+# cases below are the same queries, described without pyarrow: each names
+# its input columns (name, type, values), the expression it selects (built
+# from a ``functions`` module, so the JAX package's module builds the same
+# tree in the tests) and the expected values. ``golden_batch`` makes the
+# input a ``HostBatch`` with numpy; ``run_golden_case`` runs one case on a
+# session and ``golden_values_equal`` compares as ``tests/test_golden.py``
+# does.
+
+#: the conf of ``tests/test_golden.py``'s device session, in test mode: the
+#: gated float <-> string casts on, so their device code is held to the
+#: fixtures too
+GOLDEN_CONF = {
+    "spark.rapids.sql.enabled": True,
+    "spark.rapids.sql.test.enabled": True,
+    "spark.sql.shuffle.partitions": 8,
+    "spark.rapids.sql.castFloatToString.enabled": "true",
+    "spark.rapids.sql.castStringToFloat.enabled": "true",
+}
+
+#: the conf of ``tests/test_golden_queries.py``'s device session, in test mode
+GOLDEN_QUERY_CONF = {
+    "spark.rapids.sql.enabled": True,
+    "spark.rapids.sql.test.enabled": True,
+    "spark.sql.shuffle.partitions": 2,
+}
+
+_ROUND_REASON = (
+    "round on floating point may round slightly differently than Spark's java "
+    "BigDecimal semantics; enable spark.rapids.sql.incompatibleOps.enabled"
+)
+
+#: the fixtures the JAX package's device engine keeps off the device under
+#: :data:`GOLDEN_CONF`, each with its reason: the float rounds (the
+#: ``incompatibleOps`` gate), the pads whose pad string is not one byte,
+#: the ``translate`` with non-ASCII arguments. ``tests/test_torch_golden.py``
+#: holds this list equal to the JAX package's explain.
+GOLDEN_OFF_DEVICE = {
+    **{f"round_double#{i}": _ROUND_REASON for i in range(10)},
+    **{f"bround_double#{i}": _ROUND_REASON for i in range(7)},
+    **{f"{op}#{i}": "device pad requires a single-byte pad string"
+       for op in ("lpad", "rpad") for i in (1, 4, 5, 8, 9)},
+    "translate#3": "translate on device requires ASCII literal from/to arguments",
+}
+
+
+@dataclasses.dataclass
+class GoldenCase:
+    """One query of the golden corpus: ``select(build(mods, col(...)))``
+    over ``columns`` (a list of ``(name, type, values)``; types are the
+    fixtures' names: int, long, double, float, boolean, string, date (days),
+    timestamp (micros), decimal (``Decimal`` values, precision and scale
+    inferred as Arrow infers them)). ``fixtures`` counts the fixtures it
+    covers; ``out`` converts a result value (``"days"``: date → days since
+    the epoch)."""
+
+    file: str
+    op: str
+    label: str
+    columns: list
+    build: object
+    expected: list
+    fixtures: int = 1
+    out: str = ""
+
+
+def decimal_type_of(values):
+    """The ``DecimalType`` Arrow infers for python ``Decimal`` values: the
+    largest scale, and room for the most integral digits beside it."""
+    from .types import DecimalType
+
+    shapes = [v.as_tuple() for v in values if v is not None]
+    scale = max((max(0, -t.exponent) for t in shapes), default=0)
+    ints = max((len(t.digits) + t.exponent for t in shapes), default=1)
+    return DecimalType(max(1, max(ints, 0) + scale), scale)
+
+
+def _golden_type(typ: str, values):
+    from . import types as T
+
+    if typ == "decimal":
+        return decimal_type_of(values)
+    return {
+        "int": T.INT, "long": T.LONG, "double": T.DOUBLE, "float": T.FLOAT,
+        "boolean": T.BOOLEAN, "string": T.STRING, "date": T.DATE, "timestamp": T.TIMESTAMP,
+    }[typ]
+
+
+def golden_batch(columns) -> "HostBatch":
+    """``HostBatch`` of ``(name, type, values)`` columns, built with numpy."""
+    from .columnar.host import HostBatch, HostColumn, string_column
+    from .types import DecimalType, Schema, StringType, StructField
+
+    fields, cols = [], []
+    for name, typ, values in columns:
+        dt = _golden_type(typ, values)
+        fields.append(StructField(name, dt))
+        if isinstance(dt, StringType):
+            cols.append(string_column(list(values), dt))
+            continue
+        valid = np.array([v is not None for v in values], dtype=bool)
+        if isinstance(dt, DecimalType):
+            raw = [0 if v is None else int(v.scaleb(dt.scale)) for v in values]
+        else:
+            raw = [0 if v is None else v for v in values]
+        cols.append(HostColumn(dt, np.array(raw, dtype=dt.np_dtype), valid))
+    return HostBatch(Schema(fields), cols, len(columns[0][2]) if columns else 0)
+
+
+def _decode(v, typ):
+    """JSON sentinels by the value's type: 'NaN' is a float sentinel but a
+    good string input."""
+    if typ in ("double", "float"):
+        if v == "NaN":
+            return float("nan")
+        if v == "Infinity":
+            return float("inf")
+        if v == "-Infinity":
+            return float("-inf")
+    if typ in ("date", "timestamp") and v is not None:
+        return int(v)
+    return v
+
+
+def _load_golden(golden_dir: str, name: str):
+    import json
+    import os
+
+    with open(os.path.join(golden_dir, name)) as f:
+        return json.load(f)
+
+
+def golden_cases(golden_dir: str) -> list:
+    """Every expression fixture of the corpus but ``split_at`` (array
+    columns), as :class:`GoldenCase` queries shaped as
+    ``tests/test_golden.py`` runs them: one query per group where the
+    fixtures share their expression, one per fixture where they do not."""
+    from decimal import Decimal
+
+    out: list = []
+
+    def add(file, op, label, columns, build, expected, out_kind=""):
+        out.append(GoldenCase(file, op, label, columns, build, expected,
+                              len(expected), out_kind))
+
+    # murmur3
+    f = "golden_murmur3.json"
+    data = _load_golden(golden_dir, f)
+    by_type: dict = {}
+    for c in data:
+        if c["op"] == "hash":
+            by_type.setdefault(c["type"], []).append(c)
+    for typ, cs in by_type.items():
+        add(f, "hash", f"hash({typ})", [("c", typ, [_decode(c["input"], typ) for c in cs])],
+            lambda m, c: m.F.hash(c), [c["expected"] for c in cs])
+    for i, c in enumerate(x for x in data if x["op"] == "hash2"):
+        add(f, "hash2", f"hash2#{i}",
+            [("a", c["types"][0], [c["inputs"][0]]), ("b", c["types"][1], [c["inputs"][1]])],
+            lambda m, c: m.F.hash(m.F.col("a"), m.F.col("b")), [c["expected"]])
+
+    # casts, one query per (from, to)
+    f = "golden_cast.json"
+    groups: dict = {}
+    for c in _load_golden(golden_dir, f):
+        groups.setdefault((c["from"], c["to"]), []).append(c)
+    for (src, dst), cs in groups.items():
+        add(f, "cast", f"cast {src}->{dst}", [("c", src, [_decode(c["input"], src) for c in cs])],
+            lambda m, c, dst=dst: c.cast(_golden_type_of(m, dst)),
+            [_decode(c["expected"], dst) for c in cs], "days" if dst == "date" else "")
+
+    # dates and times
+    f = "golden_datetime.json"
+    data = _load_golden(golden_dir, f)
+    unary = {
+        "year": lambda m, c: m.F.year(c), "month": lambda m, c: m.F.month(c),
+        "dayofmonth": lambda m, c: m.F.dayofmonth(c), "dayofyear": lambda m, c: m.F.dayofyear(c),
+        "quarter": lambda m, c: m.F.quarter(c), "dayofweek": lambda m, c: m.F.dayofweek(c),
+        "weekday": lambda m, c: m.F.weekday(c), "weekofyear": lambda m, c: m.F.weekofyear(c),
+        "last_day": lambda m, c: m.F.last_day(c).cast(m.T.DATE),
+    }
+    for op, build in unary.items():
+        cs = [c for c in data if c["op"] == op]
+        add(f, op, op, [("c", "date", [c["input"] for c in cs])], build,
+            [c["expected"] for c in cs], "days" if op == "last_day" else "")
+    for op in ("hour", "minute", "second"):
+        cs = [c for c in data if c["op"] == op]
+        add(f, op, op, [("c", "timestamp", [c["input"] for c in cs])],
+            lambda m, c, op=op: getattr(m.F, op)(c), [c["expected"] for c in cs])
+    per_case = {
+        "add_months": ("date", lambda m, c, x: m.F.add_months(c, x["months"]), "days"),
+        "date_format": ("timestamp", lambda m, c, x: m.F.date_format(c, x["fmt"]), ""),
+        "to_unix_timestamp": ("string", lambda m, c, x: m.F.unix_timestamp(c, x["fmt"]), ""),
+    }
+    _per_case(add, f, data, per_case)
+
+    # decimals and rounding
+    f = "golden_decimal.json"
+    data = _load_golden(golden_dir, f)
+    per_case = {
+        "round_double": ("double", lambda m, c, x: m.F.round(c, x["scale"]), ""),
+        "bround_double": ("double", lambda m, c, x: m.F.bround(c, x["scale"]), ""),
+        "round_int": ("int", lambda m, c, x: m.F.round(c, x["scale"]), ""),
+    }
+    _per_case(add, f, data, per_case)
+    for op, sym in (("decimal_add", "+"), ("decimal_mul", "*")):
+        for i, c in enumerate(x for x in data if x["op"] == op):
+            add(f, op, f"{op}#{i}",
+                [("a", "decimal", [Decimal(c["a"])]), ("b", "decimal", [Decimal(c["b"])])],
+                (lambda m, _c: m.F.col("a") + m.F.col("b")) if sym == "+"
+                else (lambda m, _c: m.F.col("a") * m.F.col("b")),
+                [Decimal(c["expected"])])
+
+    # strings
+    f = "golden_strings.json"
+    data = _load_golden(golden_dir, f)
+    for op in ("length", "reverse", "ascii", "upper", "lower", "initcap", "trim", "ltrim",
+               "rtrim"):
+        cs = [c for c in data if c["op"] == op]
+        add(f, op, op, [("c", "string", [c["input"] for c in cs])],
+            lambda m, c, op=op: getattr(m.F, op)(c), [c["expected"] for c in cs])
+    per_case = {
+        "substring": ("string", lambda m, c, x: m.F.substring(c, x["pos"], x["len"]), ""),
+        "locate": ("string", lambda m, c, x: m.F.locate(x["sub"], c, x["pos"]), ""),
+        "lpad": ("string", lambda m, c, x: m.F.lpad(c, x["n"], x["pad"]), ""),
+        "rpad": ("string", lambda m, c, x: m.F.rpad(c, x["n"], x["pad"]), ""),
+        "substring_index": (
+            "string", lambda m, c, x: m.F.substring_index(c, x["delim"], x["count"]), ""),
+        "translate": ("string", lambda m, c, x: m.F.translate(c, x["frm"], x["to"]), ""),
+        "replace": ("string", lambda m, c, x: m.F.replace(c, x["search"], x["repl"]), ""),
+        "repeat": ("string", lambda m, c, x: m.F.repeat(c, x["n"]), ""),
+        "startswith": ("string", lambda m, c, x: c.startswith(x["pre"]), ""),
+        "endswith": ("string", lambda m, c, x: c.endswith(x["pre"]), ""),
+        "contains": ("string", lambda m, c, x: c.contains(x["pre"]), ""),
+        "like": ("string", lambda m, c, x: c.like(x["pat"]), ""),
+    }
+    _per_case(add, f, data, per_case)
+    for i, c in enumerate(x for x in data if x["op"] == "concat_ws"):
+        cols = [(f"c{j}", "string", [v]) for j, v in enumerate(c["parts"])]
+        add(f, "concat_ws", f"concat_ws#{i}", cols,
+            lambda m, _c, x=c: m.F.concat_ws(
+                x["sep"], *[m.F.col(f"c{j}") for j in range(len(x["parts"]))]),
+            [c["expected"]])
+
+    # datetime patterns
+    f = "golden_datetime_fmt.json"
+    per_case = {
+        "date_format": ("timestamp", lambda m, c, x: m.F.date_format(c, x["fmt"]), ""),
+        "to_unix_timestamp": ("string", lambda m, c, x: m.F.unix_timestamp(c, x["fmt"]), ""),
+        "from_unixtime": ("long", lambda m, c, x: m.F.from_unixtime(c, x["fmt"]), ""),
+        "to_date_fmt": ("string", lambda m, c, x: m.F.to_date(c, x["fmt"]), "days"),
+    }
+    _per_case(add, f, _load_golden(golden_dir, f), per_case, prefix="fmt.")
+
+    # arithmetic
+    f = "golden_arith.json"
+    ops = {
+        "add_int": ("int", lambda m, a, b: a + b),
+        "mul_int": ("int", lambda m, a, b: a * b),
+        "add_long": ("long", lambda m, a, b: a + b),
+        "mul_long": ("long", lambda m, a, b: a * b),
+        "div_int": ("int", lambda m, a, b: m.F.expr_col(m.ar.IntegralDivide(a.expr, b.expr))),
+        "remainder_int": ("int", lambda m, a, b: a % b),
+        "pmod_int": ("int", lambda m, a, b: m.F.pmod(a, b)),
+    }
+    counts: dict = {}
+    for c in _load_golden(golden_dir, f):
+        typ, mk = ops[c["op"]]
+        i = counts[c["op"]] = counts.get(c["op"], -1) + 1
+        add(f, c["op"], f"{c['op']}#{i}", [("a", typ, [c["a"]]), ("b", typ, [c["b"]])],
+            lambda m, _c, mk=mk: mk(m, m.F.col("a"), m.F.col("b")), [c["expected"]])
+    return out
+
+
+def _golden_type_of(m, name: str):
+    return {
+        "int": m.T.INT, "long": m.T.LONG, "double": m.T.DOUBLE, "float": m.T.FLOAT,
+        "boolean": m.T.BOOLEAN, "string": m.T.STRING, "date": m.T.DATE,
+        "timestamp": m.T.TIMESTAMP, "byte": m.T.BYTE, "short": m.T.SHORT,
+    }[name]
+
+
+def _per_case(add, file, data, per_case, prefix=""):
+    for op, (typ, build, out_kind) in per_case.items():
+        for i, c in enumerate(x for x in data if x["op"] == op):
+            add(file, op, f"{prefix}{op}#{i}", [("c", typ, [c["input"]])],
+                lambda m, col_, b=build, x=c: b(m, col_, x), [c["expected"]], out_kind)
+
+
+def golden_modules():
+    """The port's ``functions``, ``types`` and ``expr.arithmetic`` modules,
+    as :class:`GoldenCase` builders take them (``m.F``, ``m.T``, ``m.ar``)."""
+    import types as _types
+
+    from . import functions as F
+    from . import types as T
+    from .expr import arithmetic as ar
+
+    return _types.SimpleNamespace(F=F, T=T, ar=ar)
+
+
+def golden_dataframe(session, case: GoldenCase, mods=None):
+    """The case's query on a port session (not yet collected)."""
+    mods = mods or golden_modules()
+    df = session.create_dataframe(golden_batch(case.columns))
+    return df.select(case.build(mods, mods.F.col(case.columns[0][0])).alias("r"))
+
+
+def golden_result(case: GoldenCase, values: list) -> list:
+    """Result values as the fixtures write them."""
+    if case.out == "days":
+        import datetime as _dt
+
+        epoch = _dt.date(1970, 1, 1)
+        return [None if v is None else (v - epoch).days for v in values]
+    return list(values)
+
+
+def golden_values_equal(got: list, expected: list) -> tuple:
+    """``tests/test_golden.py``'s check: floats equal or within rel 1e-13,
+    NaN equal to NaN, everything else exact. Returns ``(ok, message)``."""
+    if len(got) != len(expected):
+        return False, f"{len(got)} rows, the fixture has {len(expected)}"
+    for i, (g, e) in enumerate(zip(got, expected)):
+        if isinstance(e, float) and isinstance(g, float):
+            ok = math.isnan(g) if math.isnan(e) else (g == e or math.isclose(g, e, rel_tol=1e-13))
+        else:
+            ok = g == e
+        if not ok:
+            return False, f"row {i}: got {g!r}, want {e!r}"
+    return True, ""
+
+
+def run_golden_case(session, case: GoldenCase) -> tuple:
+    """Run ``case`` on ``session``: ``(ok, message)`` against its fixtures."""
+    from .columnar.host import to_pylist
+
+    got = golden_dataframe(session, case).to_host()
+    return golden_values_equal(golden_result(case, to_pylist(got.columns[0])), case.expected)
+
+
+# ── golden_queries.json: whole queries from SQL text ────────────────────────
+
+
+def golden_query_tables(fx: dict) -> dict:
+    """name → ``HostBatch`` of a query fixture's tables."""
+    out = {}
+    for tname, t in fx["tables"].items():
+        cols = list(zip(*t["rows"])) if t["rows"] else [[] for _ in t["schema"]]
+        out[tname] = golden_batch(
+            [(cname, ctype, list(vals)) for (cname, ctype), vals in zip(t["schema"], cols)]
+        )
+    return out
+
+
+def _query_sortkey(row):
+    def k(v):
+        if isinstance(v, float):
+            if math.isnan(v):
+                return (2, "nan")
+            return (1, f"{v:.6g}")
+        return (0 if v is None else 1, repr(v))
+
+    return tuple(k(v) for v in row)
+
+
+def golden_query_equal(fx: dict, rows) -> tuple:
+    """``tests/test_golden_queries.py``'s check: rows sorted unless the
+    fixture is ordered, floats within rel 1e-9, everything else exact."""
+    got = [list(r) for r in rows]
+    exp = [list(r) for r in fx["expected"]]
+    if not fx.get("ordered"):
+        got.sort(key=_query_sortkey)
+        exp.sort(key=_query_sortkey)
+    if len(got) != len(exp):
+        return False, f"{len(got)} rows, want {len(exp)}: {got} vs {exp}"
+    for i, (g, e) in enumerate(zip(got, exp)):
+        if len(g) != len(e):
+            return False, f"row {i}: width {len(g)} vs {len(e)}"
+        for j, (gv, ev) in enumerate(zip(g, e)):
+            if isinstance(ev, float) and isinstance(gv, float):
+                ok = gv == ev or (math.isfinite(ev) and abs(gv - ev) <= 1e-9 * max(abs(ev), 1.0))
+            else:
+                ok = gv == ev
+            if not ok:
+                return False, f"row {i} col {j}: {gv!r} want {ev!r}"
+    return True, ""
+
+
+def run_golden_query(session, fx: dict) -> tuple:
+    """Register the fixture's tables as temp views on ``session``, run its SQL
+    text, and compare: ``(ok, message)``."""
+    for name, batch in golden_query_tables(fx).items():
+        session.create_dataframe(batch).create_or_replace_temp_view(name)
+    return golden_query_equal(fx, session.sql(fx["sql"]).collect())
+
+
+# ── column by column: a device result held to the CPU engine's ──────────────
+
+
+def columns_equal(ref, got) -> tuple:
+    """Two ``HostBatch``es equal column by column, in row order: validity
+    exact, the values of valid rows exact (strings byte for byte), floats
+    within the harness tolerance (rel 1e-9 / abs 1e-11, NaN equal to NaN).
+    Returns ``(ok, message)``."""
+    from .types import FractionalType, DecimalType, StringType
+
+    if ref.num_rows != got.num_rows:
+        return False, f"{ref.num_rows} vs {got.num_rows} rows"
+    for f, a, b in zip(ref.schema, ref.columns, got.columns):
+        name = f.name
+        if not np.array_equal(a.validity, b.validity):
+            i = int(np.flatnonzero(a.validity != b.validity)[0])
+            return False, f"{name}: validity differs first at row {i}"
+        v = a.validity
+        if isinstance(f.data_type, StringType):
+            la, lb = np.diff(a.offsets), np.diff(b.offsets)
+            la, lb = np.where(v, la, 0), np.where(v, lb, 0)
+            if not np.array_equal(la, lb):
+                i = int(np.flatnonzero(la != lb)[0])
+                return False, f"{name}: byte lengths differ first at row {i}"
+            ka, kb = np.repeat(v, np.diff(a.offsets)), np.repeat(v, np.diff(b.offsets))
+            if not np.array_equal(a.data[ka], b.data[kb]):
+                return False, f"{name}: string bytes differ"
+            continue
+        x, y = a.data[v], b.data[v]
+        if isinstance(f.data_type, FractionalType) and not isinstance(f.data_type, DecimalType):
+            nan = np.isnan(x)
+            ok = (nan == np.isnan(y)) & (
+                nan | (x == y) | (np.abs(x - y) <= np.maximum(1e-9 * np.abs(x), 1e-11))
+            )
+        else:
+            ok = x == y
+        if not ok.all():
+            i = int(np.flatnonzero(v)[np.flatnonzero(~ok)[0]])
+            return False, f"{name}: row {i}: {a.data[i]!r} vs {b.data[i]!r}"
+    return True, ""

@@ -4,17 +4,21 @@ the device (``Ctx.xp``).
 The JAX package evaluates one expression library over two array modules,
 ``numpy`` on the CPU engine and ``jax.numpy`` on the device
 (``spark_rapids_tpu/expr/base.py``). The port keeps that shape: the CPU
-engine still passes ``numpy``, and device operators pass the
+engine passes :data:`NUMPY` (numpy), and device operators pass the
 ``TorchNamespace`` of the batch's device, which gives the numpy names the
 expressions call (``asarray``, ``where``, ``arange``, ``astype``,
-``take_along_axis``, ``pad``, …) over torch tensors.
+``take_along_axis``, ``pad``, the math functions, reductions and scans, …)
+over torch tensors, with numpy's semantics where torch's differ (python
+floats are float64, ``sign(nan)`` is NaN, ``max`` returns values only).
 
 Arrays it creates live on its device. Dtypes may be given as numpy dtypes,
 python types or torch dtypes; ``astype`` is a function because tensors have
-no ``.astype`` (numpy 2 has ``np.astype`` too, so shared code calls
-``xp.astype(x, t)``).
+no ``.astype``, so shared code calls ``xp.astype(x, t)`` (``NUMPY.astype``
+also takes numpy scalars, which numpy 2's ``np.astype`` refuses).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -73,13 +77,13 @@ class TorchNamespace:
         if isinstance(x, torch.Tensor):
             x = x.to(self.device)
             return x if td is None else x.to(td)
-        if isinstance(x, (np.ndarray, np.generic)):
-            a = np.asarray(x)  # keeps 0-d scalars 0-d
-            if not (a.flags.c_contiguous and a.flags.writeable):
-                a = a.copy()
-            t = torch.as_tensor(a)
-            return t.to(device=self.device, dtype=td or t.dtype)
-        return torch.as_tensor(x, dtype=td, device=self.device)
+        # python numbers and lists take numpy's types (a float is float64,
+        # not torch's default float32), as the JAX package's x64 mode does
+        a = np.asarray(x)  # keeps 0-d scalars 0-d
+        if not (a.flags.c_contiguous and a.flags.writeable):
+            a = a.copy()
+        t = torch.as_tensor(a)
+        return t.to(device=self.device, dtype=td or t.dtype)
 
     def astype(self, x, dtype):
         return self.asarray(x).to(torch_dtype(dtype))
@@ -87,11 +91,18 @@ class TorchNamespace:
     def zeros(self, shape, dtype=float):
         return torch.zeros(shape, dtype=torch_dtype(dtype), device=self.device)
 
+    def full(self, shape, fill, dtype=None):
+        td = None if dtype is None else torch_dtype(dtype)
+        if isinstance(shape, int):
+            shape = (shape,)
+        return torch.full(tuple(shape), _pyscalar(fill), dtype=td, device=self.device)
+
     def ones(self, shape, dtype=float):
         return torch.ones(shape, dtype=torch_dtype(dtype), device=self.device)
 
-    def ones_like(self, x):
-        return torch.ones_like(self.asarray(x))
+    def ones_like(self, x, dtype=None):
+        td = None if dtype is None else torch_dtype(dtype)
+        return torch.ones_like(self.asarray(x), dtype=td)
 
     def arange(self, *args, dtype=None):
         td = torch.int64 if dtype is None else torch_dtype(dtype)
@@ -100,6 +111,13 @@ class TorchNamespace:
     # ── shape ───────────────────────────────────────────────────────────
     def concatenate(self, arrays, axis=0):
         return torch.cat([self.asarray(a) for a in arrays], dim=axis)
+
+    def stack(self, arrays, axis=0):
+        return torch.stack([self.asarray(a) for a in arrays], dim=axis)
+
+    def flip(self, x, axis):
+        """numpy's ``flip`` (torch has no negative-step slices)."""
+        return torch.flip(self.asarray(x), dims=(axis,))
 
     def broadcast_to(self, x, shape):
         return torch.broadcast_to(self.asarray(x), shape)
@@ -115,10 +133,49 @@ class TorchNamespace:
     # ── elementwise ─────────────────────────────────────────────────────
     def where(self, cond, a, b):
         a, b = _pyscalar(a), _pyscalar(b)
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            a = self.asarray(a)  # two python numbers: numpy's result type
         return torch.where(self.asarray(cond), a, b)
 
     def isnan(self, x):
         return torch.isnan(self.asarray(x))
+
+    def isinf(self, x):
+        return torch.isinf(self.asarray(x))
+
+    def fmod(self, a, b):
+        """C's ``fmod``: the sign of the dividend (Java's ``%`` on floats)."""
+        return torch.fmod(self.asarray(a), _tensor_or_scalar(self, b))
+
+    def power(self, a, b):
+        return torch.pow(self.asarray(a), _tensor_or_scalar(self, b))
+
+    def hypot(self, a, b):
+        a = self.asarray(a)
+        return torch.hypot(a, self.asarray(b, dtype=a.dtype))
+
+    def arctan2(self, a, b):
+        a = self.asarray(a)
+        return torch.atan2(a, self.asarray(b, dtype=a.dtype))
+
+    def cbrt(self, x):
+        """The real cube root: ``|x|^(1/3)`` with the sign of ``x``, then one
+        Newton step, which lands on numpy's ``cbrt`` (exact on cubes)."""
+        x = self.asarray(x)
+        y = torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+        ok = torch.isfinite(y) & (y != 0)
+        y2 = torch.where(ok, y, torch.ones_like(y))
+        return torch.where(ok, y2 - (y2 * y2 * y2 - x) / (3.0 * y2 * y2), y)
+
+    def rint(self, x):
+        """Half to even, as numpy's ``rint``."""
+        return torch.round(self.asarray(x))
+
+    def degrees(self, x):
+        return self.asarray(x) * (180.0 / math.pi)
+
+    def radians(self, x):
+        return self.asarray(x) * (math.pi / 180.0)
 
     def maximum(self, a, b):
         return torch.maximum(self.asarray(a), self.asarray(b))
@@ -140,7 +197,11 @@ class TorchNamespace:
         return torch.abs(self.asarray(x))
 
     def sign(self, x):
-        return torch.sign(self.asarray(x))
+        """numpy's ``sign``: NaN stays NaN (torch's gives 0)."""
+        x = self.asarray(x)
+        if x.is_floating_point():
+            return torch.where(torch.isnan(x), x, torch.sign(x))
+        return torch.sign(x)
 
     def sqrt(self, x):
         return torch.sqrt(self.asarray(x))
@@ -148,8 +209,9 @@ class TorchNamespace:
     def isfinite(self, x):
         return torch.isfinite(self.asarray(x))
 
-    def zeros_like(self, x):
-        return torch.zeros_like(self.asarray(x))
+    def zeros_like(self, x, dtype=None):
+        td = None if dtype is None else torch_dtype(dtype)
+        return torch.zeros_like(self.asarray(x), dtype=td)
 
     def full_like(self, x, fill):
         return torch.full_like(self.asarray(x), _pyscalar(fill))
@@ -167,6 +229,25 @@ class TorchNamespace:
         return torch.div(self.asarray(a), _pyscalar(b), rounding_mode="floor")
 
     # ── reductions and scans ────────────────────────────────────────────
+    def max(self, x, axis=None):
+        """numpy's ``max`` reduction (the values only)."""
+        x = self.asarray(x)
+        return torch.amax(x) if axis is None else torch.amax(x, dim=axis)
+
+    def min(self, x, axis=None):
+        """numpy's ``min`` reduction (the values only)."""
+        x = self.asarray(x)
+        return torch.amin(x) if axis is None else torch.amin(x, dim=axis)
+
+    def cummax(self, x, axis):
+        return torch.cummax(self.asarray(x), dim=axis).values
+
+    def cummin(self, x, axis):
+        return torch.cummin(self.asarray(x), dim=axis).values
+
+    def cumprod(self, x, axis):
+        return torch.cumprod(self.asarray(x), dim=axis)
+
     def cumsum(self, x, axis=None):
         if axis is None:
             return torch.cumsum(x.reshape(-1), 0)
@@ -194,8 +275,63 @@ class TorchNamespace:
         return torch.searchsorted(a, v.contiguous(), right=side == "right")
 
     # ── gathers ─────────────────────────────────────────────────────────
+    def take(self, a, idx):
+        """numpy's ``take`` of a 1-d ``a`` (indexes in range)."""
+        return self.asarray(a)[self.asarray(idx).to(torch.int64)]
+
     def take_along_axis(self, x, idx, axis):
         return torch.take_along_dim(x, idx.to(torch.int64), dim=axis)
+
+
+def _unary(fn):
+    def op(self, x):
+        return fn(self.asarray(x))
+
+    op.__name__ = fn.__name__
+    return op
+
+
+# numpy-named unary math, each the torch function of the same semantics
+for _name, _fn in {
+    "ceil": torch.ceil, "exp": torch.exp, "expm1": torch.expm1, "log": torch.log,
+    "log10": torch.log10, "log1p": torch.log1p, "log2": torch.log2, "sin": torch.sin,
+    "cos": torch.cos, "tan": torch.tan, "arcsin": torch.asin, "arccos": torch.acos,
+    "arctan": torch.atan, "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+}.items():
+    setattr(TorchNamespace, _name, _unary(_fn))
+
+
+def _tensor_or_scalar(ns, v):
+    return v if isinstance(v, (int, float)) else ns.asarray(_pyscalar(v))
+
+
+class NumpyNamespace:
+    """numpy, as the CPU engine's ``Ctx.xp``: every name is numpy's, but
+    ``astype`` also takes the numpy scalars literals evaluate to (numpy 2's
+    ``np.astype`` takes arrays only), so shared code can call
+    ``xp.astype(x, t)`` on either engine."""
+
+    def __getattr__(self, name):
+        value = getattr(np, name)
+        setattr(self, name, value)
+        return value
+
+    def __repr__(self):
+        return "NumpyNamespace()"
+
+    @staticmethod
+    def astype(x, dtype):
+        return np.asarray(x).astype(dtype)
+
+
+#: the CPU engine's namespace
+NUMPY = NumpyNamespace()
+
+
+def is_torch(xp) -> bool:
+    """True for a torch namespace (or the ``torch`` module), False for
+    numpy (the module or :data:`NUMPY`)."""
+    return not (xp is np or isinstance(xp, NumpyNamespace))
 
 
 _SPACES: dict = {}

@@ -5,9 +5,12 @@ from 4 input partitions at 8 shuffle partitions (through the device
 exchange and the upload cache); TPC-H queries with top-N and ``Like`` on
 the card against the CPU engine, and the byte-NFA and the radix select on
 a CUDA tensor against the same functions on the CPU; the window operator and
-the nested-loop and cartesian joins on the card against the CPU engine, and
-TPC-DS q2, q47, q64, q67 and q95 from SQL text at SF 0.01. Each test decides
-in its body whether a card is present and skips where none is.
+the nested-loop and cartesian joins on the card against the CPU engine,
+TPC-DS q2, q47, q64, q67 and q95 from SQL text at SF 0.01; the golden
+corpus, the expression families at SF 0.01, ``locate``,
+``substring_index`` and ``replace`` over the kernel, and the ANSI error
+channel on the card. Each test decides in its body whether a card is
+present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only the port: ``python -m pytest --noconftest -m gpu
@@ -247,3 +250,116 @@ def test_tpcds_query_on_gpu_matches_cpu_engine(q):
     register_tables(cpu, 0.01)
     ok, msg = tpcds_check(tpcds_sql(q), df, cpu.sql(tpcds_sql(q)).collect(), got)
     assert ok, msg
+
+
+@pytest.mark.gpu
+def test_golden_corpus_on_gpu():
+    """The golden corpus on the card: every expression fixture but
+    ``split_at`` equal to its literal through ``TorchSession(device=None)``
+    in test mode (only the fixtures the JAX package keeps off the device
+    may stay off), and the 48 query fixtures from SQL text."""
+    _need_gpu()
+    import json
+    import os
+
+    from spark_rapids_tpu_torch import testing as TT
+
+    golden = os.path.join(os.path.dirname(__file__), "golden")
+    bad = []
+    for case in TT.golden_cases(golden):
+        conf = dict(TT.GOLDEN_CONF)
+        if case.label in TT.GOLDEN_OFF_DEVICE:
+            conf["spark.rapids.sql.test.allowedNonGpu"] = "CpuProject"
+        ok, msg = TT.run_golden_case(TorchSession(conf), case)
+        if not ok:
+            bad.append((case.label, msg))
+    with open(os.path.join(golden, "golden_queries.json")) as f:
+        for fx in json.load(f):
+            ok, msg = TT.run_golden_query(TorchSession(dict(TT.GOLDEN_QUERY_CONF)), fx)
+            if not ok:
+                bad.append((fx["name"], msg))
+    assert not bad, bad[:10]
+
+
+@pytest.fixture(scope="module")
+def expr_tables():
+    orders, lineitem = gen_orders_lineitem(0.01, 19980802)
+    return {"orders": orders, "lineitem": lineitem}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["expr_dates", "expr_casts", "expr_strings", "expr_math"])
+def test_expr_family_on_gpu_matches_cpu_engine(family, expr_tables):
+    """The expression families at SF 0.01 on the card, nothing off the
+    device but the scans, each column equal to the CPU engine's."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.testing import columns_equal
+    from spark_rapids_tpu_torch.tpch.expr_queries import EXPR_CONF, EXPR_QUERIES
+
+    fn, _ = EXPR_QUERIES[family]
+    gpu = TorchSession({**EXPR_CONF, "spark.rapids.sql.test.enabled": True}, device="cuda")
+    cpu = TorchSession({**EXPR_CONF, "spark.rapids.sql.enabled": False}, device="cpu")
+    got = fn(lambda n: gpu.create_dataframe(expr_tables[n])).to_host()
+    ok, msg = columns_equal(fn(lambda n: cpu.create_dataframe(expr_tables[n])).to_host(), got)
+    assert ok, f"{family}: {msg}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("consumer", ["locate", "substring_index", "replace"])
+def test_match_starts_consumers_on_gpu(consumer, expr_tables, monkeypatch):
+    """``locate``, ``substring_index`` and ``replace`` on the card launch
+    ``match_starts`` (counted under their own name) and equal the CPU
+    engine; the kernel equals ``match_starts_plain`` bit for bit on the
+    planes those expressions hand it."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.functions import col
+
+    build = {
+        "locate": lambda c: F.locate("special", c, 3),
+        "substring_index": lambda c: F.substring_index(c, " ", -2),
+        "replace": lambda c: F.replace(c, "special", "X"),
+    }[consumer]
+    seen = []
+    real = SK.match_starts
+
+    def record(data, lengths, pat, consumer="direct"):
+        seen.append((data, lengths, pat, consumer))
+        return real(data, lengths, pat, consumer)
+
+    monkeypatch.setattr(SK, "match_starts", record)
+    before = dict(SK.LAUNCHES_BY_CONSUMER)
+    gpu = TorchSession({"spark.rapids.sql.test.enabled": True}, device="cuda")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    q = lambda s: s.create_dataframe(expr_tables["orders"]).select(  # noqa: E731
+        build(col("o_comment")).alias("r"))
+    got = q(gpu).collect()
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES_BY_CONSUMER[consumer] - before.get(consumer, 0) >= 1
+    ok, msg = rows_equal(q(cpu).collect(), got)
+    assert ok, msg
+    for data, lengths, pat, who in seen:
+        assert who == consumer
+        assert torch.equal(real(data, lengths, pat), SK.match_starts_plain(data, lengths, pat))
+
+
+@pytest.mark.gpu
+def test_ansi_overflow_raises_on_gpu(expr_tables):
+    """An ANSI cast and an ANSI add that overflow in one row raise through
+    the device error channel on the card; one short of it, they equal the
+    non-ANSI rows."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.expr.base import AnsiError
+    from spark_rapids_tpu_torch.testing import columns_equal
+    from spark_rapids_tpu_torch.tpch.expr_queries import ansi_queries
+
+    li = expr_tables["lineitem"]
+    t = {"lineitem": li}
+    ansi = TorchSession({"spark.sql.ansi.enabled": True, "spark.rapids.sql.test.enabled": True})
+    plain = TorchSession({"spark.rapids.sql.test.enabled": True})
+    for name, fn in ansi_queries(li, True).items():
+        with pytest.raises(AnsiError):
+            fn(lambda n: ansi.create_dataframe(t[n])).to_host()
+    for name, fn in ansi_queries(li, False).items():
+        ok, msg = columns_equal(fn(lambda n: plain.create_dataframe(t[n])).to_host(),
+                                fn(lambda n: ansi.create_dataframe(t[n])).to_host())
+        assert ok, f"{name}: {msg}"

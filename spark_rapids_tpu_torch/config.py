@@ -4,7 +4,7 @@ port reads.
 Cut from ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder, the
 same key names and defaults, and ``TpuConf`` unchanged, so the reference's
 test confs apply as they are. A key the port does not read (the JAX
-package's serving, caching, fault-injection, Pallas and scheduling keys) is
+package's serving, caching, transport faults, Pallas and scheduling keys) is
 not defined here: ``TpuConf`` keeps it as an unknown setting that nothing
 reads. Every operator/expression rule also gets a kill switch
 (``spark.rapids.sql.exec.*`` / ``spark.rapids.sql.expression.*``), read
@@ -188,6 +188,105 @@ SHUFFLE_MANAGER_ENABLED = conf("spark.rapids.shuffle.manager.enabled").doc(
     "in-process default path (reference: RapidsShuffleManager)."
 ).boolean_conf(False)
 
+
+# ── memory and resilience (mem/, resilience/) ───────────────────────────────
+
+TASK_MAX_FAILURES = conf("spark.task.maxFailures").doc(
+    "Task-retry budget (Spark's key): a failed partition task re-runs from "
+    "its lineage up to this many total attempts before the query fails. "
+    "Deterministic semantic errors (ANSI arithmetic/cast errors, "
+    "assertions) are never retried."
+).int_conf(4)
+
+CONCURRENT_TPU_TASKS = conf("spark.rapids.sql.concurrentGpuTasks").doc(
+    "Number of concurrent tasks that may hold the device at once — admission "
+    "control via the device semaphore (reference: GpuSemaphore.scala)."
+).int_conf(4)
+
+MEMORY_DEBUG = conf("spark.rapids.memory.tpu.debug").doc(
+    "Debug-allocator mode (the reference's spark.rapids.memory.gpu.debug + "
+    "ai.rapids.refcount.debug): the spill catalog records the registration "
+    "site of every spillable buffer, logs tier transitions, and reports any "
+    "buffer still registered at query end as a LEAK with its origin."
+).boolean_conf(False)
+
+HOST_SPILL_STORAGE_SIZE = conf("spark.rapids.memory.host.spillStorageSize").doc(
+    "Amount of host memory to use for spilled device buffers before "
+    "overflowing to disk."
+).bytes_conf(1 << 31)
+
+SPILL_DIR = conf("spark.rapids.memory.spillDir").doc(
+    "Directory for the disk spill tier."
+).string_conf(None)
+
+RETRY_OOM_MAX_RETRIES = conf("spark.rapids.tpu.retry.oom.maxRetries").doc(
+    "Spill-and-retry attempts per device launch on a device OOM before the "
+    "retry state machine starts splitting the input batch (reference: "
+    "DeviceMemoryEventHandler.scala:42-69 spill-retry loop)."
+).int_conf(2)
+
+RETRY_OOM_SPLIT_ENABLED = conf("spark.rapids.tpu.retry.oom.splitEnabled").doc(
+    "After the spill-retry budget is exhausted, recursively halve the "
+    "input batch of splittable operators (project/filter, partial "
+    "aggregate update, join probe) and retry each half — the "
+    "split-and-retry escalation for work that genuinely does not fit."
+).boolean_conf(True)
+
+RETRY_OOM_MIN_SPLIT_ROWS = conf("spark.rapids.tpu.retry.oom.minSplitRows").doc(
+    "Floor on the batch capacity the OOM retry state machine will split "
+    "down to; a batch at or below this capacity that still OOMs fails "
+    "the task."
+).int_conf(1024)
+
+CIRCUIT_BREAKER_ENABLED = conf("spark.rapids.tpu.retry.circuitBreaker.enabled").doc(
+    "When a device operator for an op signature fails repeatedly with "
+    "non-OOM device errors, mark that op CPU-fallback for the session and "
+    "log the reason in the explain output (the per-node fallback contract "
+    "extended to runtime failures)."
+).boolean_conf(True)
+
+CIRCUIT_BREAKER_THRESHOLD = conf("spark.rapids.tpu.retry.circuitBreaker.threshold").doc(
+    "Device-operator failures for one op signature that trip its circuit "
+    "breaker."
+).int_conf(3)
+
+FAULTS_ENABLED = conf("spark.rapids.tpu.faults.enabled").doc(
+    "Master switch for the deterministic fault-injection harness; all "
+    "spark.rapids.tpu.faults.* points are inert unless enabled. Drives "
+    "the chaos tests — never enable in production."
+).boolean_conf(False)
+
+FAULTS_DEVICE_OOM_EVERY_N = conf("spark.rapids.tpu.faults.deviceOomEveryN").doc(
+    "Raise a synthetic device OOM on every Nth device launch under an "
+    "OOM-recovery scope (with_oom_retry / the retry state machine) — each "
+    "injection deterministically exercises the spill/split recovery; 0 "
+    "disables."
+).int_conf(0)
+
+FAULTS_OOM_ABOVE_BYTES = conf("spark.rapids.tpu.faults.oomAboveBytes").doc(
+    "Raise a synthetic device OOM whenever a splittable operator launches a "
+    "batch larger than this many bytes — the deterministic driver for "
+    "demonstrating recursive split-and-retry; 0 disables."
+).bytes_conf(0)
+
+FAULTS_KERNEL_ERROR_EVERY_N = conf("spark.rapids.tpu.faults.kernelErrorEveryN").doc(
+    "Raise a synthetic non-OOM device error on every Nth splittable-operator "
+    "launch (drives the circuit breaker); 0 disables."
+).int_conf(0)
+
+FAULTS_SPILL_WRITE_ERROR_EVERY_N = conf(
+    "spark.rapids.tpu.faults.spill.writeErrorEveryN"
+).doc(
+    "Fail every Nth disk-tier spill write with an IO error (the buffer "
+    "stays at the host tier); 0 disables."
+).int_conf(0)
+
+FAULTS_SPILL_READ_ERROR_EVERY_N = conf(
+    "spark.rapids.tpu.faults.spill.readErrorEveryN"
+).doc(
+    "Fail every Nth disk-tier re-materialization read with an IO error "
+    "(surfaces as a catalog SpillError naming the buffer); 0 disables."
+).int_conf(0)
 
 class TpuConf:
     """An immutable-ish view over a key→string dict, with typed access.

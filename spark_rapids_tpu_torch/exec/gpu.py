@@ -13,10 +13,23 @@ select's candidate prefilter) and ``GpuExpandExec``.
 
 Eager torch runs each operator's expression tree as it comes — there is no
 per-shape program to compile — so the JAX package's kernel cache, compile
-guards, OOM retry, ledger and pipelining have no counterpart here yet. The
-expression library evaluates against the batch's torch namespace
-(``xp.py``), and string search runs the hand-written kernel of
-``ops/strings_kernels.py``.
+guards, ledger and pipelining have no counterpart here yet. The expression
+library evaluates against the batch's torch namespace (``xp.py``), and
+string search runs the hand-written kernel of ``ops/strings_kernels.py``.
+
+Every operator runs inside the context's memory and resilience runtime at
+the places the JAX package's do: the upload takes the device semaphore and
+the download releases it behind ``with_oom_retry``; project and filter go
+through ``task.run_device`` (spill, retry, split); the aggregate's update
+splits and its merge and final spill-retry; the out-of-core sort parks its
+runs in the spill catalog and merges them pairwise with both operands
+pinned; every exchange bucketing step runs behind ``with_oom_retry``; Expand
+checks the cancel token once per batch. Two places go further than the JAX
+package, because the card's real OOMs land there (``PERF.md`` §6):
+the exchange registers the slices it holds for its readers in the catalog,
+so a spill anywhere can move the partitions nobody reads yet off the card,
+and the out-of-core sort's last merge splits by key rank when even a spill
+leaves it short.
 
 The upload cache hands the same device tensors to every later query over
 the same table, so no operator here writes into a tensor of a batch it did
@@ -67,7 +80,9 @@ from ..plan.partitioning import (
 )
 from ..plan.physical import Exec, ExecContext, PartitionSet
 from ..types import Schema, StringType, StructField
+from ..resilience import retry as R
 from ..xp import torch_dtype
+from . import task
 
 
 def val_to_column(ctx: Ctx, val: Val, dtype) -> DeviceColumn:
@@ -161,12 +176,16 @@ class HostToDeviceExec(Exec):
         metrics = ctx.metrics
 
         def fn(it):
+            tok = ctx.cancel_token
             for rb in it:
                 if rb.num_rows == 0:
                     continue
                 metrics["hostToDeviceBytes"] += rb.nbytes
                 for off in range(0, rb.num_rows, max_rows):
+                    if tok is not None:
+                        tok.check()  # a beat per uploaded chunk
                     chunk = rb if rb.num_rows <= max_rows else rb.slice(off, max_rows)
+                    ctx.semaphore.acquire_if_necessary()
                     yield host_to_device(chunk, device, max_str_bytes=max_str)
 
         child = self.children[0]
@@ -188,7 +207,12 @@ class HostToDeviceExec(Exec):
                         if builder:
                             ev = entry["building"][p] = threading.Event()
                     if built is not None:
-                        yield from built
+                        tok = ctx.cancel_token
+                        for db in built:
+                            if tok is not None:
+                                tok.check()
+                            ctx.semaphore.acquire_if_necessary()
+                            yield db
                         return
                     if builder:
                         try:
@@ -249,9 +273,16 @@ class DeviceToHostExec(Exec):
         return self.children[0].output
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
+        from ..mem.spill import with_oom_retry
+
         def fn(it):
+            tok = ctx.cancel_token
             for db in it:
-                hb = device_to_host(db)
+                if tok is not None:
+                    tok.check()
+                hb = with_oom_retry(ctx.catalog, device_to_host, db)
+                del db
+                ctx.semaphore.release_if_necessary()
                 if hb.num_rows:
                     yield hb
 
@@ -296,7 +327,10 @@ class GpuCoalesceBatchesExec(Exec):
         def fn(it):
             acc: list = []
             acc_bytes = 0
+            tok = ctx.cancel_token
             for db in it:
+                if tok is not None:
+                    tok.check()
                 sz = db.size_bytes()
                 if goal.target_bytes >= 0 and acc and acc_bytes + sz > goal.target_bytes:
                     yield concat_device(acc)
@@ -349,27 +383,6 @@ def raise_errors(c: Ctx, live) -> None:
     flags = torch.stack([(mask & live).any() for _, mask in c.errors]).cpu()
     if bool(flags.any()):
         raise AnsiError(c.errors[int(torch.argmax(flags.to(torch.uint8)))][0])
-
-
-def run_batches(fn, it, needs_task: bool):
-    """Drive ``fn(batch, task_vals)`` over device batches (the JAX package's
-    ``task.run_device``). Task values are sampled only where the
-    expressions read them; the running row base of
-    ``monotonically_increasing_id`` stays a device scalar, so no batch pays
-    a sync for it."""
-    from ..xp import namespace
-    from . import task
-
-    if not needs_task:
-        for db in it:
-            yield fn(db, None)
-        return
-    base = None
-    for db in it:
-        tv = task.task_vals(namespace(db.device), row_base=base)
-        out = fn(db, tv)
-        base = tv.row_base + db.num_rows.to(torch.int64)
-        yield out
 
 
 def project_fn(exprs: tuple, schema: Schema):
@@ -431,9 +444,16 @@ class GpuProjectExec(Exec):
     def execute(self, ctx: ExecContext) -> PartitionSet:
         fn = project_fn(tuple(self.exprs), self._schema)
         needs_task = any(contains_task_dependent(e) for e in self.exprs)
-        return self.children[0].execute(ctx).map_partitions(
-            lambda it: run_batches(fn, it, needs_task)
-        )
+
+        def run(it):
+            # splittable-operator opt-in: OOM at a launch spills, retries,
+            # then recursively halves the batch (resilience/retry.py)
+            return task.run_device(
+                fn, it, needs_task, catalog=ctx.catalog, policy=ctx.retry_policy,
+                op="ProjectExec", breaker=ctx.breaker, token=ctx.cancel_token,
+            )
+
+        return self.children[0].execute(ctx).map_partitions(run)
 
     def node_string(self):
         return f"GpuProject [{', '.join(map(str, self.exprs))}]"
@@ -455,9 +475,16 @@ class GpuFilterExec(Exec):
     def execute(self, ctx: ExecContext) -> PartitionSet:
         fn = filter_fn(self.condition)
         needs_task = contains_task_dependent(self.condition)
-        return self.children[0].execute(ctx).map_partitions(
-            lambda it: run_batches(fn, it, needs_task)
-        )
+
+        def run(it):
+            # splittable: a filter over concat(a, b) is concat(filter(a),
+            # filter(b)) — halves yield independently under OOM pressure
+            return task.run_device(
+                fn, it, needs_task, catalog=ctx.catalog, policy=ctx.retry_policy,
+                op="FilterExec", breaker=ctx.breaker, token=ctx.cancel_token,
+            )
+
+        return self.children[0].execute(ctx).map_partitions(run)
 
     def node_string(self):
         return f"GpuFilter {self.condition}"
@@ -598,8 +625,12 @@ class GpuHashAggregateExec(Exec):
 
     The reference's hot loop (aggregate.scala:406-468): per-batch update
     aggregate → concat partials → merge aggregate. Update and merge are the
-    same group aggregate with different reduce ops. The JAX package's OOM
-    retry has no counterpart yet (ROADMAP Queue A item 11)."""
+    same group aggregate with different reduce ops. OOM handling follows the
+    JAX package's split rules: the update is splittable (partials of two
+    halves merge downstream like two input batches), so it rides
+    ``run_with_retry``; the merge and the final merge+evaluate are not
+    (merging halves apart would emit a key twice), so they spill-retry
+    through ``run_once``."""
 
     def __init__(
         self,
@@ -677,21 +708,34 @@ class GpuHashAggregateExec(Exec):
         device = ctx.device
         target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
         pack_filter = None if pre_filter is None else filter_fn(pre_filter)
+        catalog, policy, breaker = ctx.catalog, ctx.retry_policy, ctx.breaker
+        op = "HashAggregateExec"
+
+        def once(f, arg):
+            return R.run_once(catalog, f, arg, policy, op=op, breaker=breaker)
 
         def run(it):
             if self.mode == "partial":
                 # per-batch update, then shrink + concat + merge of the
                 # partials (one row-count fetch for all of them)
-                partials = [fn(db) for db in it]
+                partials = []
+                for db in it:
+                    partials.extend(
+                        R.run_with_retry(catalog, fn, db, policy, op=op, breaker=breaker)
+                    )
+                    del db
                 if not partials:
                     if grouping:
                         return
-                    partials = [fn(empty_batch(child_schema, device))]
+                    partials = [once(fn, empty_batch(child_schema, device))]
                 if len(partials) == 1:
-                    yield partials[0]
+                    yield partials.pop()
                 else:
                     shrunk, counts = bulk_shrink(partials)
-                    yield merge(concat_device(shrunk, counts=counts))
+                    del partials
+                    out = once(lambda bs: merge(concat_device(bs, counts=counts)), shrunk)
+                    del shrunk  # the inputs free before the output moves on
+                    yield out
                 return
             # final/complete: one merge+evaluate over the whole partition.
             # Whenever the batches held since the last pack pass the batch-size
@@ -701,21 +745,29 @@ class GpuHashAggregateExec(Exec):
             # keeps its input's capacity, and a deep join's filtered output
             # would otherwise be held at full width. (The JAX package holds
             # the batches as they come.)
+            def pack(bs):
+                if pack_filter is not None:
+                    bs = [pack_filter(b) for b in bs]
+                return concat_device(bs, counts=row_counts(bs))
+
             batches, pending, held = [], [], 0
             for db in it:
                 pending.append(db)
                 held += db.size_bytes()
+                del db
                 if held > target and len(pending) > 1:
-                    if pack_filter is not None:
-                        pending = [pack_filter(b) for b in pending]
-                    batches.append(concat_device(pending, counts=row_counts(pending)))
+                    batches.append(once(pack, pending))
                     pending, held = [], 0
             batches += pending
+            del pending
             if not batches:
                 if grouping:
                     return
                 batches = [empty_batch(child_schema, device)]
-            yield fn(concat_device(batches))
+            # the concat is part of the retried work: an OOM there spills too
+            out = once(lambda bs: fn(concat_device(bs)), batches)
+            del batches  # the held input frees before the output moves on
+            yield out
 
         return child.execute(ctx).map_partitions(run)
 
@@ -765,6 +817,56 @@ def device_merge_fn(order: list):
     return _merge
 
 
+def _row_words(batch: DeviceBatch, order: list, i: int, widths: dict) -> list:
+    """The radix words of row ``i`` of ``batch`` as host ints (one sync),
+    its string planes first widened to ``widths`` (column -> width) so two
+    batches' rows give word lists of one length."""
+    from ..ops.concat import _pad_width
+
+    idx = torch.tensor([i], dtype=torch.int64, device=batch.device)
+    row = gather_batch(batch, idx, 1)
+    cols = [
+        dc_replace(c, data=_pad_width(c.data, widths[j])) if j in widths else c
+        for j, c in enumerate(row.columns)
+    ]
+    row = DeviceBatch(row.schema, cols, row.num_rows)
+    live = torch.ones(1, dtype=torch.bool, device=batch.device)
+    return torch.cat(_order_words(Ctx.for_device(row), order, live)).tolist()
+
+
+def _rank(batch: DeviceBatch, n: int, order: list, key: list, right: bool, widths: dict) -> int:
+    """Rows of the sorted ``batch`` (``n`` live) that sort before ``key``
+    (``right``: before or equal) — a host binary search over one row's words
+    at a time, so it needs no memory for the batch's words."""
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        w = _row_words(batch, order, mid, widths)
+        if w < key or (right and w == key):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _rows_view(batch: DeviceBatch, lo: int, hi: int) -> DeviceBatch:
+    """Rows ``[lo, hi)`` of ``batch`` as views, in a capacity of the next
+    power of two where the batch holds it (no copy)."""
+    end = min(batch.capacity, lo + bucket_capacity(max(hi - lo, 1)))
+    cols = [
+        DeviceColumn(
+            c.dtype,
+            c.data[lo:end],
+            c.validity[lo:end],
+            None if c.lengths is None else c.lengths[lo:end],
+        )
+        for c in batch.columns
+    ]
+    return DeviceBatch(
+        batch.schema, cols, torch.tensor(hi - lo, dtype=torch.int32, device=batch.device)
+    )
+
+
 class GpuSortExec(Exec):
     """Per-partition sort (GpuSortExec.scala:36-42,212-510), the port of the
     JAX package's ``TpuSortExec``:
@@ -772,11 +874,18 @@ class GpuSortExec(Exec):
     * single-batch: coalesce the partition into one batch and sort it;
     * out-of-core: once the partition's batches exceed
       ``spark.rapids.tpu.sort.outOfCoreThresholdBytes``, sort each incoming
-      batch into a run, then merge runs pairwise.
+      batch into a *run*, park runs in the spill catalog (device → host →
+      disk as memory demands), then merge runs pairwise with both operands
+      pinned — at most two runs are pinned on the device at once. Each sort
+      and merge makes headroom first and runs behind ``with_oom_retry``.
 
-    The port has no spill catalog yet (ROADMAP Queue A item 11), so the
-    runs stay on the device and the JAX package's ``ensure_headroom`` and
-    ``with_oom_retry`` around each sort and merge are left out."""
+    The last merge goes one step further than the JAX package's: when a
+    real OOM persists after the spills (both operands are pinned, so
+    nothing else is left to move), it splits the merge by key rank — the
+    middle row of the larger run, and its rank in the other found by a host
+    binary search over one row's words at a time — and merges the two
+    halves apart, recursively, yielding the sorted output as several
+    batches. Ties keep the stable merge's order (the first run wins)."""
 
     def __init__(self, order: list, child: Exec):
         super().__init__([child])
@@ -794,35 +903,119 @@ class GpuSortExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         from .. import config as cfg
+        from ..mem.spill import SpillPriorities, with_oom_retry
 
-        _sort = device_sort_fn(self.order)
-        _merge = device_merge_fn(self.order)
+        order = self.order
+        _sort = device_sort_fn(order)
+        _merge = device_merge_fn(order)
         threshold = cfg.OUT_OF_CORE_SORT_THRESHOLD.get(ctx.conf)
+        catalog = ctx.catalog
+        floor = max(2, ctx.retry_policy.min_split_rows)
+
+        def make_run(b):
+            """Sort one input batch into a spillable run."""
+            catalog.ensure_headroom(2 * b.size_bytes(), b.device)
+            return catalog.register(with_oom_retry(catalog, _sort, b), SpillPriorities.WORKING)
+
+        def merge_pair(a, b):
+            # pin the operands FIRST so the headroom pass (and any
+            # retry-spill) cannot evict what is being merged
+            ba, bb = a.get_batch(), b.get_batch()
+            catalog.ensure_headroom(2 * (a.size_bytes + b.size_bytes), ba.device)
+            return _merge(ba, bb)
+
+        def merge_split(ba, bb):
+            """The merge of two sorted batches as several batches, split by
+            key rank (class docstring)."""
+            na, nb = row_counts([ba, bb])
+            if max(na, nb) <= floor:
+                yield with_oom_retry(catalog, _merge, ba, bb)  # raises as it may
+                return
+            R.record("splits")
+            widths = {
+                j: max(ca.str_width, cb.str_width)
+                for j, (ca, cb) in enumerate(zip(ba.columns, bb.columns))
+                if ca.is_string
+            }
+            if na >= nb:
+                m = na // 2
+                key = _row_words(ba, order, m, widths)
+                k = _rank(bb, nb, order, key, False, widths)
+                cuts = ((0, m, 0, k), (m, na, k, nb))
+            else:
+                m = nb // 2
+                key = _row_words(bb, order, m, widths)
+                k = _rank(ba, na, order, key, True, widths)
+                cuts = ((0, k, 0, m), (k, na, m, nb))
+            for a0, a1, b0, b1 in cuts:
+                x, y = _rows_view(ba, a0, a1), _rows_view(bb, b0, b1)
+                try:
+                    out = with_oom_retry(catalog, _merge, x, y)
+                except Exception as e:  # noqa: BLE001 - classified below
+                    if not R.is_oom_error(e):
+                        raise
+                    out = None
+                if out is None:
+                    yield from merge_split(x, y)
+                else:
+                    yield out
+                    del out
+
+        def merge_last(a, b):
+            try:
+                out = with_oom_retry(catalog, merge_pair, a, b)
+            except Exception as e:  # noqa: BLE001 - classified below
+                if not R.is_oom_error(e):
+                    raise
+                out = None
+            if out is not None:
+                a.close(), b.close()
+                yield out
+                return
+            # both operands are pinned: split the merge instead
+            yield from merge_split(a.get_batch(), b.get_batch())
+            a.close(), b.close()
 
         def run(it):
             # buffer small partitions for the single-batch path; past the
-            # threshold, sort each incoming batch into a run at once
+            # threshold, sort each incoming batch into a spillable run at
+            # once, so unsorted input never accumulates on the device
             pending, pending_bytes, runs = [], 0, None
             for b in it:
                 if runs is None:
                     pending.append(b)
                     pending_bytes += b.size_bytes()
                     if pending_bytes > threshold and len(pending) > 1:
-                        runs = [_sort(p) for p in pending]
-                        pending = []
+                        runs = []
+                        while pending:
+                            runs.append(make_run(pending.pop(0)))
                 else:
-                    runs.append(_sort(b))
+                    runs.append(make_run(b))
+                del b
             if runs is None:
                 if pending:
-                    yield _sort(concat_device(pending))
+                    out = with_oom_retry(catalog, lambda bs: _sort(concat_device(bs)), pending)
+                    del pending
+                    yield out
                 return
-            # staged binary merge of sorted runs
-            while len(runs) > 1:
-                nxt = [_merge(runs[i], runs[i + 1]) for i in range(0, len(runs) - 1, 2)]
+            # staged binary merge of sorted runs (binary-search ranks, linear
+            # work per level); the last merge may split (class docstring)
+            while len(runs) > 2:
+                nxt = []
+                for i in range(0, len(runs) - 1, 2):
+                    a, b = runs[i], runs[i + 1]
+                    out = with_oom_retry(catalog, merge_pair, a, b)
+                    a.close(), b.close()
+                    nxt.append(catalog.register(out, SpillPriorities.WORKING))
+                    del out
                 if len(runs) % 2:
                     nxt.append(runs[-1])
                 runs = nxt
-            yield runs[0]
+            if len(runs) == 2:
+                yield from merge_last(*runs)
+                return
+            with runs[0] as final:
+                yield final.get_batch()
 
         return self.children[0].execute(ctx).map_partitions(run)
 
@@ -871,8 +1064,18 @@ class GpuShuffleExchangeExec(Exec):
       the CPU engine while ``spark.rapids.shuffle.manager.enabled`` is set;
     * AQE partition coalescing and skew splitting, and exchange reuse
       (Queue A item 16) — the overrides keep an exchange on the CPU engine
-      while ``spark.sql.adaptive.enabled`` is set;
-    * ``with_oom_retry`` around each bucketing step (Queue A item 11)."""
+      while ``spark.sql.adaptive.enabled`` is set.
+
+    Every bucketing step runs behind ``with_oom_retry``, as in the JAX
+    package. Unlike the JAX package's in-memory exchange, the slices it
+    holds for its readers are registered in the spill catalog (priority
+    ``INPUT_FROM_SHUFFLE``, the first to go), the way its shuffle manager
+    parks map output: a partition nobody reads yet (or that its reader has
+    dropped) is memory a spill can free anywhere in the query. A reader
+    takes each slice back from whatever tier it is on and unpins it, so a
+    partition can be read again (a task retried from lineage, a cartesian
+    product); the slices stay registered, as the JAX exchange holds its
+    buckets, until the query's end, when the session closes them."""
 
     def __init__(self, partitioning, child: Exec):
         super().__init__([child])
@@ -956,17 +1159,28 @@ class GpuShuffleExchangeExec(Exec):
             for o in self.partitioning.order
         ]
 
-    def _materialize(self, kind: str, fn, child_parts: PartitionSet) -> list:
-        """Every input batch bucketed into its output partitions."""
+    def _materialize(self, kind: str, fn, child_parts: PartitionSet, ctx: ExecContext) -> list:
+        """Every input batch bucketed into its output partitions, each slice
+        registered in the spill catalog (a list of handles per partition)."""
+        from ..mem.spill import SpillPriorities, with_oom_retry
+
+        catalog = ctx.catalog
         nparts = self.num_partitions
         buckets = [[] for _ in range(nparts)]
+
+        def park(p: int, slices) -> None:
+            for s in slices:
+                buckets[p].append(
+                    catalog.register(s, SpillPriorities.INPUT_FROM_SHUFFLE, owner="exchange")
+                )
         if kind == "range":
             order = self.partitioning.order
             batches, group_lists = [], []
             for t in child_parts.parts:
                 for db in t():
                     batches.append(db)
-                    group_lists.append(self._range_words(db))
+                    group_lists.append(with_oom_retry(catalog, self._range_words, db))
+                    del db
             # string columns may encode to different word counts per batch
             # (bucketed widths) — align before sampling/bucketing
             all_words, _ = align_word_groups(group_lists, order)
@@ -990,25 +1204,33 @@ class GpuShuffleExchangeExec(Exec):
             sample_words = [host[:, 1 + i, :][keep] for i in range(host.shape[1] - 1)]
             bounds = compute_range_bounds(sample_words, nparts)
             if bounds is None:
-                buckets[0].extend(batches)
+                park(0, batches)
                 return buckets
             dev_bounds = [torch.from_numpy(b).to(device) for b in bounds]
-            for db, words in zip(batches, all_words):
-                for p, s in enumerate(fn(db, words, dev_bounds)):
-                    buckets[p].append(s)
+            batches.reverse()
+            all_words.reverse()
+            while batches:  # inputs free as they are bucketed
+                slices = with_oom_retry(catalog, fn, batches.pop(), all_words.pop(), dev_bounds)
+                for p in range(nparts):
+                    park(p, [slices[p]])
+                del slices
         elif kind == "hash":
             # drain every partition first (queues all upstream work), then
             # ONE row-count fetch for the shrink, then slice
             drained, _ = bulk_shrink([db for t in child_parts.parts for db in t()])
             drained.reverse()
             while drained:  # slices consume the list, so inputs free as we go
-                for p, s in enumerate(fn(drained.pop())):
-                    buckets[p].append(s)
+                slices = with_oom_retry(catalog, fn, drained.pop())
+                for p in range(nparts):
+                    park(p, [slices[p]])
+                del slices
         elif kind == "single":
             # coalesce to one partition; shrink sparse batches (e.g.
             # ungrouped partial aggregates: 1 live row in a large capacity)
             drained, _ = bulk_shrink([db for t in child_parts.parts for db in t()])
-            buckets[0].extend(drained)
+            drained.reverse()
+            while drained:
+                park(0, [drained.pop()])
         else:  # roundrobin
             for pi, t in enumerate(child_parts.parts):
                 # device-resident running offset: no host sync per batch
@@ -1016,9 +1238,11 @@ class GpuShuffleExchangeExec(Exec):
                 for db in t():
                     if offset is None:
                         offset = torch.tensor(pi % nparts, dtype=torch.int64, device=db.device)
-                    for p, s in enumerate(fn(db, offset % nparts)):
-                        buckets[p].append(s)
+                    slices = with_oom_retry(catalog, fn, db, offset % nparts)
+                    for p in range(nparts):
+                        park(p, [slices[p]])
                     offset = offset + db.num_rows
+                    del slices, db
         return buckets
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
@@ -1043,15 +1267,19 @@ class GpuShuffleExchangeExec(Exec):
         state: dict = {}
         lock = threading.Lock()
 
-        def buckets() -> list:
+        def bucket(p: int) -> list:
             with lock:
                 if "buckets" not in state:
-                    state["buckets"] = self._materialize(kind, fn, child_parts)
-                return state["buckets"]
+                    state["buckets"] = self._materialize(kind, fn, child_parts, ctx)
+                return state["buckets"][p]
 
         def make(p):
             def it():
-                yield from buckets()[p]
+                for h in bucket(p):
+                    db = h.get_batch()
+                    h.unpin()  # spillable again once the reader lets go of it
+                    yield db
+                    del db
 
             return it
 
@@ -1087,8 +1315,11 @@ class GpuLimitExec(Exec):
 
         def it():
             remaining = limit
+            tok = ctx.cancel_token
             for t in child_parts.parts:
                 for db in t():
+                    if tok is not None:
+                        tok.check()
                     if remaining <= 0:
                         break
                     out = slice_head(db, remaining)
@@ -1223,7 +1454,10 @@ class GpuExpandExec(Exec):
         schema = self._schema
 
         def run(it):
+            tok = ctx.cancel_token
             for batch in it:
+                if tok is not None:
+                    tok.check()
                 c = Ctx.for_device(batch)
                 live = batch.row_mask()
                 for proj in self.projections:

@@ -13,7 +13,24 @@ probe batches (one fetch of their match totals), never one per batch. A
 probe batch whose pairs would pass ``spark.rapids.sql.batchSizeBytes`` of
 output is cut into runs of probe rows that fit (``_output_chunks``), as
 spark-rapids' join gatherer cuts its output; the JAX package has no such
-cut (its OOM retry splits the probe side instead, ROADMAP Queue A item 11).
+cut.
+
+Memory and resilience: phase 1 runs under ``run_with_retry`` and splits
+the probe batch under OOM, as in the JAX package
+(``spark_rapids_tpu/exec/tpu_join.py:128-138``), and the cancel token is
+checked once per probe batch (``:147-150``). The three memory bounds
+compose with the split in this order: a split halves the probe batch
+before phase 1, so each half enters the probe window as a batch of its own
+(the window's byte bound counts the halves); the output cut then divides
+each half's pairs at the batch size. The port goes further where the
+card's real OOMs land (``PERF.md`` §6): phase 2 of each output chunk
+spill-retries and then splits the chunk's probe rows in half, recursively
+(each half's pairs counted in one sync); the build's concat and key sort
+spill-retry; and once the query has handled a device OOM (its catalog's
+``oom_handled``, set by the retry path) the window and the output cut close
+at a quarter of the batch size, so a chain of joins holds a quarter as much
+in flight. The flag is the query's own: another query's OOM never changes
+this one's batch boundaries.
 
 The build's key sort is made once per stream of probe batches
 (``sort_build``); the JAX package sorts the build again for every probe
@@ -31,9 +48,8 @@ its live rows (one count fetch per join task), so a compacted build does
 not multiply the pair space by its padding.
 
 Left out of the port so far, each with its place in ROADMAP.md: the AQE
-runtime broadcast switch and exchange linking (item 16), the mesh placement
-of the two sides (item 13), the OOM retry around phase 1 (item 11) and the
-cancel token (item 12).
+runtime broadcast switch and exchange linking (item 16) and the mesh
+placement of the two sides (item 13).
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ from ..ops.concat import concat_device
 from ..ops.gather import compact, gather_column, row_counts, shrink_one
 from ..ops.join import gather_pairs, join_output_schema, probe_bounds, sort_build
 from ..plan.physical import Exec, ExecContext, PartitionSet
+from ..resilience import retry as R
 from ..types import Schema
 from .gpu import _row_bytes, val_to_column
 
@@ -69,26 +86,65 @@ def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
     """One probe stream joined against one build batch — the loop under the
     shuffled and broadcast joins. ``get_build()`` supplies the build batch
     at the first probe batch; ``matched_acc['m']`` (when given) accumulates
-    build-row match bits for right/full null-extension."""
+    build-row match bits for right/full null-extension. OOM handling as in
+    the module docstring."""
     build = prepared = None
     prepare, phase1 = node._phase1()
     phase2 = node._phase2()
     target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
-    max_rows = max(1, target // _row_bytes(node.output))
+    row_bytes = _row_bytes(node.output)
+    catalog, policy, breaker = ctx.catalog, ctx.retry_policy, ctx.breaker
+    op = node._breaker_op
+    floor = max(2, policy.min_split_rows)
     it = iter(probe_thunk())
+
+    def run_phase2(sub, build_order, lower, counts, total):
+        """(probe rows, phase 2's result) of one output chunk, the chunk's
+        probe rows halved while an OOM persists after the spills."""
+        out_cap = bucket_capacity(max(total, 1))
+        try:
+            res = R.run_once(
+                catalog,
+                lambda b: phase2(build, b, build_order, lower, counts, out_cap),
+                sub, policy, op=op, breaker=breaker,
+            )
+        except Exception as e:  # noqa: BLE001 - classified below
+            if not R.is_oom_error(e) or not policy.split_enabled or sub.capacity <= floor:
+                raise
+            res = None
+        if res is not None:
+            yield sub, res
+            return
+        R.record("splits")
+        h = sub.capacity // 2
+        lo_total = int(counts[:h].sum())
+        halves = R.split_batch(sub)
+        del sub
+        for part, sl, t in zip(halves, (slice(0, h), slice(h, None)), (lo_total, total - lo_total)):
+            yield from run_phase2(part, build_order, lower[sl], counts[sl], t)
+
+    tok = ctx.cancel_token
     while True:
         # up to _PROBE_WINDOW probe batches, or batchSizeBytes of them,
         # dispatch before ONE fetch of their match totals; the window bounds
         # the join's memory (every join of a chain holds one), and an
         # early-exiting consumer (a limit) stops after the current window
+        cut = target // 4 if catalog.oom_handled else target
+        max_rows = max(1, cut // row_bytes)
         window, held = [], 0
         for probe in it:
             if build is None:
                 build = get_build()
-                prepared = prepare(build)
-            window.append((probe, phase1(prepared, probe)))
+                prepared = R.run_once(catalog, prepare, build, policy, op=op, breaker=breaker)
+            window.extend(
+                R.run_with_retry(
+                    catalog, lambda b: (b, phase1(prepared, b)), probe, policy,
+                    op=op, breaker=breaker,
+                )
+            )
             held += probe.size_bytes()
-            if len(window) == _PROBE_WINDOW or held >= target:
+            del probe
+            if len(window) >= _PROBE_WINDOW or held >= cut:
                 break
         if not window:
             return
@@ -96,22 +152,26 @@ def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
         totals = torch.stack([counts.sum() for _p, (_o, _l, counts) in window]).tolist()
         ctx.metrics["joinProbeSyncs"] += 1
         for i, total in enumerate(totals):
+            if tok is not None:
+                tok.check()
             probe, (build_order, lower, counts) = window[i]
             window[i] = None  # release as consumed
-            for sub, sub_lower, sub_counts, sub_total in _output_chunks(
-                probe, lower, counts, int(total), max_rows, ctx
-            ):
-                out_cap = bucket_capacity(max(sub_total, 1))
-                out, probe_matched, bmatch = phase2(
-                    build, sub, build_order, sub_lower, sub_counts, out_cap
-                )
-                if matched_acc is not None:
-                    matched_acc["m"] = matched_acc["m"] | bmatch
-                # possibly-empty batches are yielded without a row-count sync
-                if jt in ("left", "full"):
-                    unmatched = (~probe_matched) & sub.row_mask()
-                    yield node._null_extend(sub, unmatched, "left")
-                yield out
+            chunks = _output_chunks(probe, lower, counts, int(total), max_rows, ctx)
+            del probe, lower, counts
+            for sub, sub_lower, sub_counts, sub_total in chunks:
+                for part, (out, probe_matched, bmatch) in run_phase2(
+                    sub, build_order, sub_lower, sub_counts, sub_total
+                ):
+                    if matched_acc is not None:
+                        matched_acc["m"] = matched_acc["m"] | bmatch
+                    # possibly-empty batches are yielded without a row-count sync
+                    if jt in ("left", "full"):
+                        unmatched = (~probe_matched) & part.row_mask()
+                        yield node._null_extend(part, unmatched, "left")
+                    del part, probe_matched, bmatch
+                    yield out
+                    del out
+                del sub, sub_lower, sub_counts
 
 
 def _output_chunks(probe: DeviceBatch, lower, counts, total: int, max_rows: int, ctx):
@@ -235,6 +295,8 @@ class GpuShuffledHashJoinExec(Exec):
     against it; right/full outer null-extend the unmatched build rows once
     the stream is done."""
 
+    _breaker_op = "ShuffledHashJoinExec"
+
     def __init__(
         self,
         join_type: str,
@@ -308,12 +370,15 @@ class GpuShuffledHashJoinExec(Exec):
 
         def make(lt, rt):
             def it():
+                from ..mem.spill import with_oom_retry
+
                 bbatches = list(rt())
                 build = (
-                    concat_device(bbatches)
+                    with_oom_retry(ctx.catalog, concat_device, bbatches)
                     if bbatches
                     else empty_batch(right.output, ctx.device)
                 )
+                del bbatches
                 acc = None
                 if jt in ("right", "full"):
                     acc = {"m": torch.zeros(build.capacity, dtype=torch.bool, device=build.device)}
@@ -386,6 +451,8 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
     unmatched tail. A partition abandoned early (its consumer stopped, e.g.
     a satisfied limit) skips the tail via GeneratorExit, which is sound:
     every consumer had stopped wanting rows."""
+
+    _breaker_op = "BroadcastHashJoinExec"
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         left, right = self.children
@@ -585,7 +652,10 @@ class GpuBroadcastNestedLoopJoinExec(Exec):
                 build = _build_batch(right.execute(ctx).parts, right.output, ctx)
                 lrows = self._stream_rows(build.capacity)
                 build_matched = torch.zeros(build.capacity, dtype=torch.bool, device=build.device)
+                tok = ctx.cancel_token
                 for stream in lt():
+                    if tok is not None:
+                        tok.check()
                     for lb in chunk_device_batch(stream, lrows):
                         out, lmatch, rmatch = kernel(lb, build)
                         build_matched = build_matched | rmatch
@@ -629,7 +699,10 @@ class GpuCartesianProductExec(GpuBroadcastNestedLoopJoinExec):
             def it():
                 build = _build_batch([rt], right.output, ctx)
                 p = self._stream_rows(build.capacity)
+                tok = ctx.cancel_token
                 for stream in lt():
+                    if tok is not None:
+                        tok.check()
                     for lb in chunk_device_batch(stream, p):
                         yield kernel(lb, build)[0]
 

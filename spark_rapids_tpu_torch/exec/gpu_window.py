@@ -19,8 +19,9 @@ partition's batches concatenated into one (``ops/concat.py``) —
 Rows come out partition-sorted (Spark's window output order). Float sums
 keep the JAX package's order of operations (scans and prefix differences,
 no atomics); the log-step scan's association differs from XLA's tree only
-in rounding. The JAX package's ``with_oom_retry`` around the window waits
-for the memory slice (ROADMAP Queue A item 11).
+in rounding. The window runs behind ``with_oom_retry``, as in the JAX
+package: a device OOM spills the catalog and retries the whole partition's
+window (it is not splittable: a partition's frames span its batches).
 """
 from __future__ import annotations
 
@@ -87,12 +88,16 @@ class GpuWindowExec(Exec):
         fn = window_fn(self.spec, tuple(self.window_cols), self._schema, child.output)
 
         def run(it):
+            from ..mem.spill import with_oom_retry
+
             batches = list(it)
             if not batches:
                 return
             merged = concat_device(batches)
             del batches
-            yield fn(merged)
+            out = with_oom_retry(ctx.catalog, fn, merged)
+            del merged
+            yield out
 
         return child.execute(ctx).map_partitions(run)
 

@@ -15,8 +15,11 @@ function; ``Ctx.task`` exposes them to expression ``eval``. The host-side
 ``TaskInfo`` is the source of truth the operators sample per batch.
 
 Copied from ``spark_rapids_tpu/exec/task.py``. On the device ``TaskVals``
-holds torch scalars, and ``exec/gpu.py::run_batches`` takes the place of
-``run_device``; ``zero_vals`` is left out (nothing compiles per shape).
+holds torch scalars; ``zero_vals`` is left out (nothing compiles per shape,
+so a batch function that reads no task value gets ``None``). ``run_device``
+drives the device project and filter through the OOM retry state machine,
+as in the JAX package, without its ledger scopes (the ``obs`` ledger comes
+with a later slice).
 """
 from __future__ import annotations
 
@@ -148,3 +151,54 @@ def task_vals(xp, row_base: Optional[int] = None) -> TaskVals:
         xp.asarray(bs, dtype=xp.int64),
         xp.asarray(bl, dtype=xp.int64),
     )
+
+
+def run_device(fn, it, needs_task, catalog, policy, op=None, breaker=None,
+               token=None):
+    """Drive ``fn(batch, task_vals)`` over device batches (the JAX
+    package's ``run_device``, shared by the device project and filter).
+    Task values are sampled only where the expressions read them; the
+    running row base of ``monotonically_increasing_id`` stays a device
+    scalar, so no batch pays a sync for it.
+
+    Each launch routes through the OOM retry state machine
+    (resilience/retry.py): spill-retry, then split-in-half — project and
+    filter are row-wise, so halves yield independently and one input batch
+    may give several outputs. Task-dependent functions keep
+    spill-retry only: a split would need the row base threaded per half.
+    An ``AnsiError`` from the error channel is not an OOM and not a device
+    error: it leaves the loop at the batch it belongs to, untried again,
+    and never feeds the breaker.
+
+    ``token`` (sched/cancel.py CancelToken) is checked before every batch:
+    a cancelled query stops dispatching within one batch boundary and
+    unwinds through the normal error path."""
+    import torch
+
+    from ..resilience import retry as R
+    from ..xp import namespace
+
+    if token is not None:
+        # watchdog current-token install: blocking regions beneath this
+        # loop label their stall phase on it; each check() is a beat
+        from ..resilience import watchdog as _wd
+
+        _wd.set_current(token)
+    if not needs_task:
+        for db in it:
+            if token is not None:
+                token.check()
+            yield from R.run_with_retry(
+                catalog, lambda b: fn(b, None), db, policy, op=op, breaker=breaker,
+            )
+        return
+    base = None  # device-resident running row count (no per-batch sync)
+    for db in it:
+        if token is not None:
+            token.check()
+        tv = task_vals(namespace(db.device), row_base=base)
+        out = R.run_once(
+            catalog, lambda b: fn(b, tv), db, policy, op=op, breaker=breaker,
+        )
+        base = tv.row_base + db.num_rows.to(torch.int64)
+        yield out

@@ -654,10 +654,17 @@ class ExplainEntry:
 
 class GpuOverrides:
     """GpuOverrides + GpuTransitionOverrides, applied to a CPU physical plan
-    (the port's ``TpuOverrides``)."""
+    (the port's ``TpuOverrides``).
 
-    def __init__(self, conf: TpuConf):
+    ``breaker`` (resilience/breaker.py) is the session's CPU-fallback
+    circuit breaker: op signatures whose device operators failed repeatedly
+    at RUNTIME are planned on the CPU engine at the next planning pass, with
+    the breaker's reason in the explain output — the same surface a
+    plan-time fallback uses (the JAX package's ``overrides.py:1205-1211``)."""
+
+    def __init__(self, conf: TpuConf, breaker=None):
         self.conf = conf
+        self.breaker = breaker
         self.explain: List[ExplainEntry] = []
 
     def apply(self, plan: Exec) -> Exec:
@@ -681,8 +688,13 @@ class GpuOverrides:
             reasons.append(f"exec {type(plan).__name__} has no device implementation")
             self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
             return plan.with_new_children(children)
+        breaker_reason = (
+            self.breaker.check(rule.name) if self.breaker is not None else None
+        )
         if not self.conf.rule_enabled(rule.conf_key):
             reasons.append(f"disabled by {rule.conf_key}")
+        elif breaker_reason:
+            reasons.append(breaker_reason)
         else:
             _check_schema(plan.output, self.conf, reasons, rule.name)
             if rule.check is not None:

@@ -6,10 +6,14 @@ batching contracts :166-277). Every node is an ``Exec`` producing a
 batches. CPU execs stream ``HostBatch``; device execs stream ``DeviceBatch``;
 explicit transition execs convert (HostToDeviceExec / DeviceToHostExec).
 
-Copied from ``spark_rapids_tpu/plan/physical.py``. The context keeps what
-this slice of the port runs: the conf, the session, the device, the query's
-counters and the device's memory budget (from ``torch.cuda.mem_get_info`` where the JAX
-package reads ``jax.local_devices()`` memory stats). Metrics, spill,
+Copied from ``spark_rapids_tpu/plan/physical.py``. The context holds the
+conf, the session, the device, the query's counters and the memory and
+resilience runtime the operators run inside, as the JAX context does
+(``spark_rapids_tpu/plan/physical.py:35-50, :114-153``): the device
+semaphore, the spill catalog with the device budget (sized from
+``torch.cuda.mem_get_info`` and any per-process cap, where the JAX package
+reads ``jax.local_devices()`` memory stats), the OOM retry policy, the
+session's circuit breaker and the query's cancel token. Operator metrics,
 scheduling, shuffle and mesh state come with later slices.
 """
 from __future__ import annotations
@@ -24,24 +28,50 @@ from ..types import Schema
 
 
 class ExecContext:
-    """Per-query execution context: conf, session and device."""
+    """Per-query execution context: conf, session, device, memory and
+    resilience. The device is the session's; a context made without a
+    session must be given one (there is no default device)."""
 
-    def __init__(self, conf: TpuConf, session=None, device="cpu"):
+    def __init__(self, conf: TpuConf, session=None, device=None):
         from .. import config as cfg
+        from ..mem.semaphore import DeviceSemaphore
+        from ..mem.spill import BufferCatalog
+        from ..resilience.retry import RetryPolicy
 
+        if device is None:
+            if session is None:
+                raise ValueError("an ExecContext without a session needs a device")
+            device = session.device
         self.conf = conf
         self.session = session
         self.device = torch.device(device)
         # per-query counters the operators add to (hostToDeviceBytes, …)
         self.metrics: Counter = Counter()
+        self.semaphore = DeviceSemaphore(cfg.CONCURRENT_TPU_TASKS.get(conf))
+        self.catalog = BufferCatalog.from_conf(conf)
+        # resilience: the OOM retry/split policy splittable operators use,
+        # and the session's CPU-fallback circuit breaker (failures recorded
+        # here are consulted by the NEXT planning pass)
+        self.retry_policy = RetryPolicy.from_conf(conf)
+        self.breaker = getattr(session, "_breaker", None)
         # the spillable-buffer budget the JAX package sizes from device
-        # memory × allocFraction (GpuDeviceManager.initializeRmm's sizing);
-        # 0 = unlimited, as on a CPU backend
+        # memory × allocFraction (GpuDeviceManager.initializeRmm's sizing),
+        # here also within a per-process cap; unlimited on a CPU device
         limit = cfg.DEVICE_POOL_LIMIT.get(conf)
         if limit <= 0 and self.device.type == "cuda":
             _free, total = torch.cuda.mem_get_info(self.device)
-            limit = int(total * cfg.POOL_SIZE_FRACTION.get(conf))
+            frac = cfg.POOL_SIZE_FRACTION.get(conf)
+            cap = getattr(torch.cuda, "get_per_process_memory_fraction", None)
+            if cap is not None:
+                index = self.device.index
+                frac = min(frac, cap(torch.cuda.current_device() if index is None else index))
+            limit = int(total * frac)
         self.device_limit = max(limit, 0)
+        if self.device_limit:
+            self.catalog.device_limit = self.device_limit
+        # the query's cancellation token (sched/cancel.py), checked at batch
+        # boundaries; None = unscheduled execution (no checks)
+        self.cancel_token = None
 
 
 def _scoped_part(index: int, thunk):

@@ -1,0 +1,238 @@
+"""Deterministic fault injection — the chaos harness behind the resilience
+layer's tests.
+
+The reference validates its failure paths against forced RMM allocation
+failures (DeviceMemoryEventHandlerSuite); the engine injects faults at its
+own seams instead: device launches under an OOM-recovery scope
+(``resilience/retry.py``, ``mem/spill.py::with_oom_retry``), splittable
+operator launches with their batch size, and disk-tier spill IO
+(``mem/spill.py``). Every point is counter-driven ("every Nth event"), so a
+chaos run replays bit-identically — assertions can demand that
+results under injected faults equal the fault-free run.
+
+All points are inert (one ``is None`` check) unless a ``FaultConfig`` is
+installed, either by ``scoped()`` (tests) or by the session when
+``spark.rapids.tpu.faults.enabled`` is set.
+
+Copied from ``spark_rapids_tpu/resilience/faults.py`` with the device-side
+points: ``on_kernel_launch`` (``deviceOomEveryN``; in the port a "launch"
+is one attempt of a device batch function under a recovery scope, where
+the JAX package counts its compiled-kernel launches), ``on_batch_launch``,
+``recoverable`` and ``on_spill_write``/``on_spill_read``. The compile,
+transport, compile-cache, map-output, kernel-stall and straggler
+(``on_task_attempt``) points come with the subsystems that observe them:
+the straggler needs the watchdog or speculation to be worth injecting.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from contextlib import contextmanager
+from typing import Optional
+
+
+class InjectedFault(RuntimeError):
+    """A synthetic failure raised by an injection point. The message mimics
+    the real error class (CUDA's "out of memory" for OOM) so classification
+    paths treat it like the real thing; ``kind`` lets tests assert on the
+    injection itself."""
+
+    def __init__(self, kind: str, msg: str):
+        super().__init__(msg)
+        self.kind = kind
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """One chaos scenario (all counters per-process, deterministic)."""
+
+    device_oom_every_n: int = 0  # device launches under a recovery scope
+    oom_above_bytes: int = 0  # splittable-operator launches over this size
+    kernel_error_every_n: int = 0  # splittable-operator launches (non-OOM)
+    spill_write_error_every_n: int = 0  # host→disk spill writes
+    spill_read_error_every_n: int = 0  # disk→host re-materializations
+
+
+class FaultInjector:
+    """Counters + the decision logic for one installed FaultConfig."""
+
+    def __init__(self, config: FaultConfig):
+        self.config = config
+        self._lock = threading.Lock()
+        self._counters: dict[str, int] = {}
+        self.injected: dict[str, int] = {}
+
+    def _tick(self, point: str, every_n: int) -> bool:
+        if every_n <= 0:
+            return False
+        with self._lock:
+            n = self._counters.get(point, 0) + 1
+            self._counters[point] = n
+            if n % every_n:
+                return False
+            self.injected[point] = self.injected.get(point, 0) + 1
+            return True
+
+    def _record(self, point: str) -> None:
+        from . import retry as R
+
+        R.record("faults_injected")
+
+    # ── injection points ────────────────────────────────────────────────
+    def on_kernel_launch(self) -> None:
+        """Every device launch under a recovery scope."""
+        if self._tick("kernel_launch", self.config.device_oom_every_n):
+            self._record("kernel_launch")
+            raise InjectedFault(
+                "oom", "CUDA out of memory: injected device OOM (fault injection)"
+            )
+
+    def on_batch_launch(self, size_bytes: int) -> None:
+        """Every splittable-operator launch, with the batch size known
+        (resilience/retry.py — the seam the split state machine watches)."""
+        c = self.config
+        if c.oom_above_bytes and size_bytes > c.oom_above_bytes:
+            with self._lock:
+                self.injected["oom_above_bytes"] = (
+                    self.injected.get("oom_above_bytes", 0) + 1
+                )
+            self._record("oom_above_bytes")
+            raise InjectedFault(
+                "oom",
+                f"CUDA out of memory: injected OOM — batch of {size_bytes} B "
+                f"exceeds the injected device budget of {c.oom_above_bytes} B",
+            )
+        if self._tick("batch_launch", c.kernel_error_every_n):
+            self._record("batch_launch")
+            raise InjectedFault(
+                "kernel",
+                "CUDA error: injected device kernel failure (fault injection)",
+            )
+
+    def on_spill_write(self) -> None:
+        if self._tick("spill_write", self.config.spill_write_error_every_n):
+            self._record("spill_write")
+            raise InjectedFault("io", "injected spill-disk write IO error")
+
+    def on_spill_read(self) -> None:
+        if self._tick("spill_read", self.config.spill_read_error_every_n):
+            self._record("spill_read")
+            raise InjectedFault("io", "injected spill-disk read IO error")
+
+
+_ACTIVE: Optional[FaultInjector] = None
+_ACTIVE_COUNT = 0  # concurrent scoped() entries holding _ACTIVE installed
+_SHADOWED: list = []  # [(injector, count)] scopes displaced by a newer one
+_INSTALL_LOCK = threading.Lock()
+_TLS = threading.local()
+
+
+@contextmanager
+def recoverable():
+    """Marks the dynamic extent of a launch that has inline OOM recovery
+    above it (resilience/retry.py run_once/run_with_retry, spill.py
+    with_oom_retry). ``deviceOomEveryN`` fires ONLY inside this scope:
+    injecting a synthetic OOM at a launch nothing recovers would only
+    assert that unrecoverable failures fail — every covered launch instead
+    exercises the spill/split machinery deterministically."""
+    depth = getattr(_TLS, "depth", 0)
+    _TLS.depth = depth + 1
+    try:
+        yield
+    finally:
+        _TLS.depth = depth
+
+
+def in_recoverable_scope() -> bool:
+    return getattr(_TLS, "depth", 0) > 0
+
+
+# Module-level fast paths: one attribute read when no injector is installed.
+def on_kernel_launch() -> None:
+    inj = _ACTIVE
+    if inj is not None and in_recoverable_scope():
+        inj.on_kernel_launch()
+
+
+def on_batch_launch(size_bytes: int) -> None:
+    inj = _ACTIVE
+    if inj is not None:
+        inj.on_batch_launch(size_bytes)
+
+
+def on_spill_write() -> None:
+    inj = _ACTIVE
+    if inj is not None:
+        inj.on_spill_write()
+
+
+def on_spill_read() -> None:
+    inj = _ACTIVE
+    if inj is not None:
+        inj.on_spill_read()
+
+
+@contextmanager
+def scoped(config_or_injector):
+    """Install a fault scenario process-wide for the duration of the block
+    (no-op when None). Accepts a ``FaultConfig`` (fresh counters) or a
+    ``FaultInjector`` (counters persist across scopes — the session reuses
+    ONE injector for its lifetime so every-Nth counters accumulate across
+    queries). Concurrent scopes are refcounted by injector identity; a
+    scope with a different injector shadows the current one and restores
+    it when its own count drains."""
+    global _ACTIVE, _ACTIVE_COUNT
+    if config_or_injector is None:
+        yield None
+        return
+    inj = (
+        config_or_injector
+        if isinstance(config_or_injector, FaultInjector)
+        else FaultInjector(config_or_injector)
+    )
+    with _INSTALL_LOCK:
+        if _ACTIVE is inj:
+            _ACTIVE_COUNT += 1
+        else:
+            if _ACTIVE is not None:
+                _SHADOWED.append((_ACTIVE, _ACTIVE_COUNT))
+            _ACTIVE = inj
+            _ACTIVE_COUNT = 1
+    try:
+        yield inj
+    finally:
+        with _INSTALL_LOCK:
+            if _ACTIVE is inj:
+                _ACTIVE_COUNT -= 1
+                if _ACTIVE_COUNT <= 0:
+                    if _SHADOWED:
+                        _ACTIVE, _ACTIVE_COUNT = _SHADOWED.pop()
+                    else:
+                        _ACTIVE, _ACTIVE_COUNT = None, 0
+            else:
+                # exiting while shadowed (out-of-order exit across threads):
+                # drain this injector's count on the shadow stack instead
+                for i in range(len(_SHADOWED) - 1, -1, -1):
+                    s, c = _SHADOWED[i]
+                    if s is inj:
+                        if c <= 1:
+                            del _SHADOWED[i]
+                        else:
+                            _SHADOWED[i] = (s, c - 1)
+                        break
+
+
+def config_from_conf(conf) -> Optional[FaultConfig]:
+    """FaultConfig from the device-side spark.rapids.tpu.faults.* keys; None
+    unless spark.rapids.tpu.faults.enabled."""
+    from .. import config as cfg
+
+    if not cfg.FAULTS_ENABLED.get(conf):
+        return None
+    return FaultConfig(
+        device_oom_every_n=cfg.FAULTS_DEVICE_OOM_EVERY_N.get(conf),
+        oom_above_bytes=cfg.FAULTS_OOM_ABOVE_BYTES.get(conf),
+        kernel_error_every_n=cfg.FAULTS_KERNEL_ERROR_EVERY_N.get(conf),
+        spill_write_error_every_n=cfg.FAULTS_SPILL_WRITE_ERROR_EVERY_N.get(conf),
+        spill_read_error_every_n=cfg.FAULTS_SPILL_READ_ERROR_EVERY_N.get(conf),
+    )

@@ -18,6 +18,16 @@ expressions pulled into ``Window`` nodes), ``filter``, ``agg``,
 and the SQL front-end: ``sql(text, params)`` over the temp views that
 ``create_or_replace_temp_view`` registers (a plain dict: the JAX session's
 result-cache version bumps wait for the caches slice).
+
+Each query runs inside the memory and resilience runtime: its
+``ExecContext`` holds the device semaphore, the spill catalog, the OOM
+retry policy and the session's ``CircuitBreaker``; each partition runs as
+a task with Spark's retry model (``_run_task``, ``spark.task.maxFailures``);
+an op whose device path failed ``threshold`` times plans on the CPU engine
+with the breaker's reason in the explain; ``spark.rapids.tpu.faults.*``
+installs the session's fault injector around its queries; and with
+``spark.rapids.memory.tpu.debug`` set, buffers still registered in the
+catalog at the query's end are logged as leaks.
 Columns from a dict carry no nulls except strings (None); pass a
 ``HostBatch`` or an Arrow table for nullable fixed-width columns. Plans are column-pruned before
 planning (``plan/pruning.py``), and the session keeps the device batches of
@@ -90,6 +100,19 @@ class TorchSession:
         self._h2d_lock = threading.Lock()
         # SQL temp views: lower-cased name -> DataFrame
         self._temp_views: dict = {}
+        # the last query's task re-executions (spark.task.maxFailures)
+        self._task_retries = 0
+        # resilience: the session-lifetime CPU-fallback circuit breaker
+        # (runtime device failures flip ops to the CPU engine at the next
+        # planning pass) and the deterministic fault-injection scenario
+        # (None unless spark.rapids.tpu.faults.enabled — chaos testing only;
+        # one injector, so every-Nth counters accumulate across queries)
+        from .resilience import CircuitBreaker
+        from .resilience import faults as _faults
+
+        self._breaker = CircuitBreaker.from_conf(self.conf)
+        config = _faults.config_from_conf(self.conf)
+        self._fault_injector = None if config is None else _faults.FaultInjector(config)
 
     # ── SQL ─────────────────────────────────────────────────────────────
     def sql(self, text: str, params=None) -> "DataFrame":
@@ -228,7 +251,7 @@ class TorchSession:
             )
         lp = prune_columns(lp)
         cpu_plan = plan_physical(lp, self.conf)
-        overrides = GpuOverrides(self.conf)
+        overrides = GpuOverrides(self.conf, breaker=self._breaker)
         plan = overrides.apply(cpu_plan)
         overrides.explain[:0] = sub_explain
         return plan, overrides
@@ -239,13 +262,123 @@ class TorchSession:
         self._assert_test_mode(overrides)
         return final_plan
 
-    def _execute(self, lp: L.LogicalPlan) -> HostBatch:
-        ctx = ExecContext(self.conf, self, self.device)
-        final_plan = self._prepare_plan(lp, ctx.metrics)
-        self._last_metrics = ctx.metrics
-        parts = final_plan.execute(ctx)
-        batches = [b for t in parts.parts for b in t() if b.num_rows]
-        return concat_batches(final_plan.output, batches)
+    def _execute(self, lp: L.LogicalPlan, token=None) -> HostBatch:
+        """Run a logical plan to one host batch. ``token`` (a
+        ``sched.CancelToken``) is the query's cancel token: admission, which
+        mints it, comes with the scheduler slice."""
+        from .resilience import faults as _faults
+
+        # chaos harness scope: injection points fire only while THIS
+        # session's queries execute (no-op when faults are not enabled)
+        with _faults.scoped(self._fault_injector):
+            ctx = ExecContext(self.conf, self)
+            ctx.cancel_token = token
+            final_plan = self._prepare_plan(lp, ctx.metrics)
+            self._last_metrics = ctx.metrics
+            return self._run_plan(final_plan, ctx)
+
+    def _run_plan(self, final_plan, ctx) -> HostBatch:
+        """Every partition of a physical plan as a task (``_run_task``),
+        committed in partition order into one host batch. The query's task
+        re-executions land in ``ctx.metrics["taskRetries"]`` and, once it
+        ends, in ``_task_retries``."""
+        try:
+            parts = final_plan.execute(ctx)
+            attempts = cfg.TASK_MAX_FAILURES.get(self.conf)
+            batches = []
+            for i, thunk in enumerate(parts.parts):
+                for b in self._run_task(thunk, attempts, i, ctx.cancel_token, ctx):
+                    if b.num_rows:
+                        batches.append(b)
+            return concat_batches(final_plan.output, batches)
+        finally:
+            self._task_retries = ctx.metrics["taskRetries"]
+            # the exchanges' slices end with the query
+            ctx.catalog.release("exchange")
+            self._leak_check(ctx)
+
+    def _run_task(self, thunk, attempts: int, partition_id: int = 0,
+                  token=None, ctx=None) -> List[HostBatch]:
+        """One partition task with Spark's retry model (spark.task.maxFailures):
+        the lineage IS the recovery mechanism — a partition thunk is a pure
+        closure over its upstream pipeline, so a failed attempt simply
+        re-runs it. Results commit only on success (a partial stream from a
+        failed attempt is discarded). Deterministic errors surface at once:
+        retrying an ANSI violation, an assertion, a cancelled query or a
+        blown compile deadline can only fail again, and a sticky CUDA error
+        leaves the device context unusable for every later attempt
+        (``resilience/lineage.py::is_recoverable``). The JAX session's
+        ``_run_task``; each re-execution adds one to the query's
+        ``taskRetries`` and to ``task.reattempts``."""
+        import traceback
+
+        from .resilience import lineage as _lineage
+
+        desc = _lineage.TaskDescriptor(partition_id, query_id=getattr(token, "query_id", ""))
+        last: Optional[Exception] = None
+        for attempt in range(max(1, attempts)):
+            desc.attempt = attempt
+            try:
+                with _lineage.attempt_scope(attempt):
+                    if attempt == 0:
+                        return self._drain(thunk, token)
+                    with _lineage.recovery_scope():
+                        return self._drain(thunk, token)
+            except Exception as e:  # noqa: BLE001 - Spark retries any task failure
+                if not _lineage.is_recoverable(e):
+                    self._note_device_fault(e)
+                    raise
+                last = e
+                if ctx is not None:
+                    ctx.metrics["taskRetries"] += 1
+                if attempt + 1 < attempts:
+                    _lineage.record_reattempt(desc, e)
+                    # the failed attempt's frames hold its device tensors:
+                    # free them before the re-run (the traceback text stays)
+                    traceback.clear_frames(e.__traceback__)
+        assert last is not None
+        raise last
+
+    def _note_device_fault(self, e: BaseException) -> None:
+        """A sticky CUDA error that surfaced outside any retry wrapper (a
+        download's sync, say) still reaches the breaker, once, named by the
+        innermost frame of the port it surfaced in — not pinned on an op
+        (resilience/retry.py)."""
+        import traceback
+
+        from .resilience.retry import is_sticky_device_error
+
+        if getattr(e, "device_fault_recorded", False) or not is_sticky_device_error(e):
+            return
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "spark_rapids_tpu_torch" in f.filename]
+        where = f"{frames[-1].name} ({frames[-1].lineno})" if frames else "task"
+        self._breaker.record_device_fault(where, e)
+        e.device_fault_recorded = True
+
+    @staticmethod
+    def _drain(thunk, token) -> List[HostBatch]:
+        out = []
+        for b in thunk():
+            if token is not None:
+                token.check()  # a beat per result batch
+            out.append(b)
+        return out
+
+    def _leak_check(self, ctx) -> None:
+        """Debug mode: log the buffers still registered in the query's
+        catalog (every operator should have closed its spillables)."""
+        if ctx.catalog.debug:
+            leaks = ctx.catalog.leak_report()
+            if leaks:
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "spillable-buffer LEAKS at query end (%d, %d bytes): %s",
+                    len(leaks),
+                    sum(l["size"] for l in leaks),
+                    leaks[:10],
+                )
 
     def _assert_test_mode(self, overrides: GpuOverrides) -> None:
         """TEST_CONF: fail when expected-on-device execs fell back

@@ -435,7 +435,9 @@ def _round_robin_sizes(C, P, schema, ExecContext, TpuConf, t, device_exec):
     child = device_exec[1](scan) if device_exec else scan
     ex = (device_exec[0] if device_exec else C.CpuShuffleExchangeExec)(
         P.RoundRobinPartitioning(4), child)
-    parts = ex.execute(ExecContext(TpuConf({}))).materialize()
+    # the port's context has no default device
+    kw = {"device": "cpu"} if ExecContext.__module__.startswith("spark_rapids_tpu_torch") else {}
+    parts = ex.execute(ExecContext(TpuConf({}), **kw)).materialize()
     return [sum(int(b.num_rows) for b in p) for p in parts]
 
 
@@ -477,7 +479,7 @@ def test_single_partition_exchange_shrinks_into_one_partition():
     scan = PC.CpuScanExec(host, host.schema, 3)
     filt = G.GpuFilterExec((PF.col("k") == 7).expr, G.HostToDeviceExec(scan))
     ex = G.GpuShuffleExchangeExec(ppart.SinglePartitioning(1), filt)
-    (part,) = ex.execute(ExecContext(TpuConf({}))).materialize()
+    (part,) = ex.execute(ExecContext(TpuConf({}), device="cpu")).materialize()
     want = int((np.asarray(_table(n=400).column("k")) == 7).sum())
     assert len(part) == 3 and sum(int(b.num_rows) for b in part) == want
     assert all(b.capacity == max(8, 1 << (int(b.num_rows) - 1).bit_length()) for b in part)

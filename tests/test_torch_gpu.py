@@ -9,12 +9,14 @@ the nested-loop and cartesian joins on the card against the CPU engine,
 TPC-DS q2, q47, q64, q67 and q95 from SQL text at SF 0.01; the golden
 corpus, the expression families at SF 0.01, ``locate``,
 ``substring_index`` and ``replace`` over the kernel, and the ANSI error
-channel on the card. Each test decides in its body whether a card is
+channel on the card; a real OOM under a per-process cap recovered to equal
+rows, injected OOMs around ``Contains`` with the kernel's masks exact, and
+a spill-catalog buffer's walk device → pinned host → disk → device. Each test decides in its body whether a card is
 present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only the port: ``python -m pytest --noconftest -m gpu
-tests/test_torch_*.py`` (tests/conftest.py sets up JAX for the reference's
+tests/test_torch_gpu.py`` (tests/conftest.py sets up JAX for the reference's
 suites)."""
 from __future__ import annotations
 
@@ -363,3 +365,108 @@ def test_ansi_overflow_raises_on_gpu(expr_tables):
         ok, msg = columns_equal(fn(lambda n: plain.create_dataframe(t[n])).to_host(),
                                 fn(lambda n: ansi.create_dataframe(t[n])).to_host())
         assert ok, f"{name}: {msg}"
+
+
+# ── memory and resilience on the card ───────────────────────────────────────
+
+
+@pytest.mark.gpu
+def test_real_oom_under_a_cap_is_spilled_and_retried():
+    """A real ``torch.cuda.OutOfMemoryError`` under a per-process cap below
+    the query's peak is recovered (the exchange's slices spill, the launch
+    retries) and the rows equal the uncapped run. The query is q18's inner
+    aggregate at SF 0.1 over 4 input and 8 shuffle partitions, its upload
+    cache warm, so the cap bounds its working memory."""
+    _need_gpu()
+    import gc
+
+    from spark_rapids_tpu_torch.resilience import retry as R
+
+    _, li = gen_orders_lineitem(0.1, 19980802)
+    fn = SLICE_QUERIES["q18_big_orders"][0]
+    s = TorchSession({"spark.sql.shuffle.partitions": 8}, device="cuda")
+
+    def run():
+        return fn(lambda t: s.create_dataframe(li, num_partitions=4)).collect()
+
+    run()  # fills the upload cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    want = run()
+    peak = torch.cuda.max_memory_allocated() - held
+    gc.collect()
+    torch.cuda.empty_cache()
+    R.reset()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction((held + 0.8 * peak) / total)
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    rep = R.report()
+    R.reset()
+    assert rep["oom_retries"] + rep["splits"] > 0 and rep["faults_injected"] == 0, rep
+    ok, msg = rows_equal(want, got)
+    assert ok, msg
+
+
+@pytest.mark.gpu
+def test_injected_ooms_around_contains_keep_match_starts_exact(monkeypatch):
+    """Injected OOMs on every second launch under a recovery scope around a
+    ``Contains`` filter: the rows equal the fault-free run and every plane
+    handed to ``match_starts`` gives the plain version's mask."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.resilience import retry as R
+
+    o, li = gen_orders_lineitem(0.01, 19980802)
+    fn = SLICE_QUERIES["contains_agg"][0]
+    want = fn(lambda t: TorchSession({}, device="cuda").create_dataframe(o)).collect()
+    seen = []
+    real = SK.match_starts
+
+    def record(data, lengths, pat, consumer="direct"):
+        seen.append((data, lengths, pat))
+        return real(data, lengths, pat, consumer)
+
+    monkeypatch.setattr(SK, "match_starts", record)
+    R.reset()
+    faulty = TorchSession({"spark.rapids.tpu.faults.enabled": True,
+                           "spark.rapids.tpu.faults.deviceOomEveryN": 2}, device="cuda")
+    assert fn(lambda t: faulty.create_dataframe(o)).collect() == want
+    assert R.report()["faults_injected"] > 0 and seen
+    for data, lengths, pat in seen:
+        assert torch.equal(real(data, lengths, pat), SK.match_starts_plain(data, lengths, pat))
+
+
+@pytest.mark.gpu
+def test_catalog_buffer_round_trips_pinned_host_and_disk(tmp_path):
+    """A registered batch on the card goes device → pinned host → disk →
+    device bit for bit, and the spill counts what the allocator freed."""
+    _need_gpu()
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar.device import host_to_device
+    from spark_rapids_tpu_torch.mem.spill import BufferCatalog, StorageTier, _tensors
+
+    o, _ = gen_orders_lineitem(0.01, 19980802)
+    db = host_to_device(o, "cuda")
+    want = [t.clone() for t in _tensors(db)]
+    cat = BufferCatalog(spill_dir=str(tmp_path))
+    h = cat.register(db)
+    del db
+    # the allocator's drop: each storage's block is rounded up to 512 bytes
+    freed = cat.synchronous_spill(h.size_bytes)
+    assert h.size_bytes <= freed <= h.size_bytes + 512 * len(want)
+    buf = cat._buffers[h.id]
+    assert buf.tier == StorageTier.HOST
+    assert all(t is None or t.is_pinned() for c in buf.host[0] for t in c[1:])
+    cat.host_limit = 0
+    cat.synchronous_spill(0)
+    assert buf.tier == StorageTier.DISK and len(list(tmp_path.iterdir())) == 1
+    got = _tensors(h.get_batch())
+    assert all(g.device.type == "cuda" for g in got)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(want, got))
+    assert np.isclose(cat.device_bytes, h.size_bytes)
+    h.close()

@@ -176,7 +176,18 @@ def host_to_device(
     """HostBatch → DeviceBatch padded to a power-of-two capacity.
     ``max_str_bytes`` (spark.rapids.tpu.string.maxBytes) caps the padded
     string width the fixed-width layout will materialize; longer values
-    raise."""
+    raise. The upload bills the query's ``h2d`` ledger phase; building the
+    padded string planes on the device bills ``pad`` inside it, as the
+    JAX package's shape-bucket padding does."""
+    from ..obs import ledger as _ledger
+
+    with _ledger.phase("h2d"):
+        return _host_to_device(hb, device, max_str_bytes)
+
+
+def _host_to_device(hb: HostBatch, device, max_str_bytes: Optional[int]) -> DeviceBatch:
+    from ..obs import ledger as _ledger
+
     device = torch.device(device)
     n = hb.num_rows
     cap = bucket_capacity(max(n, 1))
@@ -199,7 +210,8 @@ def host_to_device(
             values = torch.from_numpy(hc.data).to(device)
             lengths = torch.zeros(cap, dtype=torch.int32, device=device)
             lengths[:n] = torch.from_numpy(lens_np).to(device)
-            plane = _string_plane(offsets, values, n, cap, width)
+            with _ledger.phase("pad"):
+                plane = _string_plane(offsets, values, n, cap, width)
             cols.append(DeviceColumn(dt, plane, validity, lengths))
             continue
         if isinstance(dt, NullType):

@@ -4,8 +4,8 @@ port reads.
 Cut from ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder, the
 same key names and defaults, and ``TpuConf`` unchanged, so the reference's
 test confs apply as they are. A key the port does not read (the JAX
-package's serving, caching, transport faults, Pallas and scheduling keys) is
-not defined here: ``TpuConf`` keeps it as an unknown setting that nothing
+package's serving, caching, shuffle, transport faults, Pallas and
+precompilation keys) is not defined here: ``TpuConf`` keeps it as an unknown setting that nothing
 reads. Every operator/expression rule also gets a kill switch
 (``spark.rapids.sql.exec.*`` / ``spark.rapids.sql.expression.*``), read
 through ``TpuConf.rule_enabled`` by ``plan/overrides.py``.
@@ -200,7 +200,11 @@ TASK_MAX_FAILURES = conf("spark.task.maxFailures").doc(
 
 CONCURRENT_TPU_TASKS = conf("spark.rapids.sql.concurrentGpuTasks").doc(
     "Number of concurrent tasks that may hold the device at once — admission "
-    "control via the device semaphore (reference: GpuSemaphore.scala)."
+    "control via the device semaphore (reference: GpuSemaphore.scala), and "
+    "the size of the session's partition-task thread pool. Re-read at every "
+    "query, so a long-lived service can retune it live; query-level "
+    "admission across tenants is the scheduler's permit pool "
+    "(spark.rapids.tpu.scheduler.*)."
 ).int_conf(4)
 
 MEMORY_DEBUG = conf("spark.rapids.memory.tpu.debug").doc(
@@ -287,6 +291,291 @@ FAULTS_SPILL_READ_ERROR_EVERY_N = conf(
     "Fail every Nth disk-tier re-materialization read with an IO error "
     "(surfaces as a catalog SpillError naming the buffer); 0 disables."
 ).int_conf(0)
+
+# ── the query runtime: observability, pipelining, fusion, scheduling ───────
+
+PROFILE_PATH = conf("spark.rapids.sql.profile.path").doc(
+    "When set, each collect() is wrapped in a torch.profiler trace written "
+    "to this directory as Chrome-trace JSON, with an NVTX range per "
+    "operator batch on a CUDA device — the Nsight+NVTX analogue "
+    "(NvtxWithMetrics.scala)."
+).string_conf("")
+
+PROFILE_OPTIME = conf("spark.rapids.sql.profile.opTime.enabled").doc(
+    "Per-operator device-time attribution: every exec's output batches are "
+    "waited for (torch.cuda.synchronize on a CUDA device) under a timer "
+    "feeding its opTime metric. Serializes the pipeline "
+    "(CUDA_LAUNCH_BLOCKING-style) — debug only."
+).boolean_conf(False)
+
+METRICS_LEVEL = conf("spark.rapids.sql.metrics.level").doc(
+    "ESSENTIAL, MODERATE or DEBUG — how many metrics operators publish "
+    "(reference: RapidsConf.scala:456)."
+).string_conf("MODERATE")
+
+METRICS_LEVEL_TPU = conf("spark.rapids.tpu.metrics.level").doc(
+    "Engine override of spark.rapids.sql.metrics.level for the obs/ "
+    "subsystem: ESSENTIAL (counters only — no per-batch timer reads), "
+    "MODERATE (plus transfer/pipeline timings) or DEBUG (plus opTime "
+    "device-time attribution). Unset inherits the sql key."
+).string_conf(None)
+
+TRACE_ENABLED = conf("spark.rapids.tpu.trace.enabled").doc(
+    "Hierarchical query tracing (obs/trace.py): each sampled query records "
+    "query → operator → batch spans — including work executed on pipeline "
+    "producer threads via span-context propagation — into a ring buffer "
+    "exportable as Chrome-trace/Perfetto JSON. Implied by "
+    "spark.rapids.tpu.trace.dir."
+).boolean_conf(False)
+
+TRACE_SAMPLE = conf("spark.rapids.tpu.trace.sample").doc(
+    "Fraction of queries traced when tracing is enabled (Dapper-style "
+    "sampling): 1.0 traces every query, 0.01 one in a hundred. The "
+    "per-query decision is deterministic in the session's query sequence "
+    "number, so a rerun traces the same queries."
+).double_conf(1.0)
+
+TRACE_DIR = conf("spark.rapids.tpu.trace.dir").doc(
+    "When set, every traced query writes query-<n>.trace.json (Chrome-"
+    "trace/Perfetto: load at ui.perfetto.dev) and query-<n>.metrics.json "
+    "(the per-query metrics artifact) into this directory. Setting it "
+    "implies spark.rapids.tpu.trace.enabled."
+).string_conf(None)
+
+TRACE_BUFFER_SPANS = conf("spark.rapids.tpu.trace.bufferSpans").doc(
+    "Span ring-buffer capacity per traced query; the oldest spans are "
+    "overwritten beyond it (exporters report the drop count, and the "
+    "process-wide trace.droppedSpans counter records every overwrite)."
+).int_conf(65536)
+
+METRICS_HTTP_PORT = conf("spark.rapids.tpu.metrics.httpPort").doc(
+    "Live scrape endpoint (obs/scrape.py): a stdlib HTTP listener serving "
+    "/metrics (Prometheus text exposition of the process registry, "
+    "histograms included) and /healthz (liveness). 0 disables (default), "
+    "a positive port binds there, -1 binds an ephemeral port. Started once "
+    "per session, at construction."
+).int_conf(0)
+
+METRICS_MAX_DYNAMIC_SLUGS = conf("spark.rapids.tpu.metrics.maxDynamicSlugs").doc(
+    "Cardinality cap for dynamically-named metric series (cancel-reason, "
+    "stall-site, pool families): at most this many distinct slugs per "
+    "prefix; overflow folds into one 'other' bucket and counts in "
+    "metrics.slugOverflow."
+).int_conf(64)
+
+LEDGER_ENABLED = conf("spark.rapids.tpu.ledger.enabled").doc(
+    "Host-overhead ledger (obs/ledger.py): decompose each query's wall "
+    "clock into exhaustive non-overlapping phases (parse/plan, compile, "
+    "h2d, pad, dispatch, device wait, d2h, serialize, queue wait, "
+    "recovery, glue residual), exported via df.explain('metrics') and the "
+    "per-query JSON artifact."
+).boolean_conf(True)
+
+CBO_ENABLED = conf("spark.rapids.sql.optimizer.enabled").doc(
+    "Cost-based un-conversion: device islands whose estimated compute is "
+    "too small to pay for their H2D/D2H transitions revert to the CPU "
+    "engine (reference: CostBasedOptimizer.scala, default off there too)."
+).boolean_conf(False)
+
+CBO_CALIBRATION_ENABLED = conf("spark.rapids.tpu.cbo.calibration.enabled").doc(
+    "Harvest measured per-op device/host ns-per-row into the persisted "
+    "calibration table at every query exit (obs/calibration.py). Implies "
+    "per-batch opTime attribution (profiling.instrument_plan) while on — "
+    "a measurement mode, not a hot-path default."
+).boolean_conf(False)
+
+CBO_CALIBRATION_FILE = conf("spark.rapids.tpu.cbo.calibrationFile").doc(
+    "Path of the persisted JSON calibration table (EWMA per-op-signature "
+    "measured costs). Default: build/cbo_calibration.json at the root of "
+    "the checkout."
+).string_conf(None)
+
+CBO_MEASURED_WEIGHTS = conf("spark.rapids.tpu.cbo.measuredWeights").doc(
+    "Drive the cost-based optimizer's island un-conversion from the "
+    "MEASURED calibration table instead of the hardcoded per-op weights "
+    "(plan/overrides.py). With this off — or the calibration file absent "
+    "or empty — planning is bit-identical to the hardcoded table; the "
+    "chosen weight source and numbers appear in the explain output."
+).boolean_conf(False)
+
+PIPELINE_ENABLED = conf("spark.rapids.tpu.pipeline.enabled").doc(
+    "Dispatch-ahead partition pipelining: blocking plan sinks (the D2H "
+    "pull at collect(), LIMIT's per-batch row-count sync) consume their "
+    "upstream batch stream through a bounded prefetch window driven by a "
+    "producer thread, so device work for batches i+1..k is launched while "
+    "the sink blocks on batch i. Kill switch for the pipelined path."
+).boolean_conf(True)
+
+PIPELINE_MAX_BATCHES = conf("spark.rapids.tpu.pipeline.maxBatches").doc(
+    "Maximum batches in flight per pipelined partition stream (the "
+    "dispatch-ahead window depth). Bounds device-buffer growth together "
+    "with spark.rapids.tpu.pipeline.maxInflightBytes."
+).int_conf(4)
+
+PIPELINE_MAX_INFLIGHT_BYTES = conf(
+    "spark.rapids.tpu.pipeline.maxInflightBytes"
+).doc(
+    "Byte bound on the batches buffered ahead by a pipelined partition "
+    "stream; the producer also requests spill-catalog headroom before "
+    "each prefetch. 0 (default) sizes automatically: a quarter of the "
+    "spillable device budget when known, else 1 GiB."
+).bytes_conf(0)
+
+FUSION_ENABLED = conf("spark.rapids.tpu.fusion.enabled").doc(
+    "Whole-stage fusion (plan/fusion.py): maximal chains of adjacent "
+    "device project/filter operators collapse into a single StageExec "
+    "that evaluates every step over one batch under one run_device (one "
+    "retry scope, one cancel check, one breaker key per stage). "
+    "Bit-identical to per-op execution by construction; chains break at "
+    "task-dependent expressions (row_base semantics) and at expressions "
+    "with ANSI error sites (their per-op error channel must keep its batch "
+    "attribution). Kill switch for the fused path."
+).boolean_conf(True)
+
+FUSION_MAX_OPS = conf("spark.rapids.tpu.fusion.maxOps").doc(
+    "Maximum operators fused into one StageExec; longer chains split into "
+    "consecutive stages."
+).int_conf(16)
+
+SCHEDULER_ENABLED = conf("spark.rapids.tpu.scheduler.enabled").doc(
+    "Gate every query action (collect/to_host/to_torch) through the "
+    "session's multi-tenant scheduler: memory-aware admission control over "
+    "a weighted permit pool, fair-share pools, bounded queueing with typed "
+    "QueryQueueFull backpressure. Disabling skips permit gating; "
+    "cancellation and deadlines keep working."
+).boolean_conf(True)
+
+SCHEDULER_PERMITS = conf("spark.rapids.tpu.scheduler.permits").doc(
+    "Device capacity units of the admission pool. Each query takes "
+    "ceil(estimatedPeakBytes / bytesPerPermit) permits (clamped to the "
+    "pool size), so several small queries or one scan-heavy join hold the "
+    "device at a time — the query-granular generalization of "
+    "spark.rapids.sql.concurrentGpuTasks. Re-read per query."
+).int_conf(8)
+
+SCHEDULER_MAX_QUEUED = conf("spark.rapids.tpu.scheduler.maxQueued").doc(
+    "Maximum queries waiting for admission across all pools; an admission "
+    "past this bound is rejected with the typed QueryQueueFull error. "
+    "Re-read per query."
+).int_conf(32)
+
+SCHEDULER_POOL = conf("spark.rapids.tpu.scheduler.pool").doc(
+    "Fair-share pool this session's queries are admitted under (Spark FAIR "
+    "scheduler pools analogue), read at each query's admission."
+).string_conf("default")
+
+SCHEDULER_POOLS = conf("spark.rapids.tpu.scheduler.pools").doc(
+    "Pool weight spec 'name:weight,name:weight' (e.g. 'etl:1,interactive:"
+    "3'). Under saturation a pool is admitted permit-capacity proportional "
+    "to its weight (stride scheduling); FIFO within each pool. Unlisted "
+    "pools get weight 1. Re-read per query."
+).string_conf(None)
+
+SCHEDULER_QUERY_TIMEOUT_S = conf("spark.rapids.tpu.scheduler.queryTimeout").doc(
+    "Per-query deadline in seconds, measured from admission request "
+    "(queue wait included). Expiry raises the typed QueryTimeoutError at "
+    "the next batch boundary — queued or mid-execution. 0 disables."
+).double_conf(0.0)
+
+SCHEDULER_BYTES_PER_PERMIT = conf("spark.rapids.tpu.scheduler.bytesPerPermit").doc(
+    "Estimated-footprint bytes one admission permit stands for; a query "
+    "needs ceil(estimate / this) permits."
+).bytes_conf(256 << 20)
+
+SCHEDULER_DEFAULT_QUERY_BYTES = conf(
+    "spark.rapids.tpu.scheduler.defaultQueryBytes"
+).doc(
+    "Footprint assumed for a query whose plan yields no measurable "
+    "estimate (sched/estimate.py returns 0)."
+).bytes_conf(256 << 20)
+
+SCHEDULER_SHED_EXPIRED = conf("spark.rapids.tpu.scheduler.shedExpired").doc(
+    "Deadline-aware load shedding: reject a query at admission when its "
+    "estimated queue wait plus estimated run time (calibrated from "
+    "completed-query timings) already exceeds its deadline, with the typed "
+    "QueryOverloadedError and a retry-after hint."
+).boolean_conf(True)
+
+WATCHDOG_ENABLED = conf("spark.rapids.tpu.watchdog.enabled").doc(
+    "Master switch for the progress watchdog thread (resilience/watchdog."
+    "py): scans running queries for missing progress beats. The thread "
+    "only exists while stallTimeout is non-zero."
+).boolean_conf(True)
+
+WATCHDOG_STALL_TIMEOUT_S = conf("spark.rapids.tpu.watchdog.stallTimeout").doc(
+    "Seconds a RUNNING query may go without a progress beat (batch "
+    "boundary, H2D upload, pipeline pull, kernel build start/end) before "
+    "the watchdog cancels it with reason 'stall:<site>', feeds the circuit "
+    "breaker, and releases its permits through the normal admission exit. "
+    "0 disables stall detection."
+).double_conf(0.0)
+
+WATCHDOG_BEAT_INTERVAL_S = conf("spark.rapids.tpu.watchdog.beatInterval").doc(
+    "Watchdog scan period in seconds; a stalled query is cancelled within "
+    "stallTimeout + one beat interval. 0 picks stallTimeout/4 clamped to "
+    "[0.05, 5]."
+).double_conf(0.0)
+
+SPECULATION_ENABLED = conf("spark.rapids.tpu.speculation.enabled").doc(
+    "Launch a speculative duplicate attempt for partitions that run far "
+    "past the measured baseline (spark.speculation analogue). The monitor "
+    "watches per-partition runtimes once speculation.quantile of the "
+    "query's partitions completed; first commit wins, the loser is "
+    "cancelled through its attempt token, and the duplicate's device "
+    "share is accounted as one extra scheduler permit (skipped when none "
+    "is free). Applies to multi-partition parallel collect()s."
+).boolean_conf(False)
+
+SPECULATION_QUANTILE = conf("spark.rapids.tpu.speculation.quantile").doc(
+    "Fraction of the query's partitions that must have completed before "
+    "stragglers are considered (spark.speculation.quantile)."
+).double_conf(0.75)
+
+SPECULATION_MULTIPLIER = conf("spark.rapids.tpu.speculation.multiplier").doc(
+    "A running partition is speculatable once its elapsed time exceeds "
+    "this multiple of the completed partitions' median runtime "
+    "(spark.speculation.multiplier)."
+).double_conf(1.5)
+
+SPECULATION_MIN_RUNTIME_S = conf(
+    "spark.rapids.tpu.speculation.minRuntime"
+).doc(
+    "Floor (seconds) under the speculation threshold: partitions faster "
+    "than this are never speculated regardless of the multiplier."
+).double_conf(0.25)
+
+SPECULATION_INTERVAL_S = conf("spark.rapids.tpu.speculation.interval").doc(
+    "How often (seconds) the speculation monitor scans running partitions "
+    "against the baseline (spark.speculation.interval)."
+).double_conf(0.05)
+
+FAULTS_KERNEL_STALL_EVERY_N = conf(
+    "spark.rapids.tpu.faults.kernelStallEveryN"
+).doc(
+    "Stall every Nth device launch under a recovery scope for "
+    "kernelStallMs before running it (a wedged-device simulation — no "
+    "error is raised; the progress watchdog is what must notice); 0 "
+    "disables."
+).int_conf(0)
+
+FAULTS_KERNEL_STALL_MS = conf("spark.rapids.tpu.faults.kernelStallMs").doc(
+    "Injected stall duration for the kernel-stall point."
+).double_conf(500.0)
+
+FAULTS_STALL_PARTITION = conf("spark.rapids.tpu.faults.stallPartition").doc(
+    "Stall the FIRST attempt of this partition id for stallPartitionSeconds "
+    "at task start — the deterministic straggler the speculation layer must "
+    "overtake (re-attempts and speculative duplicates never stall, so the "
+    "duplicate wins and the stalled loser is cancelled); -1 disables."
+).int_conf(-1)
+
+FAULTS_STALL_PARTITION_S = conf(
+    "spark.rapids.tpu.faults.stallPartitionSeconds"
+).doc(
+    "Injected stall duration for the straggler point. The sleep beats the "
+    "attempt's cancel token, so a cancelled loser exits within ~20ms."
+).double_conf(2.0)
+
 
 class TpuConf:
     """An immutable-ish view over a key→string dict, with typed access.

@@ -12,10 +12,18 @@ complete modes; its filter-fusion decision is the JAX package's
 select's candidate prefilter) and ``GpuExpandExec``.
 
 Eager torch runs each operator's expression tree as it comes — there is no
-per-shape program to compile — so the JAX package's kernel cache, compile
-guards, ledger and pipelining have no counterpart here yet. The expression
-library evaluates against the batch's torch namespace (``xp.py``), and
-string search runs the hand-written kernel of ``ops/strings_kernels.py``.
+per-shape program to compile — so the JAX package's kernel cache and
+compile guards have no counterpart here. The expression library evaluates
+against the batch's torch namespace (``xp.py``), and string search runs
+the hand-written kernel of ``ops/strings_kernels.py``.
+
+The query runtime sits where the JAX package's does: the download and the
+limit consume their upstream through the dispatch-ahead pipeline
+(``exec/pipeline.py``); the download bills the ledger's
+``device_execute`` and ``d2h`` phases and publishes the per-operator
+metrics; and the partition coalesce under every collect() drives its child
+partitions on ``spark.rapids.sql.concurrentGpuTasks`` worker threads,
+with straggler speculation, committing their batches in partition order.
 
 Every operator runs inside the context's memory and resilience runtime at
 the places the JAX package's do: the upload takes the device semaphore and
@@ -174,6 +182,8 @@ class HostToDeviceExec(Exec):
         max_str = cfg.STRING_MAX_BYTES.get(ctx.conf)
         device = ctx.device
         metrics = ctx.metrics
+        bytes_m = self.metric("hostToDeviceBytes", "MODERATE")
+        rows_m = self.metric("numInputRows", "ESSENTIAL")
 
         def fn(it):
             tok = ctx.cancel_token
@@ -181,6 +191,8 @@ class HostToDeviceExec(Exec):
                 if rb.num_rows == 0:
                     continue
                 metrics["hostToDeviceBytes"] += rb.nbytes
+                bytes_m.add(rb.nbytes)
+                rows_m.add(rb.num_rows)
                 for off in range(0, rb.num_rows, max_rows):
                     if tok is not None:
                         tok.check()  # a beat per uploaded chunk
@@ -263,7 +275,14 @@ class HostToDeviceExec(Exec):
 
 
 class DeviceToHostExec(Exec):
-    """Device batches → host batches (GpuColumnarToRow/GpuBringBackToHost)."""
+    """Device batches → host batches (GpuColumnarToRow/GpuBringBackToHost).
+
+    The upstream chain runs on the dispatch-ahead pipeline's producer
+    thread (``exec/pipeline.py``): its kernels for batches i+1..k are
+    launched while this sink waits on batch i, as at the JAX package's
+    ``DeviceToHostExec``. With a ledger, the wait for the device is split
+    from the copy: ``device_execute`` bills the stream sync (the copy would
+    wait for it anyway), ``d2h`` the transfer."""
 
     def __init__(self, child: Exec):
         super().__init__([child])
@@ -274,19 +293,48 @@ class DeviceToHostExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         from ..mem.spill import with_oom_retry
+        from ..obs import ledger as obs_ledger
+        from .pipeline import pipe_metrics, pipeline_conf, pipelined_partition
+
+        rows_m = self.metric("numOutputRows", "ESSENTIAL")
+        time_m = self.metric("deviceToHostTime", "MODERATE")
+        bytes_m = self.metric("deviceToHostBytes", "MODERATE")
+        timing = self.metrics_on(ctx, "MODERATE")
+        led = ctx.ledger
+        on_cuda = ctx.device.type == "cuda"
+
+        def pull(db):
+            with obs_ledger.scope_or_null(led, "d2h"):
+                if timing:
+                    with time_m.timed():
+                        return with_oom_retry(ctx.catalog, device_to_host, db)
+                return with_oom_retry(ctx.catalog, device_to_host, db)
 
         def fn(it):
             tok = ctx.cancel_token
             for db in it:
                 if tok is not None:
                     tok.check()
-                hb = with_oom_retry(ctx.catalog, device_to_host, db)
+                if led is not None and on_cuda:
+                    with led.scope("device_execute"):
+                        torch.cuda.current_stream(ctx.device).synchronize()
+                hb = pull(db)
                 del db
                 ctx.semaphore.release_if_necessary()
                 if hb.num_rows:
+                    rows_m.add(hb.num_rows)
+                    bytes_m.add(hb.nbytes)
                     yield hb
 
-        return self.children[0].execute(ctx).map_partitions(fn)
+        # conf and metrics resolve HERE, on the single-threaded plan walk —
+        # partition thunks race on a thread pool
+        pconf = pipeline_conf(ctx)
+        metrics = pipe_metrics(self, ctx) if pconf is not None else None
+
+        def run(it):
+            return pipelined_partition(pconf, ctx, it, fn, metrics)
+
+        return self.children[0].execute(ctx).map_partitions(run)
 
 
 class CoalesceGoal:
@@ -491,7 +539,20 @@ class GpuFilterExec(Exec):
 
 
 class GpuCoalescePartitionsExec(Exec):
-    """All child partitions into one, in partition order."""
+    """All child partitions into one, in partition order.
+
+    This node is the engine's executor-task-slot surface (the JAX
+    package's ``TpuCoalescePartitionsExec``): the coalesce at the root of a
+    collect() drives every leaf partition, so with
+    ``spark.rapids.sql.concurrentGpuTasks`` > 1 it runs its child
+    partitions on that many worker threads — their host work and
+    launches overlap — and yields each partition's batches in partition
+    order, whatever task finishes first, so float results do not depend
+    on the concurrency. At most that many partitions are buffered at once,
+    and each worker returns its device-semaphore permit when its partition
+    completes. With ``spark.rapids.tpu.speculation.enabled`` a straggling
+    partition gets a duplicate attempt (``sched/speculation.py``); the
+    straggler fault point (``faults.stallPartition``) fires here."""
 
     def __init__(self, child: Exec):
         super().__init__([child])
@@ -505,13 +566,83 @@ class GpuCoalescePartitionsExec(Exec):
         return True
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+
         child_parts = self.children[0].execute(ctx)
+        n_workers = min(len(child_parts.parts), cfg.CONCURRENT_TPU_TASKS.get(ctx.conf))
 
         def it():
-            for t in child_parts.parts:
-                yield from t()
+            if n_workers <= 1 or task.in_task_pool():
+                for t in child_parts.parts:
+                    yield from t()
+                return
+            yield from _run_concurrent(ctx, child_parts.parts, n_workers)
 
         return PartitionSet([it])
+
+
+def _run_concurrent(ctx: ExecContext, parts: list, n_workers: int):
+    """Drive ``parts`` on ``n_workers`` threads, yielding each partition's
+    batches in partition order (the JAX package's coalesce pool). The
+    workers adopt the calling thread's phase ledger, span context and
+    watchdog token, so their work attributes to the query."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .. import config as cfg
+    from ..obs import ledger as obs_ledger
+    from ..obs import trace as obs_trace
+    from ..resilience import faults as _faults
+    from ..resilience import watchdog as _wd
+
+    led = obs_ledger.current()
+    captured = obs_trace.capture_context()
+    token = ctx.cancel_token
+    spec = None
+    if cfg.SPECULATION_ENABLED.get(ctx.conf) and token is not None:
+        from ..sched.speculation import SpeculationMonitor
+
+        scheduler = getattr(ctx.session, "_scheduler", None)
+        spec = SpeculationMonitor.from_conf(
+            ctx.conf, ctx=ctx, token=token,
+            pool=getattr(scheduler, "pool", None),
+            n_partitions=len(parts),
+        )
+
+    def attempt(i, t, tok):
+        obs_ledger.set_current(led)
+        obs_trace.attach_context(captured)
+        _wd.set_current(tok)
+        task.set_in_task_pool(True)
+        try:
+            # chaos straggler point: the first attempt of the configured
+            # partition crawls; a duplicate runs free
+            _faults.on_task_attempt(i, 0, tok)
+            return list(t())
+        finally:
+            # the primary runs on a pool worker, a duplicate on the
+            # monitor's thread — each returns its own permit
+            ctx.semaphore.release_if_necessary()
+            obs_ledger.set_current(None)
+            _wd.set_current(None)
+
+    def run_one(i, t):
+        if spec is None:
+            return attempt(i, t, token)
+        return spec.run_partition(i, lambda tok: attempt(i, t, tok))
+
+    try:
+        with ThreadPoolExecutor(max_workers=n_workers, thread_name_prefix="srt-task") as pool:
+            pending = {i: pool.submit(run_one, i, parts[i]) for i in range(n_workers)}
+            nxt = n_workers
+            for i in range(len(parts)):
+                batches = pending.pop(i).result()
+                if nxt < len(parts):
+                    pending[nxt] = pool.submit(run_one, nxt, parts[nxt])
+                    nxt += 1
+                yield from batches
+    finally:
+        if spec is not None:
+            spec.close()
 
 
 # ── aggregate ───────────────────────────────────────────────────────────────
@@ -1293,9 +1424,11 @@ class GpuLimitExec(Exec):
     """CollectLimit on the device: one partition, the first ``n`` rows of
     the children's partitions in order (the JAX package's ``TpuLimitExec``).
     It fetches each batch's row count after the slice, to know when to stop
-    — the JAX package's one sync per batch. The JAX package hides those
-    syncs behind a prefetch of the upstream stream (``exec/pipeline.py``);
-    the port has no pipeline yet (ROADMAP Queue A item 12)."""
+    — the JAX package's one sync per batch — and, as there, consumes each
+    child partition through the dispatch-ahead pipeline
+    (``exec/pipeline.py``) so those syncs hide the upstream's launches; the
+    bounded window caps how far past the limit a producer runs before the
+    early-exit close stops it."""
 
     def __init__(self, n: int, child: Exec):
         super().__init__([child])
@@ -1310,23 +1443,32 @@ class GpuLimitExec(Exec):
         return True
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .pipeline import pipe_metrics, pipeline_conf, pipelined_partition
+
         limit = self.n
         child_parts = self.children[0].execute(ctx)
+        pconf = pipeline_conf(ctx)
+        metrics = pipe_metrics(self, ctx) if pconf is not None else None
 
         def it():
             remaining = limit
             tok = ctx.cancel_token
-            for t in child_parts.parts:
-                for db in t():
+
+            def consume(src):
+                nonlocal remaining
+                for db in src:
                     if tok is not None:
                         tok.check()
                     if remaining <= 0:
-                        break
+                        return
                     out = slice_head(db, remaining)
                     n = out.row_count()
                     remaining -= n
                     if n:
                         yield out
+
+            for t in child_parts.parts:
+                yield from pipelined_partition(pconf, ctx, t(), consume, metrics)
                 if remaining <= 0:
                     return
 

@@ -17,9 +17,8 @@ function; ``Ctx.task`` exposes them to expression ``eval``. The host-side
 Copied from ``spark_rapids_tpu/exec/task.py``. On the device ``TaskVals``
 holds torch scalars; ``zero_vals`` is left out (nothing compiles per shape,
 so a batch function that reads no task value gets ``None``). ``run_device``
-drives the device project and filter through the OOM retry state machine,
-as in the JAX package, without its ledger scopes (the ``obs`` ledger comes
-with a later slice).
+drives the device project, filter and fused stage through the OOM retry
+state machine, with the JAX package's ``dispatch`` ledger scope.
 """
 from __future__ import annotations
 
@@ -69,6 +68,19 @@ def current_attempt() -> int:
 
 def set_attempt(attempt: int) -> None:
     _LOCAL.attempt = int(attempt)
+
+
+def in_task_pool() -> bool:
+    """Whether this thread runs one partition task of a concurrent pool (a
+    coalesce worker, a session pool worker, or a pipeline producer started
+    from one). A nested coalesce then drives its own child partitions on
+    this thread, serially: a second pool inside a task could hold every
+    device-semaphore permit while its own workers wait for one."""
+    return getattr(_LOCAL, "in_pool", False)
+
+
+def set_in_task_pool(flag: bool) -> None:
+    _LOCAL.in_pool = bool(flag)
 
 
 def get_or_create(partition_id: int = 0) -> TaskInfo:
@@ -175,6 +187,7 @@ def run_device(fn, it, needs_task, catalog, policy, op=None, breaker=None,
     unwinds through the normal error path."""
     import torch
 
+    from ..obs import ledger as _ledger
     from ..resilience import retry as R
     from ..xp import namespace
 
@@ -184,10 +197,18 @@ def run_device(fn, it, needs_task, catalog, policy, op=None, breaker=None,
         from ..resilience import watchdog as _wd
 
         _wd.set_current(token)
+    # host-overhead ledger: each launch bills its time to the 'dispatch'
+    # phase (nested h2d/compile scopes subtract themselves out — exclusive
+    # scopes). The ledger is resolved ONCE per partition; un-ledgered paths
+    # keep a no-op scope.
+    led = _ledger.current()
     if not needs_task:
         for db in it:
             if token is not None:
                 token.check()
+            # NOT scoped: run_with_retry yields split halves lazily (the
+            # OOM contract — halves must not be held concurrently), so its
+            # time lands in the caller's phase instead
             yield from R.run_with_retry(
                 catalog, lambda b: fn(b, None), db, policy, op=op, breaker=breaker,
             )
@@ -197,8 +218,9 @@ def run_device(fn, it, needs_task, catalog, policy, op=None, breaker=None,
         if token is not None:
             token.check()
         tv = task_vals(namespace(db.device), row_base=base)
-        out = R.run_once(
-            catalog, lambda b: fn(b, tv), db, policy, op=op, breaker=breaker,
-        )
+        with _ledger.scope_or_null(led, "dispatch"):
+            out = R.run_once(
+                catalog, lambda b: fn(b, tv), db, policy, op=op, breaker=breaker,
+            )
         base = tv.row_base + db.num_rows.to(torch.int64)
         yield out

@@ -8,6 +8,11 @@ hand-written CUDA kernels: each ``csrc/*.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use, into
 ``build/torch_kernels/`` at the root of the checkout, and loaded with
 ``ctypes``. A kernel that fails to build raises; nothing falls back.
+
+A build is the port's only compile: it bills the query's ``compile``
+ledger phase, is labelled ``stall_phase("compile")`` for the watchdog, and
+counts on ``kernel.builds``, ``kernel.compileTimeNs`` and
+``kernel.compileHist``.
 """
 from __future__ import annotations
 
@@ -70,15 +75,24 @@ def build(name: str) -> None:
     if out.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "report": "(cached)", "path": str(out)})
         return
+    from .obs import ledger as _ledger
+    from .obs.metrics import GLOBAL as _M
+    from .resilience.watchdog import stall_phase
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter_ns()
+    with _ledger.phase("compile"), stall_phase("compile", detail=name):
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ns = time.perf_counter_ns() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
     os.replace(tmp, out)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "report": proc.stdout, "path": str(out)}
+    _M.counter("kernel.builds").add(1)
+    _M.timer("kernel.compileTimeNs").add(ns)
+    _M.histogram("kernel.compileHist").observe(ns)
+    BUILD_INFO[name] = {"seconds": ns / 1e9, "report": proc.stdout, "path": str(out)}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -13,18 +13,24 @@ that tells exporters how to render it:
   in-flight depth — the reference's ``peakDevMemory``).
 
 A :class:`MetricRegistry` is a dict of metrics with a *locked*
-get-or-create. The process-wide one, :data:`GLOBAL`, holds the spill bytes
-by tier, semaphore waits, the resilience counters and task re-attempts;
-``mem/`` and ``resilience/`` publish there, and readers take a
-:meth:`MetricRegistry.view` of a prefix.
+get-or-create. Two scopes exist:
+
+- per-operator-instance: ``Exec.metrics`` (plan/physical.py) — rebuilt per
+  query with the plan;
+- process-wide: :data:`GLOBAL` — kernel builds, spill bytes by tier,
+  semaphore waits, resilience counters, the scheduler, pipeline, fusion,
+  speculation and watchdog series. Module-level code publishes here;
+  sessions read it through :mod:`spark_rapids_tpu_torch.obs.export` views.
 
 This module is dependency-free (stdlib threading only) so every layer of
 the engine can import it without cycles.
 
 Copied from ``spark_rapids_tpu/obs/metrics.py``. The process catalog holds
-the series the port publishes so far (spill tiers, the semaphore, the retry
-counters and task re-attempts); the kernel-cache, shuffle, scheduler,
-serving, caching and live series come with the slices that port them.
+the series the port publishes (kernel builds, spill tiers, the semaphore,
+the retry counters, task re-attempts, the scheduler, the pipeline, fusion,
+speculation, the watchdog and the trace's own drop counter), under the JAX
+package's names; the shuffle, serving, caching and live series come with
+the slices that port them.
 """
 from __future__ import annotations
 
@@ -378,6 +384,11 @@ GLOBAL = MetricRegistry(scope="process")
 # live on Exec instances and are documented there.
 
 CATALOG: Iterable[tuple] = (
+    # kernels.py — the nvcc builds of the hand-written kernels
+    ("kernel.builds", MetricKind.COUNTER, "kernel libraries built by nvcc (cache misses)"),
+    ("kernel.compileTimeNs", MetricKind.NANOS, "time spent in nvcc builds at first use"),
+    ("kernel.compileHist", MetricKind.HISTOGRAM,
+     "nvcc build time per kernel library (ns distribution)"),
     # mem/spill.py — spill bytes by tier transition + device watermark
     ("spill.bytesDeviceToHost", MetricKind.COUNTER, "bytes spilled device → host RAM"),
     ("spill.bytesHostToDisk", MetricKind.COUNTER, "bytes spilled host RAM → disk"),
@@ -388,16 +399,64 @@ CATALOG: Iterable[tuple] = (
     # mem/semaphore.py — admission control
     ("semaphore.acquires", MetricKind.COUNTER, "device-semaphore acquisitions"),
     ("semaphore.waitNs", MetricKind.NANOS, "time blocked acquiring the device semaphore"),
+    # sched/* — multi-tenant admission control (per-pool admitted counters
+    # under scheduler.pool.<name>.admitted and per-cause cancellations
+    # under scheduler.cancelled.reason.<slug> register dynamically on
+    # first use)
+    ("scheduler.admitted", MetricKind.COUNTER, "queries granted device permits"),
+    ("scheduler.rejected", MetricKind.COUNTER, "admissions rejected (QueryQueueFull)"),
+    ("scheduler.cancelled", MetricKind.COUNTER,
+     "queries cancelled (queued or running) — the aggregate over every "
+     "scheduler.cancelled.reason.* series, deadline expiries INCLUDED "
+     "(a timeout is a cancellation with reason 'deadline')"),
+    ("scheduler.timeouts", MetricKind.COUNTER,
+     "queries past their deadline (QueryTimeoutError); each is also "
+     "counted in scheduler.cancelled under reason.deadline"),
+    ("scheduler.queueWaitNs", MetricKind.NANOS, "time queries spent waiting for admission"),
+    ("scheduler.queueDepth", MetricKind.GAUGE, "queries currently waiting for admission"),
+    ("scheduler.permitsInUse", MetricKind.GAUGE, "admission permits currently held"),
+    ("scheduler.effectivePermits", MetricKind.GAUGE,
+     "live permit limit (configured permits, halved under OOM pressure)"),
+    ("scheduler.shed", MetricKind.COUNTER,
+     "admissions shed by deadline-aware load shedding (per-cause series "
+     "under scheduler.shed.reason.*; each also counts in rejected)"),
+    ("scheduler.queueWaitHist", MetricKind.HISTOGRAM,
+     "admission queue wait per query (ns distribution)"),
+    # resilience/watchdog.py — hung-query detection (per-site series under
+    # watchdog.stalls.site.* register dynamically on first use)
+    ("watchdog.stalls", MetricKind.COUNTER,
+     "queries cancelled by the progress watchdog (no beat for "
+     "stallTimeout); classified per stall site (compile/launch/fetch/"
+     "client) under watchdog.stalls.site.*"),
+    # exec/pipeline.py — dispatch-ahead producers
+    ("pipeline.dispatchHist", MetricKind.HISTOGRAM,
+     "per-batch upstream production time on pipeline producers "
+     "(ns distribution)"),
+    # obs/ self-observation — the attribution layer watches itself
+    ("trace.droppedSpans", MetricKind.COUNTER,
+     "spans overwritten by ring-buffer wrap across all tracers (a "
+     "truncated Perfetto export is detectable, not silent)"),
+    ("metrics.slugOverflow", MetricKind.COUNTER,
+     "dynamic-series observations folded into an 'other' bucket because "
+     "their prefix hit spark.rapids.tpu.metrics.maxDynamicSlugs"),
     # resilience/* — the retry.report() counters (registry view)
     ("resilience.oom_retries", MetricKind.COUNTER, "spill-and-retry launches after device OOM"),
     ("resilience.splits", MetricKind.COUNTER, "OOM batch halvings"),
     ("resilience.circuit_breaker_trips", MetricKind.COUNTER, "ops flipped to CPU by the breaker"),
     ("resilience.spill_write_errors", MetricKind.COUNTER, "disk-spill write failures (degraded to HOST)"),
     ("resilience.faults_injected", MetricKind.COUNTER, "chaos-harness injections fired"),
-    # resilience/lineage.py — partition-granular recovery
+    # resilience/lineage.py + sched/speculation.py — partition-granular
+    # recovery (task re-execution, straggler speculation, stage fallback)
     ("task.reattempts", MetricKind.COUNTER,
      "partition tasks re-executed under a fresh attempt id after a "
      "recoverable fault (spark.task.maxFailures bounds the loop)"),
+    ("speculation.launched", MetricKind.COUNTER,
+     "speculative duplicate attempts launched for straggling partitions"),
+    ("speculation.won", MetricKind.COUNTER,
+     "speculative attempts that committed first (original cancelled)"),
+    ("fusion.breakerFallbacks", MetricKind.COUNTER,
+     "fused stages rebuilt as their unfused per-op chain because the "
+     "circuit breaker opened on the stage signature"),
 )
 
 for _name, _kind, _doc in CATALOG:

@@ -666,11 +666,30 @@ class GpuOverrides:
         self.conf = conf
         self.breaker = breaker
         self.explain: List[ExplainEntry] = []
+        # stages formed by the fusion pass that follows (set by the session)
+        self.fused_stages = 0
+        # cost-model source: the hardcoded per-op weights, or — when
+        # spark.rapids.tpu.cbo.measuredWeights holds and the persisted
+        # calibration table (obs/calibration.py) has measured device
+        # costs — measured ns/row normalized into the same integer-weight
+        # currency. With the conf off or the table absent/empty this is
+        # EXACTLY the hardcoded dict: planning stays bit-identical.
+        self._cbo_weights = self._CBO_WEIGHTS
+        self._cbo_source = "default"
+        if cfg.CBO_MEASURED_WEIGHTS.get(conf):
+            from ..obs.calibration import load_weights
+
+            measured = load_weights(cfg.CBO_CALIBRATION_FILE.get(conf))
+            if measured:
+                self._cbo_weights = measured
+                self._cbo_source = "measured"
 
     def apply(self, plan: Exec) -> Exec:
         if not self.conf.is_enabled(cfg.SQL_ENABLED):
             return plan
         converted = self._convert(plan)
+        if self.conf.is_enabled(cfg.CBO_ENABLED):
+            converted = self._cost_optimize(converted)
         if converted.is_device:
             # the query root funnels to the host anyway (collect); merging
             # partitions on the device first is the JAX package's plan shape
@@ -717,7 +736,76 @@ class GpuOverrides:
             self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
             return plan.with_new_children(children)
         self.explain.append(ExplainEntry(plan.node_string(), True, []))
-        return rule.convert(plan, children)
+        converted = rule.convert(plan, children)
+        converted._cpu_original = plan  # CBO un-conversion seam
+        return converted
+
+    # cost-based un-conversion (CostBasedOptimizer.scala:29-310) ───────────
+    # DefaultCostModel stand-in: per-node compute weights; a contiguous
+    # device island pays two transitions, so islands whose total weight is
+    # below the threshold go back to the CPU engine (the JAX package's
+    # TpuOverrides._cost_optimize, with the port's operator names).
+    _CBO_WEIGHTS = {
+        "GpuProjectExec": 1,
+        "GpuFilterExec": 1,
+        "GpuLimitExec": 1,
+        "GpuCoalescePartitionsExec": 0,
+    }
+    _CBO_TRANSITION_COST = 3
+
+    def _island_weight(self, plan: Exec) -> int:
+        """Total weight of the contiguous device region rooted here (host
+        children are the island's boundaries). Weights come from the
+        active cost table: hardcoded, or measured (calibration) when the
+        conf selected it — unknown ops default heavy either way."""
+        w = self._cbo_weights.get(type(plan).__name__, 10)
+        for c in plan.children:
+            if c.is_device:
+                w += self._island_weight(c)
+        return w
+
+    def _unconvert_island(self, plan: Exec, weight: Optional[int] = None) -> Exec:
+        """Put a device island back on the CPU engine via each node's
+        ``_cpu_original`` seam, with the CBO's reason (and, at the root,
+        the weights that decided) in the explain output."""
+        if not plan.is_device:
+            return self._cost_optimize(plan)
+        kids = [self._unconvert_island(c) for c in plan.children]
+        orig = getattr(plan, "_cpu_original", None)
+        if orig is None:
+            return plan.with_new_children(kids)
+        detail = (
+            f" ({self._cbo_source} weights: island {weight} < "
+            f"transition cost {self._CBO_TRANSITION_COST})"
+            if weight is not None
+            else ""
+        )
+        self.explain.append(
+            ExplainEntry(
+                orig.node_string(),
+                False,
+                [f"cost-based optimizer: island too small to pay transitions{detail}"],
+            )
+        )
+        return orig.with_new_children(kids)
+
+    def _keep_island(self, plan: Exec) -> Exec:
+        """Inside a kept island: never re-evaluate interior sub-islands (the
+        transition boundary wouldn't move, only device work would be lost);
+        resume cost analysis below the island's host boundaries."""
+        kids = [
+            self._keep_island(c) if c.is_device else self._cost_optimize(c)
+            for c in plan.children
+        ]
+        return plan.with_new_children(kids)
+
+    def _cost_optimize(self, plan: Exec) -> Exec:
+        if plan.is_device:
+            w = self._island_weight(plan)
+            if w < self._CBO_TRANSITION_COST:
+                return self._unconvert_island(plan, w)
+            return self._keep_island(plan)
+        return plan.with_new_children([self._cost_optimize(c) for c in plan.children])
 
     # transition insertion (GpuTransitionOverrides)
     def _insert_transitions(self, plan: Exec, want_device: bool) -> Exec:

@@ -13,17 +13,25 @@ resilience runtime the operators run inside, as the JAX context does
 semaphore, the spill catalog with the device budget (sized from
 ``torch.cuda.mem_get_info`` and any per-process cap, where the JAX package
 reads ``jax.local_devices()`` memory stats), the OOM retry policy, the
-session's circuit breaker and the query's cancel token. Operator metrics,
-scheduling, shuffle and mesh state come with later slices.
+session's circuit breaker and the query's cancel token (a property: a
+worker thread may install an attempt-scoped override with
+``token_override``, as speculation does). It also carries the query's
+sequence number, its phase ledger (``obs/ledger.py``, set by the session's
+prepare) and the metrics level; every ``Exec`` has its own metric registry
+(``metric``, ``metrics_on``, ``collect_metrics``), as in the JAX package.
+Shuffle and mesh state come with later slices.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from collections import Counter
-from typing import Callable, Iterator, List, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import torch
 
 from ..config import TpuConf
+from ..obs.metrics import METRIC_LEVELS, Metric, MetricRegistry
 from ..types import Schema
 
 
@@ -69,9 +77,52 @@ class ExecContext:
         self.device_limit = max(limit, 0)
         if self.device_limit:
             self.catalog.device_limit = self.device_limit
-        # the query's cancellation token (sched/cancel.py), checked at batch
-        # boundaries; None = unscheduled execution (no checks)
-        self.cancel_token = None
+        # spark.rapids.tpu.metrics.level wins when set; else the reference's
+        # spark.rapids.sql.metrics.level key (obs/metrics.py taxonomy)
+        level = (
+            cfg.METRICS_LEVEL_TPU.get(conf)
+            or cfg.METRICS_LEVEL.get(conf)
+            or "MODERATE"
+        )
+        self.metrics_level = METRIC_LEVELS.get(level.upper(), 1)
+        # the session's query sequence number (trace file names, query ids)
+        self.query_seq = session._next_query_seq() if session is not None else 0
+        # the query's phase ledger (obs/ledger.py); None = ledger off
+        self.ledger = None
+        # the query's cancellation token (sched/cancel.py), installed at
+        # admission and checked at batch boundaries; None = unscheduled
+        # execution (no checks). A worker thread may install a thread-local
+        # override (an attempt-scoped LinkedCancelToken) via
+        # ``token_override`` so ONE partition attempt can be cancelled —
+        # speculation losing the race — without touching the query token
+        # every other partition checks.
+        self._cancel_token = None
+        self._token_tls = threading.local()
+
+    @property
+    def cancel_token(self):
+        """The token operators should check: the thread-local attempt
+        override when one is installed, else the query-level token set at
+        admission. Operators read this lazily inside their partition
+        closures, so the override reaches every node of the running
+        partition without plan surgery."""
+        tok = getattr(self._token_tls, "token", None)
+        return tok if tok is not None else self._cancel_token
+
+    @cancel_token.setter
+    def cancel_token(self, token) -> None:
+        self._cancel_token = token
+
+    @contextlib.contextmanager
+    def token_override(self, token):
+        """Install ``token`` as this worker thread's cancel token for the
+        duration of one partition attempt."""
+        prev = getattr(self._token_tls, "token", None)
+        self._token_tls.token = token
+        try:
+            yield token
+        finally:
+            self._token_tls.token = prev
 
 
 def _scoped_part(index: int, thunk):
@@ -130,6 +181,7 @@ class Exec:
 
     def __init__(self, children: Sequence["Exec"]):
         self._children = list(children)
+        self.metrics: MetricRegistry = MetricRegistry()
 
     # ── tree ────────────────────────────────────────────────────────────
     @property
@@ -141,6 +193,7 @@ class Exec:
 
         new = copy.copy(self)
         new._children = list(children)
+        new.metrics = MetricRegistry()
         return new
 
     # ── contract ────────────────────────────────────────────────────────
@@ -155,6 +208,32 @@ class Exec:
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         raise NotImplementedError
+
+    # ── metrics ─────────────────────────────────────────────────────────
+    def metric(
+        self, name: str, level: str = "ESSENTIAL", kind: Optional[str] = None
+    ) -> Metric:
+        """Get-or-create this node's metric (locked — partition tasks and
+        pipeline producers may race first touch). ``kind`` (MetricKind)
+        drives exporter rendering; inferred from the name when omitted."""
+        return self.metrics.get_or_create(name, level, kind)
+
+    def metrics_on(self, ctx: "ExecContext", level: str) -> bool:
+        """Is a metric of ``level`` collected under this query's
+        ``spark.rapids.sql.metrics.level``?"""
+        return METRIC_LEVELS[level] <= ctx.metrics_level
+
+    def collect_metrics(self) -> dict:
+        """node → {metric: value} for the whole subtree (Spark-UI stand-in)."""
+        out = {}
+        if self.metrics:
+            out[self.node_string()] = {
+                m.name: m.value for m in self.metrics.values()
+            }
+        for c in self.children:
+            for k, v in c.collect_metrics().items():
+                out.setdefault(k, {}).update(v)
+        return out
 
     # ── pretty print ────────────────────────────────────────────────────
     def node_string(self) -> str:

@@ -18,15 +18,20 @@ Copied from ``spark_rapids_tpu/resilience/faults.py`` with the device-side
 points: ``on_kernel_launch`` (``deviceOomEveryN``; in the port a "launch"
 is one attempt of a device batch function under a recovery scope, where
 the JAX package counts its compiled-kernel launches), ``on_batch_launch``,
-``recoverable`` and ``on_spill_write``/``on_spill_read``. The compile,
-transport, compile-cache, map-output, kernel-stall and straggler
-(``on_task_attempt``) points come with the subsystems that observe them:
-the straggler needs the watchdog or speculation to be worth injecting.
+``recoverable`` and ``on_spill_write``/``on_spill_read``, plus the two
+points the query runtime observes: ``on_kernel_stall``
+(``kernelStallEveryN``: a device launch SLEEPS without a progress beat —
+what the watchdog must notice) and ``on_task_attempt``
+(``stallPartition``: the first attempt of one partition straggles while
+beating — what speculation must overtake). The compile, transport,
+compile-cache and map-output points come with the subsystems that observe
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from contextlib import contextmanager
 from typing import Optional
 
@@ -51,6 +56,10 @@ class FaultConfig:
     kernel_error_every_n: int = 0  # splittable-operator launches (non-OOM)
     spill_write_error_every_n: int = 0  # host→disk spill writes
     spill_read_error_every_n: int = 0  # disk→host re-materializations
+    kernel_stall_every_n: int = 0  # stall (not fail) device launches
+    kernel_stall_ms: float = 0.0
+    stall_partition: int = -1  # straggle this partition id (first attempt)
+    stall_partition_s: float = 2.0
 
 
 class FaultInjector:
@@ -109,6 +118,42 @@ class FaultInjector:
                 "CUDA error: injected device kernel failure (fault injection)",
             )
 
+    def on_kernel_stall(self) -> None:
+        """Every Nth device launch under a recovery scope SLEEPS for
+        kernelStallMs before running (a wedged-device simulation — no error
+        is raised and no beat is stamped; nothing here recovers a stall;
+        the watchdog's cancel is the recovery)."""
+        c = self.config
+        if self._tick("kernel_stall", c.kernel_stall_every_n) and c.kernel_stall_ms > 0:
+            self._record("kernel_stall")
+            time.sleep(c.kernel_stall_ms / 1e3)
+
+    def on_task_attempt(self, partition_id: int, attempt: int,
+                        token=None) -> None:
+        """First attempt of the configured partition straggles: sleep in
+        token-beating slices so the watchdog sees progress (a straggler is
+        SLOW, not stalled — exactly what speculation, not the watchdog,
+        must catch). Re-executed and speculative attempts run at full
+        speed, so the duplicate attempt wins the race deterministically."""
+        c = self.config
+        if c.stall_partition < 0 or partition_id != c.stall_partition:
+            return
+        if attempt != 0 or c.stall_partition_s <= 0:
+            return
+        with self._lock:
+            # one-shot: only the FIRST attempt ever observed straggles;
+            # the speculative duplicate re-enters at attempt 0 too, and
+            # stalling it as well would leave no attempt able to win
+            if self.injected.get("stall_partition", 0):
+                return
+            self.injected["stall_partition"] = 1
+        self._record("stall_partition")
+        deadline = time.monotonic() + c.stall_partition_s
+        while time.monotonic() < deadline:
+            if token is not None:
+                token.check()  # cancelled loser unwinds mid-straggle
+            time.sleep(0.02)
+
     def on_spill_write(self) -> None:
         if self._tick("spill_write", self.config.spill_write_error_every_n):
             self._record("spill_write")
@@ -158,6 +203,18 @@ def on_batch_launch(size_bytes: int) -> None:
     inj = _ACTIVE
     if inj is not None:
         inj.on_batch_launch(size_bytes)
+
+
+def on_kernel_stall() -> None:
+    inj = _ACTIVE
+    if inj is not None:
+        inj.on_kernel_stall()
+
+
+def on_task_attempt(partition_id: int, attempt: int, token=None) -> None:
+    inj = _ACTIVE
+    if inj is not None:
+        inj.on_task_attempt(partition_id, attempt, token)
 
 
 def on_spill_write() -> None:
@@ -235,4 +292,8 @@ def config_from_conf(conf) -> Optional[FaultConfig]:
         kernel_error_every_n=cfg.FAULTS_KERNEL_ERROR_EVERY_N.get(conf),
         spill_write_error_every_n=cfg.FAULTS_SPILL_WRITE_ERROR_EVERY_N.get(conf),
         spill_read_error_every_n=cfg.FAULTS_SPILL_READ_ERROR_EVERY_N.get(conf),
+        kernel_stall_every_n=cfg.FAULTS_KERNEL_STALL_EVERY_N.get(conf),
+        kernel_stall_ms=cfg.FAULTS_KERNEL_STALL_MS.get(conf),
+        stall_partition=cfg.FAULTS_STALL_PARTITION.get(conf),
+        stall_partition_s=cfg.FAULTS_STALL_PARTITION_S.get(conf),
     )

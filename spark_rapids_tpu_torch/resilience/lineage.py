@@ -14,10 +14,11 @@ retry loop enters :func:`attempt_scope` before invoking the thunk, and
 ``TaskInfo`` — so every operator of a re-executed partition observes the
 same attempt number.
 
-Copied from ``spark_rapids_tpu/resilience/lineage.py``. The JAX
-``recovery_scope`` bills the re-executed wall time to the ``obs`` ledger's
-``recovery`` phase; the port has no ledger yet (ROADMAP Queue A 12), so its
-``recovery_scope`` only counts the re-attempt on ``task.reattempts``.
+Copied from ``spark_rapids_tpu/resilience/lineage.py``: ``recovery_scope``
+bills the re-executed wall time to the phase ledger's ``recovery`` phase
+(``obs/ledger.py``) and counts the re-attempt on ``task.reattempts``;
+``record_reattempt`` logs it and, when the query is traced, marks it with
+a zero-length ``task.reattempt`` span.
 """
 from __future__ import annotations
 
@@ -75,21 +76,43 @@ def attempt_scope(attempt: int):
         _task.set_attempt(prev)
 
 
-def record_reattempt(desc: TaskDescriptor, error: BaseException) -> None:
-    """Log one lineage re-execution and what killed the prior attempt."""
+def record_reattempt(desc: TaskDescriptor, error: BaseException,
+                     tracer=None) -> None:
+    """Log one lineage re-execution and what killed the prior attempt; with
+    a ``tracer``, a zero-length span (a Perfetto instant) marks WHERE the
+    re-execution started."""
     log.warning(
         "task failed (partition %d, attempt %d), retrying from lineage: %s: %s",
         desc.partition_id, desc.attempt, type(error).__name__, error,
     )
+    if tracer is not None:
+        try:
+            with tracer.span(
+                "task.reattempt",
+                cat="recovery",
+                args={
+                    "partition": desc.partition_id,
+                    "attempt": desc.attempt,
+                    "error": type(error).__name__,
+                },
+            ):
+                pass
+        except Exception:
+            pass
 
 
 @contextlib.contextmanager
-def recovery_scope():
+def recovery_scope(ledger=None):
     """The dynamic extent of one re-executed partition: counts it on
-    ``task.reattempts`` (the JAX package also bills its wall time to the
-    ledger's ``recovery`` phase, which the port does not have yet)."""
+    ``task.reattempts`` and bills its wall time to the ledger's
+    ``recovery`` phase (``ledger``, else the thread's current ledger; a
+    no-op scope when neither exists)."""
+    from ..obs import ledger as _ledger
+
     _M_REATTEMPTS.add(1)
-    yield
+    led = ledger if ledger is not None else _ledger.current()
+    with _ledger.scope_or_null(led, "recovery"):
+        yield
 
 
 def is_recoverable(error: BaseException) -> bool:

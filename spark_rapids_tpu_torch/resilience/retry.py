@@ -50,6 +50,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import threading
+import time
 from typing import Callable, Iterator, Optional
 
 from . import faults
@@ -159,6 +161,10 @@ def is_device_error(err: BaseException) -> bool:
 
 from ..obs.metrics import GLOBAL as _REGISTRY  # noqa: E402
 
+_METRICS_LOCK = threading.Lock()
+_LAST_OOM: Optional[float] = None  # time.monotonic of the last observed OOM
+
+
 def record(name: str, n: int = 1) -> None:
     _REGISTRY.counter("resilience." + name).add(n)
 
@@ -170,16 +176,33 @@ def report() -> dict:
 
 
 def reset() -> None:
+    global _LAST_OOM
     _REGISTRY.reset("resilience.")
+    with _METRICS_LOCK:
+        _LAST_OOM = None
 
 
 def _note_oom(catalog) -> None:
     """Mark the query whose catalog this is as having met a device OOM:
     its joins close their probe window and output cut from then on
-    (exec/gpu_join.py). Per query, never process-wide, so one query's OOM
-    does not change another's batch boundaries."""
+    (exec/gpu_join.py). That flag is per query, never process-wide, so one
+    query's OOM does not change another's batch boundaries. The process-
+    wide timestamp behind :func:`oom_pressure` changes no batch boundary:
+    it only narrows the pipeline's prefetch window and the scheduler's
+    permit limit for a while."""
+    global _LAST_OOM
     if catalog is not None:
         catalog.oom_handled = True
+    with _METRICS_LOCK:
+        _LAST_OOM = time.monotonic()
+
+
+def oom_pressure(window_s: float = 30.0) -> bool:
+    """Whether an OOM was handled recently — consumers that buffer ahead
+    (the pipeline prefetcher) clamp their windows, and the admission pool
+    halves its permits, while this holds."""
+    last = _LAST_OOM
+    return last is not None and (time.monotonic() - last) < window_s
 
 
 # ── policy ─────────────────────────────────────────────────────────────────
@@ -325,6 +348,10 @@ def launch(fn: Callable, *args):
     with faults.recoverable():
         if outer:
             faults.on_kernel_launch()
+            # wedged-device simulation (kernelStallEveryN): the launch
+            # SLEEPS instead of failing — the watchdog's stall cancel is
+            # what recovers it
+            faults.on_kernel_stall()
         return fn(*args)
 
 

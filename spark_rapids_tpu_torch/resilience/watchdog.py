@@ -1,19 +1,57 @@
-"""Progress-watchdog seams: the stall and compile-deadline error types, the
-thread-local current token and ``stall_phase``.
+"""Progress watchdog — hung-query detection and stall classification.
 
-Copied in part from ``spark_rapids_tpu/resilience/watchdog.py``. Execution
-stamps a progress beat on its query's cancel token at every batch boundary
-(``CancelToken.check()`` is the beat) and labels potentially-blocking
-regions with :func:`stall_phase`, on the thread-local token the run loops
-install with :func:`set_current`. The ``Watchdog`` monitor thread that reads
-those beats, cancels a stalled query and sweeps stale shuffle peers reads
-the scheduler and the shuffle heartbeat, so it comes with those slices
-(ROADMAP Queue A).
+The resilience layer recovers failures that RAISE (OOM, kernel errors);
+nothing recovered failures that simply STOP — a kernel build that never
+ends, a device launch that never returns, a producer wedged in a pull.
+Each of those holds scheduler permits forever.
+
+The contract here is deliberately minimal and lock-light:
+
+* **Beats.** Execution stamps a monotonic progress beat on its query's
+  :class:`~spark_rapids_tpu_torch.sched.cancel.CancelToken` at every batch
+  boundary — ``CancelToken.check()`` (called in ``exec/task.py``'s device
+  loop, the pipeline producer, the H2D upload loop and the session's
+  result loop) IS the beat, so the hot path gains one attribute write.
+  Long legitimate waits (the nvcc build of a kernel at first use) stamp
+  explicit beats at entry/exit via :func:`stall_phase`.
+
+* **Phases.** ``stall_phase("compile"|"launch", detail=op)`` labels the
+  potentially-blocking region the current thread is inside, on the
+  thread-local current token (installed by the execution loops via
+  :func:`set_current`). When a stall fires, the phase is the
+  classification, and ``detail`` (the op signature) feeds the circuit
+  breaker so a repeatedly-stalling op flips to the CPU engine at the next
+  planning pass, exactly like a repeatedly-crashing one.
+
+* **The thread.** One daemon scanner per :class:`QueryScheduler`, spawned
+  lazily at the first admission that enables it (``watchdog.stallTimeout``
+  non-zero) and self-terminating after a long idle streak — an engine
+  used as a library never pays for it. A query with no beat for
+  ``stallTimeout`` is cancelled with reason ``stall:<phase>``; the cancel
+  unwinds through the normal error path when the stalled wait returns,
+  releasing permits through the ordinary admission exit.
+
+Cancellation cannot interrupt a C call that never returns; the watchdog
+bounds the DAMAGE of such a wedge (the cancel is flagged immediately, the
+stall is counted and classified, the breaker learns).
+
+Copied from ``spark_rapids_tpu/resilience/watchdog.py``. The JAX
+package's scanner also runs the periodic stale-shuffle-peer sweep
+(``watchdog.evictStalePeriod``); the port has no shuffle heartbeat yet
+(ROADMAP Queue A item 13), so that sweep and its conf wait for it.
 """
 from __future__ import annotations
 
+import logging
 import threading
+import time
 from contextlib import contextmanager
+from typing import Optional
+
+from ..obs import metrics as obs_metrics
+
+_M = obs_metrics.GLOBAL
+log = logging.getLogger(__name__)
 
 
 class WatchdogStallError(RuntimeError):
@@ -66,3 +104,124 @@ def stall_phase(phase: str, detail: str = "", token=None):
     finally:
         tok.beat()
         tok.phase, tok.phase_detail = prev_phase, prev_detail
+
+
+# ── the scanner thread ──────────────────────────────────────────────────────
+
+#: idle scans (no active queries) before the thread exits; it respawns
+#: lazily at the next enabling admission
+_IDLE_SCANS_BEFORE_EXIT = 40
+
+
+class Watchdog:
+    """One scanner per :class:`QueryScheduler`. ``configure`` is called at
+    every admission with the CURRENT conf values (nothing session-frozen),
+    and spawns/respawns the daemon thread only while stall detection is
+    enabled."""
+
+    def __init__(self, scheduler):
+        self._scheduler = scheduler
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.stall_timeout_s = 0.0
+        self.beat_interval_s = 0.0
+
+    # ── configuration (per admission) ───────────────────────────────────
+    def configure(self, conf) -> None:
+        from .. import config as cfg
+
+        if not cfg.WATCHDOG_ENABLED.get(conf):
+            self.stall_timeout_s = 0.0
+            return
+        self.stall_timeout_s = max(0.0, cfg.WATCHDOG_STALL_TIMEOUT_S.get(conf))
+        beat = cfg.WATCHDOG_BEAT_INTERVAL_S.get(conf)
+        if beat <= 0:
+            beat = min(5.0, max(0.05, self.stall_timeout_s / 4.0))
+        self.beat_interval_s = beat
+        if self.stall_timeout_s > 0:
+            self._ensure_running()
+
+    def _ensure_running(self) -> None:
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return
+            self._thread = threading.Thread(
+                target=self._run, name="srt-watchdog", daemon=True
+            )
+            self._thread.start()
+
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    # ── scanning ────────────────────────────────────────────────────────
+    def _run(self) -> None:
+        idle = 0
+        while True:
+            interval = self.beat_interval_s or 0.25
+            time.sleep(interval)
+            busy = False
+            try:
+                busy = self._scan_stalls()
+            except Exception:  # noqa: BLE001 - the watchdog must not die
+                log.warning("watchdog scan failed", exc_info=True)
+            if busy:
+                idle = 0
+            else:
+                idle += 1
+                if idle >= _IDLE_SCANS_BEFORE_EXIT:
+                    with self._lock:
+                        self._thread = None
+                    return
+
+    def _scan_stalls(self) -> bool:
+        """Cancel every running query with no beat for stallTimeout;
+        returns whether any active queries existed."""
+        timeout = self.stall_timeout_s
+        active = self._scheduler.active_admissions()
+        if not active or timeout <= 0:
+            return bool(active)
+        for adm in active:
+            tok = adm.token
+            # queued queries beat from the admission wait loop; only a
+            # GRANTED (or gate-free) query can be device-stalled
+            if not (adm._granted or not adm.enabled):
+                continue
+            if tok.cancelled:
+                continue
+            stalled = tok.stalled_s()
+            if stalled <= timeout:
+                continue
+            phase = tok.phase or "launch"
+            detail = tok.phase_detail
+            reason = f"stall:{phase}"
+            if tok.cancel(
+                f"{reason} — no progress beat for {stalled:.1f}s "
+                f"(> stallTimeout={timeout:g}s)"
+                + (f" in {detail}" if detail else "")
+            ):
+                # first reason wins; keep the metrics reason slug the
+                # compact classification, not the long message
+                tok._reason = reason
+                _M.counter("watchdog.stalls").add(1)
+                _M.counter(
+                    obs_metrics.dynamic_name("watchdog.stalls.site.", phase)
+                ).add(1)
+                log.warning(
+                    "watchdog: query %s stalled %.1fs in phase %s%s — "
+                    "cancelled (%s)",
+                    tok.query_id, stalled, phase,
+                    f" ({detail})" if detail else "", reason,
+                )
+                breaker = getattr(self._scheduler, "breaker", None)
+                if breaker is not None and detail and phase in (
+                    "launch", "compile"
+                ):
+                    breaker.record_failure(
+                        detail,
+                        WatchdogStallError(
+                            f"stalled {stalled:.1f}s in {phase}"
+                        ),
+                    )
+        return True

@@ -13,9 +13,8 @@ becomes an absolute ``time.monotonic`` deadline at admission; ``check()``
 raises the *typed* :class:`QueryTimeoutError` once it passes, whether the
 query is still queued or already running.
 
-Copied from ``spark_rapids_tpu/sched/cancel.py``. Admission, which mints
-the token, comes with the scheduler slice; until then a caller (the tests)
-sets ``ExecContext.cancel_token`` itself.
+Copied from ``spark_rapids_tpu/sched/cancel.py``. Admission
+(``sched/scheduler.py``) mints each query's token.
 """
 from __future__ import annotations
 

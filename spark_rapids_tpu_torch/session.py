@@ -14,12 +14,25 @@ expressions pulled into ``Window`` nodes), ``filter``, ``agg``,
 ``group_by``, ``rollup``, ``cube``, ``sort``, ``limit``, ``union``,
 ``distinct``, ``drop``, ``drop_duplicates``, ``intersect``, ``subtract``,
 ``repartition``, ``join``, ``cross_join``, ``with_column`` and
-``with_column_renamed``, with the actions ``collect`` and ``explain``;
+``with_column_renamed``, with the actions ``collect``, ``to_host``,
+``to_torch`` and ``explain`` (``explain("metrics")`` for the last run);
 and the SQL front-end: ``sql(text, params)`` over the temp views that
 ``create_or_replace_temp_view`` registers (a plain dict: the JAX session's
 result-cache version bumps wait for the caches slice).
 
-Each query runs inside the memory and resilience runtime: its
+Each query runs inside the query runtime, at the places the JAX session
+wires it: ``_prepare_plan`` bills the query's phase ledger
+(``obs/ledger.py``) and fuses project/filter chains into ``StageExec``s
+(``plan/fusion.py``); ``_execute`` admits the query through the session's
+``QueryScheduler`` (``sched/``: weighted permits, fair-share pools,
+deadlines, ``cancel``/``cancel_all``, the progress watchdog), traces it
+when ``spark.rapids.tpu.trace.enabled`` samples it (``obs/trace.py``), and
+``_run_plan`` runs a multi-partition root's tasks on
+``spark.rapids.sql.concurrentGpuTasks`` threads, committing them in
+partition order (the device plan's own partitions run concurrently under
+its root coalesce, ``exec/gpu.py``).
+
+Each query also runs inside the memory and resilience runtime: its
 ``ExecContext`` holds the device semaphore, the spill catalog, the OOM
 retry policy and the session's ``CircuitBreaker``; each partition runs as
 a task with Spark's retry model (``_run_task``, ``spark.task.maxFailures``);
@@ -32,8 +45,8 @@ Columns from a dict carry no nulls except strings (None); pass a
 ``HostBatch`` or an Arrow table for nullable fixed-width columns. Plans are column-pruned before
 planning (``plan/pruning.py``), and the session keeps the device batches of
 its in-memory tables in an upload cache (``_h2d_cache``, filled by
-``HostToDeviceExec``), as the JAX session does. ``df.cache()``,
-scheduling and the service layers come with later slices.
+``HostToDeviceExec``), as the JAX session does. ``df.cache()`` and the
+serving layers come with later slices.
 """
 from __future__ import annotations
 
@@ -113,6 +126,64 @@ class TorchSession:
         self._breaker = CircuitBreaker.from_conf(self.conf)
         config = _faults.config_from_conf(self.conf)
         self._fault_injector = None if config is None else _faults.FaultInjector(config)
+        # the query runtime: the multi-tenant scheduler (admission, the
+        # cancellation registry, the watchdog; its confs are re-read at
+        # every admission), the last query's plan, ledger, tracer and
+        # stage count, and the query sequence
+        from .sched import QueryScheduler
+
+        self._scheduler = QueryScheduler()
+        self._scheduler.breaker = self._breaker
+        self._seq_lock = threading.Lock()
+        self._query_seq = 0
+        self._last_plan = None
+        self._last_ledger = None
+        self._last_tracer = None
+        self._last_fused_stages = 0
+        # obs wiring: the dynamic-series cardinality cap is process-global
+        # (as the registry it guards is), and the live scrape endpoint
+        # starts here when spark.rapids.tpu.metrics.httpPort asks for it
+        from .obs import metrics as _obs_metrics
+        from .obs.scrape import ensure_scrape
+
+        self._scrape_server = None
+        _obs_metrics.set_slug_cap(cfg.METRICS_MAX_DYNAMIC_SLUGS.get(self.conf))
+        ensure_scrape(self)
+
+    def _next_query_seq(self) -> int:
+        with self._seq_lock:
+            self._query_seq += 1
+            return self._query_seq
+
+    def close(self) -> None:
+        """Stop what the session started: the scrape listener, if any."""
+        srv = self._scrape_server
+        if srv is not None:
+            self._scrape_server = None
+            srv.stop()
+
+    # ── multi-tenant scheduling (sched/) ────────────────────────────────
+    @property
+    def scheduler(self):
+        """The session's QueryScheduler (admission pool + active-query
+        registry) — read-only introspection for services and tests."""
+        return self._scheduler
+
+    def active_queries(self) -> dict:
+        """query_id → {pool, permits, granted, running, queue_wait_s} of
+        every query currently queued or executing in this session."""
+        return self._scheduler.active_queries()
+
+    def cancel(self, query_id: str, reason: str = "cancelled by user") -> bool:
+        """Cancel one in-flight query: it stops at its next batch boundary,
+        releases its admission permits, and raises QueryCancelledError to
+        its caller. True when a matching active query existed."""
+        return self._scheduler.cancel(query_id, reason)
+
+    def cancel_all(self, reason: str = "cancel_all") -> int:
+        """Cancel every queued and running query; returns how many were
+        flagged. The session stays fully usable afterwards."""
+        return self._scheduler.cancel_all(reason)
 
     # ── SQL ─────────────────────────────────────────────────────────────
     def sql(self, text: str, params=None) -> "DataFrame":
@@ -230,7 +301,10 @@ class TorchSession:
         """(device plan, overrides) of a logical plan: subquery resolution
         (its counters add to ``metrics``; the overrides' explain begins
         with the subqueries' entries), the ANSI rewrite, column pruning, CPU
-        planning and the override pass."""
+        planning, the override pass and whole-stage fusion
+        (``plan/fusion.py``, where the JAX session calls it)."""
+        from .plan.fusion import fuse_stages
+
         sub_explain: list = []
         lp = self._resolve_subqueries(lp, metrics, sub_explain)
         if cfg.ANSI_ENABLED.get(self.conf):
@@ -254,43 +328,225 @@ class TorchSession:
         overrides = GpuOverrides(self.conf, breaker=self._breaker)
         plan = overrides.apply(cpu_plan)
         overrides.explain[:0] = sub_explain
+        plan, overrides.fused_stages = fuse_stages(plan, self.conf, breaker=self._breaker)
         return plan, overrides
 
-    def _prepare_plan(self, lp: L.LogicalPlan, metrics=None):
-        final_plan, overrides = self._physical_plan(lp, metrics)
+    def _prepare_plan(self, lp: L.LogicalPlan, ctx: Optional[ExecContext] = None):
+        """Analysis, planning, overrides and fusion: everything ``_execute``
+        does before running the plan. With a ``ctx``, creates the query's
+        phase ledger (``spark.rapids.tpu.ledger.enabled``, attached as
+        ``ctx.ledger``) and bills this whole pass to its ``parse_plan``
+        phase; with ``spark.rapids.sql.profile.opTime.enabled`` or the cost
+        calibration on, wraps every node in the per-batch opTime wait
+        (``profiling.instrument_plan``)."""
+        from .obs import ledger as obs_ledger
+
+        metrics = ctx.metrics if ctx is not None else None
+        led = (
+            obs_ledger.PhaseLedger()
+            if ctx is not None and cfg.LEDGER_ENABLED.get(self.conf)
+            else None
+        )
+        if led is not None:
+            led.wall_start()
+        try:
+            with obs_ledger.ledger_scope(led), obs_ledger.phase("parse_plan"):
+                final_plan, overrides = self._physical_plan(lp, metrics)
+        finally:
+            if led is not None:
+                led.wall_stop()
+        if ctx is not None:
+            ctx.ledger = led
         self._last_overrides = overrides
+        self._last_fused_stages = overrides.fused_stages
+        self._last_plan = final_plan
         self._assert_test_mode(overrides)
+        if cfg.PROFILE_OPTIME.get(self.conf) or cfg.CBO_CALIBRATION_ENABLED.get(self.conf):
+            from .profiling import instrument_plan
+
+            instrument_plan(final_plan)
         return final_plan
 
     def _execute(self, lp: L.LogicalPlan, token=None) -> HostBatch:
-        """Run a logical plan to one host batch. ``token`` (a
-        ``sched.CancelToken``) is the query's cancel token: admission, which
-        mints it, comes with the scheduler slice."""
+        """Run a logical plan to one host batch, through admission, the
+        ledger and the tracer (the JAX session's ``_execute``). ``token``
+        (a ``sched.CancelToken``) replaces the cancel token admission mints
+        — tests drive cancellation through it."""
+        from .obs import ledger as obs_ledger
+        from .obs import trace as obs_trace
+        from .profiling import query_trace
         from .resilience import faults as _faults
 
         # chaos harness scope: injection points fire only while THIS
         # session's queries execute (no-op when faults are not enabled)
         with _faults.scoped(self._fault_injector):
             ctx = ExecContext(self.conf, self)
-            ctx.cancel_token = token
-            final_plan = self._prepare_plan(lp, ctx.metrics)
+            final_plan = self._prepare_plan(lp, ctx)
             self._last_metrics = ctx.metrics
-            return self._run_plan(final_plan, ctx)
+            seq = ctx.query_seq
+            led = ctx.ledger
+            tracer = self._maybe_tracer(seq)
+            if tracer is not None:
+                # the tracer is pinned into the wrappers: a straggling
+                # producer thread keeps recording into ITS query's buffer
+                obs_trace.instrument_plan(final_plan, tracer)
+            if led is not None:
+                led.wall_start()
+            try:
+                with obs_ledger.ledger_scope(led), obs_trace.query_scope(
+                    tracer, f"query-{seq}", {"seq": seq}
+                ):
+                    # admission: estimate the device footprint, take a
+                    # weighted permit share (queueing under the fair-share
+                    # policy — the wait shows as a 'queued' span), install
+                    # the cancel token, run; the context manager releases
+                    # the permits on every exit path
+                    with self._scheduler.admit(
+                        f"q{seq}", final_plan, self.conf, tracer
+                    ) as admission:
+                        ctx.cancel_token = token if token is not None else admission.token
+                        if led is not None:
+                            led.add("queue_wait", admission.queue_wait_ns)
+                        with query_trace(cfg.PROFILE_PATH.get(self.conf)):
+                            return self._run_plan(final_plan, ctx)
+            finally:
+                if led is not None:
+                    led.wall_stop()
+                    self._last_ledger = led
+                self._harvest_calibration(final_plan)
+                if tracer is not None:
+                    self._export_trace(tracer, final_plan, seq, ledger=led)
+
+    def _maybe_tracer(self, seq: int):
+        """The span tracer for this query when tracing is on AND this query
+        is sampled, else None. Sampling is deterministic in the session's
+        query sequence (spark.rapids.tpu.trace.sample)."""
+        trace_dir = cfg.TRACE_DIR.get(self.conf)
+        if not (cfg.TRACE_ENABLED.get(self.conf) or trace_dir):
+            return None
+        sample = cfg.TRACE_SAMPLE.get(self.conf)
+        # Weyl-sequence hash of the seq → [0, 1): deterministic, well
+        # spread even for consecutive seqs
+        u = ((seq * 2654435761) & 0xFFFFFFFF) / 2**32
+        if u >= sample:
+            return None
+        from .obs.trace import Tracer
+
+        return Tracer(capacity=cfg.TRACE_BUFFER_SPANS.get(self.conf))
+
+    def _export_trace(self, tracer, plan, seq: int, ledger=None) -> None:
+        """Per-query artifacts (spark.rapids.tpu.trace.dir): the Chrome-
+        trace/Perfetto span dump plus the metrics JSON. Export failures
+        never fail the query."""
+        self._last_tracer = tracer
+        trace_dir = cfg.TRACE_DIR.get(self.conf)
+        if not trace_dir:
+            return
+        import os
+
+        from .obs import export as obs_export
+
+        try:
+            tracer.export_chrome(os.path.join(trace_dir, f"query-{seq}.trace.json"))
+            obs_export.write_query_artifact(
+                os.path.join(trace_dir, f"query-{seq}.metrics.json"),
+                plan=plan,
+                session=self,
+                tracer=tracer,
+                ledger=ledger,
+            )
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "trace export to %s failed", trace_dir, exc_info=True
+            )
+
+    def _harvest_calibration(self, final_plan) -> None:
+        """Feed the measured per-op cost table at query exit
+        (spark.rapids.tpu.cbo.calibration.enabled): opTime ÷ rows per node
+        into the EWMA, persisted so later sessions plan on measured costs
+        (obs/calibration.py). Never fails a query."""
+        if not cfg.CBO_CALIBRATION_ENABLED.get(self.conf):
+            return
+        from .obs import calibration as obs_cal
+
+        try:
+            cal = obs_cal.get(cfg.CBO_CALIBRATION_FILE.get(self.conf))
+            if cal.observe_plan(final_plan):
+                cal.save()
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "cost-calibration harvest failed", exc_info=True
+            )
 
     def _run_plan(self, final_plan, ctx) -> HostBatch:
         """Every partition of a physical plan as a task (``_run_task``),
-        committed in partition order into one host batch. The query's task
-        re-executions land in ``ctx.metrics["taskRetries"]`` and, once it
-        ends, in ``_task_retries``."""
+        committed in partition order into one host batch (billed to the
+        ledger's ``serialize`` phase). With more than one partition and
+        ``spark.rapids.sql.concurrentGpuTasks`` > 1 (re-read here, per
+        query) the tasks run on that many threads, with straggler
+        speculation when it is on, as in the JAX session's ``_run_plan``.
+        The query's task re-executions land in ``ctx.metrics
+        ["taskRetries"]`` and, once it ends, in ``_task_retries``."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .obs import ledger as obs_ledger
+
+        retry_lock = threading.Lock()
+
+        def on_retry():
+            with retry_lock:
+                ctx.metrics["taskRetries"] += 1
+
         try:
             parts = final_plan.execute(ctx)
             attempts = cfg.TASK_MAX_FAILURES.get(self.conf)
-            batches = []
-            for i, thunk in enumerate(parts.parts):
-                for b in self._run_task(thunk, attempts, i, ctx.cancel_token, ctx):
-                    if b.num_rows:
-                        batches.append(b)
-            return concat_batches(final_plan.output, batches)
+            token = ctx.cancel_token
+            n_threads = min(len(parts.parts), cfg.CONCURRENT_TPU_TASKS.get(self.conf))
+            if n_threads > 1:
+                spec = None
+                if cfg.SPECULATION_ENABLED.get(self.conf) and token is not None:
+                    from .sched.speculation import SpeculationMonitor
+
+                    spec = SpeculationMonitor.from_conf(
+                        self.conf, ctx=ctx, token=token,
+                        pool=self._scheduler.pool, n_partitions=len(parts.parts),
+                    )
+                led = ctx.ledger
+
+                def submit(i, t):
+                    def run_attempt(tok):
+                        from .exec import task as _task
+
+                        _task.set_in_task_pool(True)
+                        try:
+                            return self._run_task(t, attempts, i, tok, ctx, on_retry, led)
+                        finally:
+                            _task.set_in_task_pool(False)
+
+                    if spec is None:
+                        return lambda: run_attempt(token)
+                    return lambda: spec.run_partition(i, run_attempt)
+
+                try:
+                    with ThreadPoolExecutor(max_workers=n_threads,
+                                            thread_name_prefix="srt-task") as pool:
+                        futures = [pool.submit(submit(i, t)) for i, t in enumerate(parts.parts)]
+                        results = [f.result() for f in futures]
+                finally:
+                    if spec is not None:
+                        spec.close()
+            else:
+                results = [
+                    self._run_task(t, attempts, i, token, ctx, on_retry, ctx.ledger)
+                    for i, t in enumerate(parts.parts)
+                ]
+            with obs_ledger.scope_or_null(ctx.ledger, "serialize"):
+                batches = [b for bs in results for b in bs if b.num_rows]
+                return concat_batches(final_plan.output, batches)
         finally:
             self._task_retries = ctx.metrics["taskRetries"]
             # the exchanges' slices end with the query
@@ -298,7 +554,7 @@ class TorchSession:
             self._leak_check(ctx)
 
     def _run_task(self, thunk, attempts: int, partition_id: int = 0,
-                  token=None, ctx=None) -> List[HostBatch]:
+                  token=None, ctx=None, on_retry=None, ledger=None) -> List[HostBatch]:
         """One partition task with Spark's retry model (spark.task.maxFailures):
         the lineage IS the recovery mechanism — a partition thunk is a pure
         closure over its upstream pipeline, so a failed attempt simply
@@ -308,10 +564,14 @@ class TorchSession:
         blown compile deadline can only fail again, and a sticky CUDA error
         leaves the device context unusable for every later attempt
         (``resilience/lineage.py::is_recoverable``). The JAX session's
-        ``_run_task``; each re-execution adds one to the query's
-        ``taskRetries`` and to ``task.reattempts``."""
+        ``_run_task``: the straggler fault point fires at each attempt's
+        start, a re-execution bills the ledger's ``recovery`` phase, and
+        each adds one to the query's ``taskRetries`` (through
+        ``on_retry``) and to ``task.reattempts``."""
         import traceback
 
+        from .obs import trace as obs_trace
+        from .resilience import faults as _faults
         from .resilience import lineage as _lineage
 
         desc = _lineage.TaskDescriptor(partition_id, query_id=getattr(token, "query_id", ""))
@@ -320,19 +580,25 @@ class TorchSession:
             desc.attempt = attempt
             try:
                 with _lineage.attempt_scope(attempt):
+                    # chaos straggler point: the configured partition's
+                    # FIRST attempt crawls (token-beating sleep) — what the
+                    # speculation monitor must overtake
+                    _faults.on_task_attempt(partition_id, attempt, token)
                     if attempt == 0:
-                        return self._drain(thunk, token)
-                    with _lineage.recovery_scope():
-                        return self._drain(thunk, token)
+                        return self._drain(thunk, token, ledger)
+                    with _lineage.recovery_scope(ledger):
+                        return self._drain(thunk, token, ledger)
             except Exception as e:  # noqa: BLE001 - Spark retries any task failure
                 if not _lineage.is_recoverable(e):
                     self._note_device_fault(e)
                     raise
                 last = e
-                if ctx is not None:
+                if on_retry is not None:
+                    on_retry()
+                elif ctx is not None:
                     ctx.metrics["taskRetries"] += 1
                 if attempt + 1 < attempts:
-                    _lineage.record_reattempt(desc, e)
+                    _lineage.record_reattempt(desc, e, tracer=obs_trace.active())
                     # the failed attempt's frames hold its device tensors:
                     # free them before the re-run (the traceback text stays)
                     traceback.clear_frames(e.__traceback__)
@@ -357,13 +623,28 @@ class TorchSession:
         e.device_fault_recorded = True
 
     @staticmethod
-    def _drain(thunk, token) -> List[HostBatch]:
-        out = []
-        for b in thunk():
-            if token is not None:
-                token.check()  # a beat per result batch
-            out.append(b)
-        return out
+    def _drain(thunk, token, ledger=None) -> List[HostBatch]:
+        """One partition's result batches. The token becomes this thread's
+        watchdog current (blocking regions beneath the pull label their
+        stall phase on it; every check() is a beat) and the query's ledger
+        rides the same install, so those regions attribute their time."""
+        from .obs import ledger as obs_ledger
+        from .resilience import watchdog as _wd
+
+        prev_tok, prev_led = _wd.current(), obs_ledger.current()
+        if token is not None:
+            _wd.set_current(token)
+        obs_ledger.set_current(ledger)
+        try:
+            out = []
+            for b in thunk():
+                if token is not None:
+                    token.check()  # a beat per result batch
+                out.append(b)
+            return out
+        finally:
+            _wd.set_current(prev_tok)
+            obs_ledger.set_current(prev_led)
 
     def _leak_check(self, ctx) -> None:
         """Debug mode: log the buffers still registered in the query's
@@ -733,13 +1014,82 @@ class DataFrame:
 
     # ── actions ─────────────────────────────────────────────────────────
     def to_host(self) -> HostBatch:
-        """The result as one ``HostBatch``."""
+        """The result as one ``HostBatch`` (through admission, like every
+        action)."""
         return self._session._execute(self._plan)
 
     def collect(self) -> List[tuple]:
         return batch_rows(self.to_host())
 
-    def explain(self) -> str:
+    def to_torch(self):
+        """Zero-copy device export: run the query and hand out the LIVE
+        device-resident result as one ``DeviceBatch`` of torch tensors
+        (per-column ``data``/``validity``/``lengths``), with no host round
+        trip — the analogue of the JAX package's ``DataFrame.to_jax``. Any
+        DLPack consumer takes the columns without a copy
+        (``torch.utils.dlpack.to_dlpack(batch.columns[i].data)``).
+
+        The batch is padded to capacity: rows ``[0, num_rows)`` are live
+        (``num_rows`` is a device scalar — ``row_count()`` syncs it);
+        padding rows have ``validity == False``. It rides the same
+        admission, cancel token and task retry model as ``collect()``."""
+        from .columnar.device import empty_batch
+        from .exec.gpu import DeviceToHostExec
+        from .ops.gather import bulk_shrink
+
+        session = self._session
+        ctx = ExecContext(session.conf, session)
+        final_plan = session._prepare_plan(self._plan, ctx)
+        if not isinstance(final_plan, DeviceToHostExec):
+            raise ValueError(
+                "to_torch(): plan does not end on the device (fell back to "
+                "the CPU engine?) — use to_host() instead"
+            )
+        plan = final_plan.children[0]
+        try:
+            with session._scheduler.admit(
+                f"q{ctx.query_seq}", final_plan, session.conf
+            ) as admission:
+                ctx.cancel_token = admission.token
+                parts = plan.execute(ctx)
+                attempts = cfg.TASK_MAX_FAILURES.get(session.conf)
+                batches = [
+                    db
+                    for i, t in enumerate(parts.parts)
+                    for db in session._run_task(t, attempts, i, admission.token, ctx)
+                ]
+                ctx.semaphore.release_if_necessary()
+            session._task_retries = ctx.metrics["taskRetries"]
+            batches = [b for b in bulk_shrink(batches)[0] if b.capacity]
+            if not batches:
+                return empty_batch(plan.output, session.device)
+            if len(batches) == 1:
+                return batches[0]
+            from .ops.concat import concat_device
+
+            return concat_device(batches)
+        finally:
+            ctx.catalog.release("exchange")
+            session._leak_check(ctx)
+
+    def explain(self, mode: str = "plans") -> str:
+        """The device plan (``*`` marks device nodes); ``mode="metrics"``
+        renders the LAST executed plan with each node's collected metrics
+        inline, headed by its phase ledger — where the last query's wall
+        clock went (collect() first)."""
+        if mode == "metrics":
+            from .obs.export import render_ledger, render_plan_metrics
+
+            plan = self._session._last_plan
+            if plan is None:
+                s = "<no query executed yet — collect() first>"
+            else:
+                s = render_plan_metrics(plan)
+                led = render_ledger(self._session._last_ledger)
+                if led:
+                    s = led + "\n" + s
+            print(s)
+            return s
         s = self._session._physical_plan(self._plan)[0].tree_string()
         print(s)
         return s

@@ -11,8 +11,11 @@ corpus, the expression families at SF 0.01, ``locate``,
 ``substring_index`` and ``replace`` over the kernel, and the ANSI error
 channel on the card; a real OOM under a per-process cap recovered to equal
 rows, injected OOMs around ``Contains`` with the kernel's masks exact, and
-a spill-catalog buffer's walk device → pinned host → disk → device. Each test decides in its body whether a card is
-present and skips where none is.
+a spill-catalog buffer's walk device → pinned host → disk → device; and
+the query runtime's checks (a)–(e): fused = unfused, the four task and
+pipeline settings bit-identical, concurrent = serial with a deadline,
+speculation and the watchdog, the ledger and the trace. Each test decides
+in its body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only the port: ``python -m pytest --noconftest -m gpu
@@ -470,3 +473,181 @@ def test_catalog_buffer_round_trips_pinned_host_and_disk(tmp_path):
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(want, got))
     assert np.isclose(cat.device_bytes, h.size_bytes)
     h.close()
+
+
+# ── the query runtime on the card ──────────────────────────────────────────
+
+
+def _runtime_tables():
+    return {t: gen_table(t, 0.01) for t in TABLES}
+
+
+def _bits(rows):
+    return [tuple(v.hex() if isinstance(v, float) and v == v else v for v in r) for r in rows]
+
+
+@pytest.mark.gpu
+def test_runtime_fusion_on_gpu_bit_identical_and_contains_in_stage(monkeypatch):
+    """(a) TPC-H q1, q3, q5 and contains_rows fused and unfused on the
+    card, bit-identical; contains_rows's match_starts launches inside its
+    stage and equals the plain version on the plane it was handed."""
+    _need_gpu()
+    import threading
+
+    from spark_rapids_tpu_torch.plan import fusion as FU
+
+    tables = _runtime_tables()
+    for n in (1, 3, 5):
+        a = tpch_query(n, lambda t: TorchSession({}, device="cuda").create_dataframe(tables[t])).collect()
+        off = TorchSession({"spark.rapids.tpu.fusion.enabled": False}, device="cuda")
+        b = tpch_query(n, lambda t: off.create_dataframe(tables[t])).collect()
+        assert _bits(a) == _bits(b), f"q{n}"
+    inside = threading.local()
+    seen = []
+    real_ms, real_stage_fn = SK.match_starts, FU.stage_fn
+
+    def stage_fn(fused):
+        fn = real_stage_fn(fused)
+
+        def marked(batch, tvals=None):
+            inside.on = True
+            try:
+                return fn(batch, tvals)
+            finally:
+                inside.on = False
+
+        return marked
+
+    def record(data, lengths, pat, consumer="direct"):
+        seen.append((data, lengths, pat, getattr(inside, "on", False)))
+        return real_ms(data, lengths, pat, consumer)
+
+    monkeypatch.setattr(SK, "match_starts", record)
+    monkeypatch.setattr(FU, "stage_fn", stage_fn)
+    fn, _ = SLICE_QUERIES["contains_rows"]
+    gpu = TorchSession({}, device="cuda")
+    got = fn(lambda t: gpu.create_dataframe(tables[t])).collect()
+    assert gpu._last_fused_stages >= 1 and any(s[3] for s in seen)
+    for data, lengths, pat, _ in seen:
+        assert torch.equal(real_ms(data, lengths, pat), SK.match_starts_plain(data, lengths, pat))
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    ok, msg = rows_equal(got, fn(lambda t: cpu.create_dataframe(tables[t])).collect())
+    assert ok, msg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 5])
+def test_runtime_settings_on_gpu_bit_identical(n):
+    """(b) q1 and q5 at 4 input x 8 shuffle partitions under tasks (4, 1)
+    x pipeline (on, off): the rows bit-identical across the settings."""
+    _need_gpu()
+    tables = _runtime_tables()
+    out = []
+    for conf in ({}, {"spark.rapids.tpu.pipeline.enabled": False},
+                 {"spark.rapids.sql.concurrentGpuTasks": 1},
+                 {"spark.rapids.sql.concurrentGpuTasks": 1, "spark.rapids.tpu.pipeline.enabled": False}):
+        s = TorchSession({"spark.sql.shuffle.partitions": 8, **conf}, device="cuda")
+        out.append(_bits(tpch_query(n, lambda t: s.create_dataframe(tables[t], num_partitions=4)).collect()))
+    assert all(o == out[0] for o in out)
+
+
+@pytest.mark.gpu
+def test_runtime_scheduler_on_gpu_concurrent_equal_serial_and_timeout():
+    """(c) four threads at once on one session, each bit-identical to its
+    serial run, the admissions counted; a query past its deadline times out
+    and returns its permits."""
+    _need_gpu()
+    import threading
+
+    from spark_rapids_tpu_torch.obs.metrics import GLOBAL
+    from spark_rapids_tpu_torch.sched import QueryTimeoutError
+
+    tables = _runtime_tables()
+    s = TorchSession({"spark.sql.shuffle.partitions": 8}, device="cuda")
+
+    def run(n):
+        return _bits(tpch_query(n, lambda t: s.create_dataframe(tables[t], num_partitions=4)).collect())
+
+    serial = {n: run(n) for n in (1, 5, 18, 6)}
+    admitted = GLOBAL.counter("scheduler.admitted").value
+    got = {}
+    threads = [threading.Thread(target=lambda n=n: got.__setitem__(n, run(n))) for n in serial]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert got == serial
+    assert GLOBAL.counter("scheduler.admitted").value - admitted >= 4
+    assert s.scheduler.pool.in_use == 0
+    slow = TorchSession({"spark.rapids.tpu.scheduler.queryTimeout": 0.2,
+                         "spark.rapids.tpu.faults.enabled": True,
+                         "spark.rapids.tpu.faults.kernelStallEveryN": 1,
+                         "spark.rapids.tpu.faults.kernelStallMs": 100.0,
+                         "spark.sql.shuffle.partitions": 8}, device="cuda")
+    with pytest.raises(QueryTimeoutError):
+        tpch_query(5, lambda t: slow.create_dataframe(tables[t], num_partitions=4)).collect()
+    assert slow.scheduler.pool.in_use == 0
+
+
+@pytest.mark.gpu
+def test_runtime_speculation_and_watchdog_on_gpu():
+    """(d) a straggler in q5 overtaken by a duplicate with equal rows; a
+    query stalled past the watchdog's timeout cancelled as a stall."""
+    _need_gpu()
+    import time
+
+    from spark_rapids_tpu_torch.obs.metrics import GLOBAL
+    from spark_rapids_tpu_torch.sched import QueryCancelledError
+
+    tables = _runtime_tables()
+    plain = TorchSession({"spark.sql.shuffle.partitions": 8}, device="cuda")
+    want = tpch_query(5, lambda t: plain.create_dataframe(tables[t], num_partitions=4)).collect()
+    won = GLOBAL.counter("speculation.won").value
+    s = TorchSession({"spark.sql.shuffle.partitions": 8,
+                      "spark.rapids.tpu.speculation.enabled": True,
+                      "spark.rapids.tpu.speculation.minRuntime": 0.05,
+                      "spark.rapids.tpu.speculation.quantile": 0.5,
+                      "spark.rapids.tpu.faults.enabled": True,
+                      "spark.rapids.tpu.faults.stallPartition": 2,
+                      "spark.rapids.tpu.faults.stallPartitionSeconds": 20.0}, device="cuda")
+    t0 = time.monotonic()
+    got = tpch_query(5, lambda t: s.create_dataframe(tables[t], num_partitions=4)).collect()
+    assert time.monotonic() - t0 < 15
+    assert _bits(got) == _bits(want)
+    assert GLOBAL.counter("speculation.won").value > won
+    wd = TorchSession({"spark.rapids.tpu.watchdog.stallTimeout": 0.5,
+                       "spark.rapids.tpu.faults.enabled": True,
+                       "spark.rapids.tpu.faults.kernelStallEveryN": 1,
+                       "spark.rapids.tpu.faults.kernelStallMs": 1000.0}, device="cuda")
+    with pytest.raises(QueryCancelledError) as ei:
+        tpch_query(6, lambda t: wd.create_dataframe(tables[t])).collect()
+    assert ei.value.reason.startswith("stall:")
+
+
+@pytest.mark.gpu
+def test_runtime_ledger_and_trace_on_gpu(tmp_path):
+    """(e) q6's phases sum to its wall within 5% in the serial setting;
+    q5 traced at 4 x 8 nests query -> operator -> batch with spans from
+    other threads inside the tree."""
+    _need_gpu()
+    import json
+    import os
+
+    tables = _runtime_tables()
+    s = TorchSession({"spark.rapids.sql.concurrentGpuTasks": 1,
+                      "spark.rapids.tpu.pipeline.enabled": False}, device="cuda")
+    for _ in range(2):
+        tpch_query(6, lambda t: s.create_dataframe(tables[t])).collect()
+    bd = s._last_ledger.breakdown()
+    assert abs(sum(bd["phases_ms"].values()) - bd["wall_ms"]) <= 0.05 * bd["wall_ms"], bd
+    assert "device_execute" in bd["phases_ms"], bd
+    td = str(tmp_path / "traces")
+    t = TorchSession({"spark.sql.shuffle.partitions": 8, "spark.rapids.tpu.trace.dir": td}, device="cuda")
+    tpch_query(5, lambda x: t.create_dataframe(tables[x], num_partitions=4)).collect()
+    (f,) = [f for f in os.listdir(td) if f.endswith(".trace.json")]
+    events = [e for e in json.load(open(os.path.join(td, f)))["traceEvents"] if e["ph"] == "X"]
+    root = [e for e in events if e["cat"] == "query"]
+    ops = {e["args"]["span_id"] for e in events if e["cat"] == "operator"}
+    assert len(root) == 1 and ops
+    assert all(e["args"]["parent_id"] in ops for e in events if e["cat"] == "batch")
+    assert any(e["tid"] != root[0]["tid"] for e in events)

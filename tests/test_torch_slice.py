@@ -294,6 +294,43 @@ print("ARROW", "pyarrow" in sys.modules)
     assert "ARROW False" in out.stdout, out.stdout
 
 
+def test_runtime_modules_import_no_jax_and_no_jax_package():
+    """Importing every module of the query runtime, and running a traced,
+    ledgered, fused, pipelined and concurrent query through admission,
+    leaves jax and every spark_rapids_tpu module out of sys.modules."""
+    code = """
+import importlib, sys
+mods = ["spark_rapids_tpu_torch.obs.metrics", "spark_rapids_tpu_torch.obs.trace",
+        "spark_rapids_tpu_torch.obs.ledger", "spark_rapids_tpu_torch.obs.export",
+        "spark_rapids_tpu_torch.obs.scrape", "spark_rapids_tpu_torch.obs.calibration",
+        "spark_rapids_tpu_torch.profiling", "spark_rapids_tpu_torch.exec.pipeline",
+        "spark_rapids_tpu_torch.sched.estimate", "spark_rapids_tpu_torch.sched.admission",
+        "spark_rapids_tpu_torch.sched.scheduler", "spark_rapids_tpu_torch.sched.speculation",
+        "spark_rapids_tpu_torch.resilience.watchdog", "spark_rapids_tpu_torch.plan.fusion"]
+for m in mods:
+    importlib.import_module(m)
+import numpy as np
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch.functions import col, lit
+s = TorchSession({"spark.rapids.tpu.trace.enabled": True}, device="cpu")
+df = s.create_dataframe({"a": np.arange(100, dtype=np.int64)}, num_partitions=4)
+assert df.filter(col("a") > 3).select((col("a") + lit(1)).alias("b")).collect()
+assert s._last_fused_stages == 1 and s._last_tracer is not None and s._last_ledger is not None
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+    or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
+)
+print("BAD", bad)
+"""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_cpu_run_launches_no_kernel(tables):
     before = SK.LAUNCHES
     port = _port_session()

@@ -92,7 +92,33 @@ against the port's own CPU engine:
   stall past the watchdog's 2 s cancelled as ``stall:launch``; (e) the
   ledger phases of q1 and q6 summing to their walls within 5%, and q5's
   Chrome trace written under build/traces/ with its query → operator →
-  batch tree and the producer threads' spans inside it.
+  batch tree and the producer threads' spans inside it;
+* the adaptive and API path (after the runtime phase): (a) q3, q5, q12,
+  q18 and ``contains_agg`` at 4 input x 8 shuffle partitions, warm, in a
+  session with ``spark.rapids.tpu.sparkVersion`` 3.2 (the shim turns
+  adaptive execution on) and in a default 3.1 one: rows equal to the CPU
+  engine's and to each other, every exchange on the device and, under 3.2,
+  read adaptively (each exchange's ``aqe_groups``, the joins' runtime
+  broadcast switches, the median of 3 warm walls with min and max per
+  version, q5's kernels under torch.profiler, ``match_starts`` launched in
+  ``contains_agg``), and version 2.4 raising; (b) a shuffled join of
+  lineitem, whose key is 0 on every even ``l_orderkey``, with orders:
+  the skewed partition splits (``aqe_splits``), the rows equal the run
+  with AQE off exactly, and a full outer join of the same sides splits
+  nothing; (c) lineitem joined to one month of orders, planned shuffled,
+  switching to a broadcast at run time on its measured build side, rows
+  equal; a right outer join does not switch; (e) the DataFrame surface on
+  the SF 1 tables against the CPU engine: ``count``, ``head``, ``take``,
+  ``first``, ``show``, ``fillna`` and ``dropna`` over customers left-joined
+  to orders, ``sort_within_partitions``, q1's aggregates through
+  ``GroupedData``'s shorthands, ``pivot`` with and without values, and
+  ``sample``, whose ``rand()`` filter is the one node off the device; (f)
+  calibrated routing: q1 and q6 harvested into a fresh calibration table,
+  then a 1,000-row q6 routed to the CPU engine and q1 at SF 1 kept on the
+  device, with q1's ledger dispatch over its kernels (the card's own
+  per-launch cost). The TPC-DS path prints each text's reused exchanges
+  and runs each text that reuses once more with
+  ``spark.sql.exchange.reuse=false``, rows equal.
 
 It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
@@ -1386,8 +1412,9 @@ RUNTIME_SETTINGS = (
                                "spark.rapids.tpu.pipeline.enabled": False}, False),
 )
 #: rounds of (b): the spread of the default's four tasks against one task
-#: is what the repeats are for
-RUNTIME_ROUNDS = 3
+#: is what the repeats are for (2, a depth cut made for the adaptive
+#: phase's time: 3 rounds had put the two within each other's spread)
+RUNTIME_ROUNDS = 2
 #: the partitioned q1 and q5, warm, under torch.profiler before the query
 #: runtime, one task at a time (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W):
 #: (device busy ms, kernels)
@@ -2028,28 +2055,30 @@ def q1_split(tables) -> None:
             wall_ms, *(ms[p] for p in parts), uploaded, rest))
 
 
-def _tpcds_session(sf: float, device: str, enabled: bool = True):
+def _tpcds_session(sf: float, device: str, enabled: bool = True, conf=None):
     """A fresh session with the 24 TPC-DS tables at ``sf`` as temp views, one
     input partition each (the generator caches the tables by scale)."""
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.tpcds import register_tables
 
-    s = TorchSession({**TPCDS_CONF, "spark.rapids.sql.enabled": enabled}, device=device)
+    s = TorchSession({**TPCDS_CONF, "spark.rapids.sql.enabled": enabled, **(conf or {})},
+                     device=device)
     register_tables(s, sf)
     return s
 
 
-def _run_tpcds(q: int, sf: float, collect: bool = True):
+def _run_tpcds(q: int, sf: float, collect: bool = True, conf=None):
     """One cold run of TPC-DS query ``q`` on the card in a fresh session:
     (DataFrame, rows, wall ms, bytes uploaded, peak device memory above what
     was held before it, nodes off the device). ``collect=False`` skips the
     garbage collection that makes the peak exact (the SF 0.1 check reads
-    no peak)."""
+    no peak). The DataFrame's session holds the run's reused-exchange count
+    (``df._session._last_reused_exchanges``)."""
     import torch
 
     from spark_rapids_tpu_torch.tpcds import tpcds_sql
 
-    s = _tpcds_session(sf, "cuda")
+    s = _tpcds_session(sf, "cuda", conf=conf)
     if collect:
         gc.collect()  # free the last query's session before reading what is held
     torch.cuda.synchronize()
@@ -2152,18 +2181,37 @@ def tpcds_phase() -> None:
         f"host bytes, generated in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{n} {b.num_rows}" for n, b in big.items()))
     SK.reset_counts()  # this path's own counts
-    walls_sf1 = {}
+    walls_sf1, reused = {}, {}
     for q in TPCDS_QUERIES:
         # only the numbers outlive the run: its session frees before the next
-        _, rows, wall_ms, uploaded, peak, off = _run_tpcds(q, TPCDS_SF)
+        df, rows, wall_ms, uploaded, peak, off = _run_tpcds(q, TPCDS_SF)
         if off:
             raise AssertionError(f"tpcds q{q}: nodes off the device: {off}")
         walls_sf1[q] = wall_ms
+        reused[q] = df._session._last_reused_exchanges
+        del df
         log(f"tpcds phase: q{q} at SF {TPCDS_SF}, one input partition, cold: device wall {wall_ms:.1f} ms, "
             f"uploaded {uploaded} bytes, peak device memory {peak} bytes above what was held, "
-            f"nodes off the device 0 (only scans), {len(rows)} rows")
+            f"nodes off the device 0 (only scans), {len(rows)} rows, reused exchanges {reused[q]}")
+        if reused[q]:
+            # (d) exchange reuse: the same text with reuse off, rows equal
+            df, plain, off_ms, _, _, off = _run_tpcds(
+                q, TPCDS_SF, conf={"spark.sql.exchange.reuse": False})
+            if off:
+                raise AssertionError(f"tpcds q{q} reuse off: nodes off the device: {off}")
+            ok, msg = rows_equal(plain, rows, *tpcds_slack(tpcds_sql(q), df))
+            if not ok:
+                raise AssertionError(f"tpcds q{q}: rows with exchange reuse differ from reuse "
+                                     f"off: {msg}")
+            del df
+            log(f"tpcds reuse: q{q} at SF {TPCDS_SF}: {reused[q]} exchanges reused; device wall "
+                f"{wall_ms:.1f} ms with reuse, {off_ms:.1f} ms with spark.sql.exchange.reuse=false "
+                "(single runs each); rows equal")
         if q in CAP_RATIO:
             tpcds_capped(q, rows, peak)
+    log(f"tpcds reuse: reused exchanges per text at SF {TPCDS_SF}: "
+        + json.dumps({f"q{q}": n for q, n in reused.items()})
+        + f"; {sum(1 for n in reused.values() if n)} of {len(reused)} texts reuse")
     log(f"tpcds phase: match_starts launches {SK.LAUNCHES}, per path "
         f"{json.dumps(SK.LAUNCHES_BY_PATH)} (no TPC-DS text holds a contains)")
 
@@ -2345,6 +2393,506 @@ def tpcds_cpu_rows(q: int, sf: float) -> int:
     return 0
 
 
+# ── adaptive execution and the DataFrame surface ────────────────────────────
+
+#: (a)'s queries, at INPUT_PARTITIONS x SHUFFLE_PARTITIONS, warm, each timed
+#: ADAPTIVE_RUNS times under sparkVersion 3.2 (AQE on) and 3.1 (the default)
+ADAPTIVE_QUERIES = ("q3", "q5", "q12", "q18", "contains_agg")
+ADAPTIVE_RUNS = 3
+#: q5's kernels at 4 x 8 with AQE off, before the adaptive read was ported
+#: (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE_AQE_Q5_KERNELS = 156649
+#: (f)'s calibration table, made afresh in each run of this script
+CALIBRATION_FILE = "build/chip_smoke_calibration.json"
+#: (f)'s CPU-engine harvest runs read this many lineitem rows (q1 over all
+#: of lineitem takes the CPU engine 21 s; ns/row is what it measures)
+CALIBRATION_HOST_ROWS = 600_000
+
+
+def _plan_nodes(plan, cls) -> list:
+    found, stack = [], [plan]
+    while stack:
+        n = stack.pop(0)
+        if isinstance(n, cls):
+            found.append(n)
+        stack.extend(n.children)
+    return found
+
+
+def _host_keys(hb) -> list:
+    """A host batch's numeric columns as (validity, value) arrays, rows in
+    one canonical order."""
+    import numpy as np
+
+    keys = []
+    for c in hb.columns:
+        keys += [c.validity.astype(np.int8), np.where(c.validity, c.data, 0)]
+    order = np.lexsort(keys[::-1]) if keys and hb.num_rows else np.arange(hb.num_rows)
+    return [k[order] for k in keys]
+
+
+def _host_equal(a, b) -> bool:
+    """Two host batches of numeric columns hold the same rows, exactly (as
+    multisets; NaN equals NaN)."""
+    import numpy as np
+
+    if a.num_rows != b.num_rows or len(a.columns) != len(b.columns):
+        return False
+    return all(np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+               for x, y in zip(_host_keys(a), _host_keys(b)))
+
+
+def _profile_kernels(run) -> tuple:
+    """(wall ms, device busy ms, kernels) of one call of ``run`` under
+    torch.profiler; busy is None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 if kernels else None
+    return wall_ms, busy, len(kernels)
+
+
+def _timed(run) -> tuple:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def adaptive_shim(tables, cpu_rows) -> dict:
+    """(a) The shim drives AQE: each of ``ADAPTIVE_QUERIES`` at 4 x 8 in a
+    sparkVersion 3.2 session (adaptive on by the shim) and a default 3.1
+    session (adaptive off), warm; rows equal to the CPU engine's and between
+    the two; under 3.2 every exchange on the device and read adaptively.
+    Returns match_starts's launches in the 3.2 ``contains_agg`` runs (a main
+    path of this phase)."""
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch.exec.gpu import GpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.exec.gpu_join import GpuShuffledHashJoinExec
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES, q3, q18
+
+    try:
+        TorchSession({"spark.rapids.tpu.sparkVersion": "2.4"}, device="cuda")
+    except ValueError as e:
+        log(f"adaptive (a): sparkVersion 2.4 raises at construction: {e}")
+    else:
+        raise AssertionError("adaptive (a): sparkVersion 2.4 did not raise")
+    queries = {**SLICE_QUERIES, **JOIN_QUERIES, "q3": (q3, ()), "q18": (q18, ())}
+    base = {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}
+    sessions = {v: TorchSession({**base, "spark.rapids.tpu.sparkVersion": v}, device="cuda")
+                for v in ("3.2", "3.1")}
+    if not (cfg.ADAPTIVE_ENABLED.get(sessions["3.2"].conf)
+            and not cfg.ADAPTIVE_ENABLED.get(sessions["3.1"].conf)):
+        raise AssertionError("adaptive (a): the shim did not set spark.sql.adaptive.enabled")
+    launches = None
+    for name in ADAPTIVE_QUERIES:
+        fn = queries[name][0]
+        rows, report = {}, {}
+        for v, s in sessions.items():
+            if name == "contains_agg" and v == "3.2":
+                SK.reset_counts()  # the main path's own count: the 3.2 runs
+            walls = []
+            for run in range(1 + ADAPTIVE_RUNS):  # run 0 uploads (warm-up)
+                got, ms = _timed(lambda: fn(lambda t: s.create_dataframe(
+                    tables[t], num_partitions=INPUT_PARTITIONS)).collect())
+                if run:
+                    walls.append(ms)
+                off = _off_device(s)
+                if off:
+                    raise AssertionError(f"adaptive (a): {name} under {v}: off the device: {off}")
+                ok, msg = rows_equal(got, cpu_rows[name])
+                if not ok:
+                    raise AssertionError(f"adaptive (a): {name} under {v} run {run}: rows differ "
+                                         f"from the CPU engine: {msg}")
+            if name == "contains_agg" and v == "3.2":
+                launches = _launch_counts(SK)
+            joins = _plan_nodes(s._last_plan, GpuShuffledHashJoinExec)
+            switched = [bool(getattr(j, "aqe_broadcast_switched", False)) for j in joins]
+            # a switched join reads its probe side's input locally: that
+            # exchange never runs
+            bypassed = {id(j.children[0]) for j, sw in zip(joins, switched) if sw}
+            exchanges = [ex for ex in _plan_nodes(s._last_plan, GpuShuffleExchangeExec)
+                         if id(ex) not in bypassed]
+            groups = [getattr(ex, "aqe_groups", None) for ex in exchanges]
+            if not exchanges or any((g is None) is (v == "3.2") for g in groups):
+                raise AssertionError(f"adaptive (a): {name} under {v}: exchanges {groups} were "
+                                     "not all read the way the version asks")
+            rows[v] = got
+            report[v] = (groups, [getattr(ex, "aqe_splits", 0) for ex in exchanges], switched,
+                         statistics.median(walls), min(walls), max(walls))
+        ok, msg = rows_equal(rows["3.2"], rows["3.1"])
+        if not ok:
+            raise AssertionError(f"adaptive (a): {name}: 3.2 and 3.1 rows differ: {msg}")
+        g32, sp32, sw32, med32, lo32, hi32 = report["3.2"]
+        _, _, sw31, med31, lo31, hi31 = report["3.1"]
+        log(f"adaptive (a): {name} ({INPUT_PARTITIONS} x {SHUFFLE_PARTITIONS}, warm): sparkVersion "
+            f"3.2: exchanges' aqe_groups {g32}, aqe_splits {sp32}, broadcast switched {sw32}, "
+            f"wall median {med32:.1f} ms (min {lo32:.1f}, max {hi32:.1f}) of {ADAPTIVE_RUNS}; "
+            f"3.1 (AQE off): broadcast switched {sw31}, wall median {med31:.1f} ms (min "
+            f"{lo31:.1f}, max {hi31:.1f}); rows equal to the CPU engine and to each other; "
+            "no exchange off the device")
+    s = sessions["3.2"]
+    wall, busy, kernels = _profile_kernels(lambda: queries["q5"][0](
+        lambda t: s.create_dataframe(tables[t], num_partitions=INPUT_PARTITIONS)).collect())
+    log(f"adaptive (a): q5 under sparkVersion 3.2 (warm, torch.profiler): wall {wall:.1f} ms, "
+        + (f"device busy {busy:.1f} ms over {kernels} kernels" if busy is not None
+           else "the profiler saw no device time (not measured)")
+        + f"; with AQE off, before the adaptive read: {BEFORE_AQE_Q5_KERNELS} kernels")
+    log(f"adaptive (a): match_starts launches in the 3.2 contains_agg runs: {launches['total']} "
+        f"{json.dumps(launches['by_path'])}")
+    return launches
+
+
+def _skew_sides(s, tables, F):
+    """lineitem with a join key that is 0 on every even l_orderkey (half of
+    lineitem's rows on one key), and orders."""
+    li = s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS).select(
+        F.when(F.col("l_orderkey") % 2 == 0, F.lit(0)).otherwise(F.col("l_orderkey"))
+        .alias("l_key"), "l_linenumber", "l_extendedprice")
+    od = s.create_dataframe(tables["orders"], num_partitions=INPUT_PARTITIONS).select(
+        "o_orderkey", "o_custkey")
+    return li, od
+
+
+ADAPTIVE_JOIN_BASE = {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS,
+                      "spark.sql.autoBroadcastJoinThreshold": "-1"}
+SKEW_THRESHOLD = "16m"
+
+
+def adaptive_skew(tables) -> None:
+    """(b) A shuffled inner join whose one key holds half of lineitem: its
+    partition passes ``SKEW_THRESHOLD`` and splits; the rows equal the run
+    with AQE off, exactly; a full outer join of the same sides splits
+    nothing."""
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec.gpu import GpuShuffleExchangeExec
+
+    aqe = {**ADAPTIVE_JOIN_BASE, "spark.sql.adaptive.enabled": True,
+           "spark.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes": SKEW_THRESHOLD}
+    out = {}
+    for label, conf, how in (("aqe inner", aqe, "inner"), ("off inner", ADAPTIVE_JOIN_BASE, "inner"),
+                             ("aqe full", aqe, "full")):
+        s = TorchSession(conf, device="cuda")
+        li, od = _skew_sides(s, tables, F)
+        df = li.join(od, F.col("l_key") == F.col("o_orderkey"), how)
+        got, ms = _timed(df.to_host)
+        off = _off_device(s)
+        if off:
+            raise AssertionError(f"adaptive (b): {label}: off the device: {off}")
+        exchanges = _plan_nodes(s._last_plan, GpuShuffleExchangeExec)
+        out[label] = (got, ms, [getattr(ex, "aqe_groups", None) for ex in exchanges],
+                      sum(getattr(ex, "aqe_splits", 0) for ex in exchanges))
+    got, ms, groups, splits = out["aqe inner"]
+    if splits < 1:
+        raise AssertionError(f"adaptive (b): the skewed inner join split nothing: {groups}")
+    if not _host_equal(got, out["off inner"][0]):
+        raise AssertionError("adaptive (b): the split join's rows differ from AQE off")
+    full = out["aqe full"]
+    if full[3] != 0:
+        raise AssertionError(f"adaptive (b): the full outer join split {full[3]} partitions")
+    log(f"adaptive (b): skewed inner join lineitem (l_key 0 on even l_orderkey) x orders at SF "
+        f"{SF}, skewedPartitionThresholdInBytes {SKEW_THRESHOLD}: aqe_splits {splits}, "
+        f"aqe_groups {groups}, {got.num_rows} rows equal to AQE off exactly; walls AQE "
+        f"{ms:.1f} ms, off {out['off inner'][1]:.1f} ms (single runs); full outer: "
+        f"aqe_splits 0, aqe_groups {full[2]}, {full[0].num_rows} rows, {full[1]:.1f} ms")
+
+
+ADAPTIVE_BROADCAST = "10m"
+
+
+def adaptive_broadcast(tables) -> None:
+    """(c) lineitem joined to one month of orders: the static planner picks
+    a shuffled join (autoBroadcastJoinThreshold -1), the measured build side
+    is under ``spark.sql.adaptive.autoBroadcastJoinThreshold``, the join
+    switches to a broadcast at run time; rows equal to AQE off. The same
+    join as a right outer join does not switch."""
+    from datetime import date
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec.gpu_join import GpuShuffledHashJoinExec
+    from spark_rapids_tpu_torch.testing import rows_equal
+
+    aqe = {**ADAPTIVE_JOIN_BASE, "spark.sql.adaptive.enabled": True,
+           "spark.sql.adaptive.autoBroadcastJoinThreshold": ADAPTIVE_BROADCAST}
+    for how, want in (("inner", True), ("right", False)):
+        res = {}
+        for label, conf in (("aqe", aqe), ("off", ADAPTIVE_JOIN_BASE)):
+            s = TorchSession(conf, device="cuda")
+            li = s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS).select(
+                "l_orderkey", "l_extendedprice")
+            od = s.create_dataframe(tables["orders"], num_partitions=INPUT_PARTITIONS).filter(
+                (F.col("o_orderdate") >= date(1995, 3, 1)) & (F.col("o_orderdate") < date(1995, 4, 1))
+            ).select("o_orderkey", "o_totalprice")
+            rows, ms = _timed(li.join(od, F.col("l_orderkey") == F.col("o_orderkey"), how).collect)
+            off = _off_device(s)
+            if off:
+                raise AssertionError(f"adaptive (c): {how} {label}: off the device: {off}")
+            (j,) = _plan_nodes(s._last_plan, GpuShuffledHashJoinExec)
+            res[label] = (rows, ms, j)
+        rows, ms, j = res["aqe"]
+        switched = bool(getattr(j, "aqe_broadcast_switched", False))
+        if switched is not want:
+            raise AssertionError(f"adaptive (c): the {how} join switched: {switched}")
+        ok, msg = rows_equal(res["off"][0], rows)
+        if not ok:
+            raise AssertionError(f"adaptive (c): {how}: rows differ from AQE off: {msg}")
+        measured = getattr(j, "aqe_build_bytes", None)
+        log(f"adaptive (c): lineitem x orders of March 1995, {how}, static plan shuffled "
+            f"(autoBroadcastJoinThreshold -1), adaptive threshold {ADAPTIVE_BROADCAST}: build "
+            + (f"side measured {measured} bytes" if measured is not None else
+               "side not measured (the switch declines a right join before measuring)")
+            + f", switched {switched}; "
+            f"{len(rows)} rows equal to AQE off; walls {ms:.1f} / {res['off'][1]:.1f} ms "
+            "(single runs)")
+
+
+def _explain_off(session) -> list:
+    return [(e.node.split(" ")[0].split("[")[0], e.reasons) for e in session._last_overrides.explain
+            if not e.on_device and not e.node.startswith("CpuScan")]
+
+
+def adaptive_api(tables, cpu_rows) -> None:
+    """(e) The DataFrame surface on the SF 1 tables, each result held to
+    the port's CPU engine (harness tolerance): one CPU-engine run per check
+    (one partition at the shuffle; min and max, and the two pivots, share
+    one reference run), and q1's sums, averages and count against the CPU
+    engine's q1 rows of the slice phase. Each check's seconds are printed."""
+    import contextlib
+    import io
+    from datetime import date
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.testing import rows_equal
+
+    gpu = TorchSession({"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS,
+                        "spark.rapids.sql.test.enabled": True}, device="cuda")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False, "spark.sql.shuffle.partitions": 1},
+                       device="cpu")
+    checks = []
+    t0 = time.perf_counter()
+
+    def done(label: str) -> None:
+        nonlocal t0
+        checks.append(f"{label} ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+
+    li = {n: s.create_dataframe(tables["lineitem"]) for n, s in (("gpu", gpu), ("cpu", cpu))}
+    n = li["gpu"].count()
+    if n != tables["lineitem"].num_rows or n != 6_001_021:
+        raise AssertionError(f"adaptive (e): lineitem.count() {n}")
+    done(f"count() {n}")
+    for what, g in (("head", lambda d: d.head(5)), ("take", lambda d: d.take(5)),
+                    ("first", lambda d: [d.first()])):
+        ok, msg = rows_equal(g(li["cpu"]), g(li["gpu"]))
+        if not ok:
+            raise AssertionError(f"adaptive (e): {what}: {msg}")
+    shown = {}
+    for k, d in li.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            d.show(5)
+        shown[k] = buf.getvalue()
+    if shown["gpu"] != shown["cpu"]:
+        raise AssertionError(f"adaptive (e): show() differs:\n{shown['gpu']}\n{shown['cpu']}")
+    done(f"head(5), take(5), first() equal, show(5) equal ({len(shown['gpu'].splitlines())} "
+         "lines)")
+
+    # fillna / dropna over customers left-joined to their orders: the join
+    # on both engines once, then each operator over it — the device runs
+    # join and operator together, the CPU engine the operator over its own
+    # join's rows
+    def joined(s):
+        c = s.create_dataframe(tables["customer"], num_partitions=INPUT_PARTITIONS).select(
+            "c_custkey", "c_acctbal")
+        o = s.create_dataframe(tables["orders"], num_partitions=INPUT_PARTITIONS).select(
+            "o_custkey", "o_orderkey", "o_totalprice")
+        return c.join(o, F.col("c_custkey") == F.col("o_custkey"), "left")
+
+    base, ref = joined(gpu).to_host(), joined(cpu).to_host()
+    if not _host_equal(base, ref):
+        raise AssertionError("adaptive (e): customer left join orders differs from the CPU engine")
+    nulls = int((~base.columns[2].validity).sum())
+    if nulls <= 0:
+        raise AssertionError("adaptive (e): the left join left no customer without orders")
+    done(f"customer left join orders {base.num_rows} rows, {nulls} without orders")
+    cpu_joined = cpu.create_dataframe(ref)
+    for label, op in (("fillna(0)", lambda d: d.fillna(0)),
+                      ("fillna({o_totalprice: -1.0})", lambda d: d.fillna({"o_totalprice": -1.0})),
+                      ("dropna(any)", lambda d: d.dropna()),
+                      ("dropna(all, subset)",
+                       lambda d: d.dropna(how="all", subset=["o_orderkey", "o_totalprice"])),
+                      ("dropna(thresh=4)", lambda d: d.dropna(thresh=4))):
+        got = op(joined(gpu)).to_host()
+        if not _host_equal(got, op(cpu_joined).to_host()):
+            raise AssertionError(f"adaptive (e): {label} differs from the CPU engine")
+        done(f"{label} {got.num_rows} rows")
+
+    # sort within 4 partitions: the rows in order, partition by partition
+    def swp(s):
+        return s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS).select(
+            "l_orderkey", "l_linenumber", "l_quantity").sort_within_partitions(
+            F.col("l_orderkey").desc(), "l_linenumber")
+
+    got, want = swp(gpu).to_host(), swp(cpu).to_host()
+    if not all(np.array_equal(a.data, b.data) for a, b in zip(got.columns, want.columns)):
+        raise AssertionError("adaptive (e): sort_within_partitions differs from the CPU engine")
+    done(f"sort_within_partitions at {INPUT_PARTITIONS} partitions, {got.num_rows} rows in order")
+
+    # q1's aggregates through GroupedData's shorthands
+    def q1_grouped(s):
+        return (s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS)
+                .filter(F.col("l_shipdate") <= date(1998, 9, 2))
+                .with_column("disc_price", F.col("l_extendedprice") * (1 - F.col("l_discount")))
+                .with_column("charge", F.col("disc_price") * (1 + F.col("l_tax")))
+                .group_by("l_returnflag", "l_linestatus"))
+
+    sums = sorted(q1_grouped(gpu).sum("l_quantity", "l_extendedprice", "disc_price", "charge")
+                  .collect())
+    avgs = sorted(q1_grouped(gpu).avg("l_quantity", "l_extendedprice", "l_discount").collect())
+    counts = sorted(q1_grouped(gpu).count().collect())
+    ok, msg = rows_equal(cpu_rows["q1"], [s[:6] + a[2:] + c[2:]
+                                          for s, a, c in zip(sums, avgs, counts)])
+    if not ok:
+        raise AssertionError(f"adaptive (e): q1 through GroupedData differs: {msg}")
+    mins = sorted(q1_grouped(gpu).min("l_quantity", "l_shipdate").collect())
+    maxs = sorted(q1_grouped(gpu).max("l_quantity", "l_shipdate").collect())
+    c = F.col
+    want = q1_grouped(cpu).agg(F.min(c("l_quantity")), F.min(c("l_shipdate")),
+                               F.max(c("l_quantity")), F.max(c("l_shipdate"))).collect()
+    ok, msg = rows_equal(want, [a + b[2:] for a, b in zip(mins, maxs)])
+    if not ok:
+        raise AssertionError(f"adaptive (e): GroupedData.min/max differ: {msg}")
+    done("q1 through GroupedData.sum/avg/count equal to q1's CPU-engine rows, min/max equal")
+
+    def pv(s, values):
+        return (s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS)
+                .group_by("l_returnflag").pivot("l_linestatus", values).sum("l_extendedprice"))
+
+    want_df = pv(cpu, ["F", "O"])
+    want = want_df.collect()
+    for values in (None, ["F", "O"]):
+        g = pv(gpu, values)
+        if g.columns != want_df.columns:
+            raise AssertionError(f"adaptive (e): pivot columns {g.columns} != {want_df.columns}")
+        ok, msg = rows_equal(want, g.collect())
+        if not ok:
+            raise AssertionError(f"adaptive (e): pivot {values}: {msg}")
+    done(f"pivot without and with values, columns {want_df.columns}")
+
+    # sample: the Rand filter stays on the CPU engine (the JAX rule's gate)
+    samp = TorchSession({"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}, device="cuda")
+
+    def sampled(s):
+        return (s.create_dataframe(tables["lineitem"]).sample(0.01, seed=7)
+                .select("l_orderkey", "l_linenumber", (F.col("l_quantity") * 2).alias("q2")))
+
+    got = sampled(samp).to_host()
+    off = _explain_off(samp)
+    if [o[0] for o in off] != ["CpuFilter"] or not any("XORShiftRandom" in r for r in off[0][1]):
+        raise AssertionError(f"adaptive (e): sample's nodes off the device: {off}")
+    if not _host_equal(got, sampled(cpu).to_host()):
+        raise AssertionError("adaptive (e): sample(0.01, seed=7) differs from the CPU engine")
+    done(f"sample(0.01, seed=7) {got.num_rows} rows equal, its one node off the device "
+         f"CpuFilter: {off[0][1][0]}")
+    log(f"adaptive (e): DataFrame surface at SF {SF}: " + "; ".join(checks))
+
+
+def adaptive_routing(tables, cpu_rows) -> None:
+    """(f) Calibrated routing: q1 and q6 warm, harvested into a fresh
+    calibration table (device runs over lineitem, CPU-engine runs over its
+    first ``CALIBRATION_HOST_ROWS`` rows); then with routing on, a 1,000-row
+    q6 routes to the CPU engine and q1 at SF 1 stays on the device. Also
+    q1's ledger dispatch over its kernels: the card's own per-launch cost."""
+    import os
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch.obs import calibration as obs_cal
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import tpch_query
+
+    if os.path.exists(CALIBRATION_FILE):
+        os.remove(CALIBRATION_FILE)
+    obs_cal.invalidate(CALIBRATION_FILE)
+    harvest = {"spark.rapids.tpu.cbo.calibration.enabled": True,
+               "spark.rapids.tpu.cbo.calibrationFile": CALIBRATION_FILE}
+    host_li = tables["lineitem"].slice(0, CALIBRATION_HOST_ROWS)
+    for enabled, device, li in ((True, "cuda", tables["lineitem"]), (False, "cpu", host_li)):
+        s = TorchSession({**harvest, "spark.rapids.sql.enabled": enabled}, device=device)
+        for q in (1, 6):
+            for _ in range(2):  # the first uploads; both feed the table
+                tpch_query(q, lambda t: s.create_dataframe(li)).collect()
+    snap = obs_cal.get(CALIBRATION_FILE).snapshot()
+    log("adaptive (f): calibration harvested (ns/row): " + json.dumps(
+        {k: v.get("device_ns_per_row", v.get("host_ns_per_row")) for k, v in sorted(snap.items())}))
+    routed = {"spark.rapids.tpu.routing.enabled": True,
+              "spark.rapids.tpu.cbo.calibrationFile": CALIBRATION_FILE}
+    small = tables["lineitem"].slice(0, 1000)
+    s = TorchSession(routed, device="cuda")
+    got = tpch_query(6, lambda t: s.create_dataframe(small)).collect()
+    reasons = [r for e in s._last_overrides.explain for r in e.reasons
+               if r.startswith("calibrated routing: predicted device")]
+    if not reasons:
+        raise AssertionError(f"adaptive (f): the 1,000-row q6 was not routed: "
+                             f"{_explain_off(s)}")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    ok, msg = rows_equal(tpch_query(6, lambda t: cpu.create_dataframe(small)).collect(), got)
+    if not ok:
+        raise AssertionError(f"adaptive (f): the routed q6's rows differ: {msg}")
+    log(f"adaptive (f): 1,000-row q6 with routing on: routed to the CPU engine, {reasons[0]}")
+    s = TorchSession(routed, device="cuda")
+    tpch_query(1, lambda t: s.create_dataframe(tables["lineitem"])).collect()
+    got, wall = _timed(lambda: tpch_query(1, lambda t: s.create_dataframe(
+        tables["lineitem"])).collect())
+    off = _off_device(s)
+    if off:
+        raise AssertionError(f"adaptive (f): q1 at SF {SF} left the device: {off}")
+    ok, msg = rows_equal(cpu_rows["q1"], got)
+    if not ok:
+        raise AssertionError(f"adaptive (f): q1 with routing on: {msg}")
+    bd = s._last_ledger.breakdown()
+    _, _, kernels = _profile_kernels(lambda: tpch_query(1, lambda t: s.create_dataframe(
+        tables["lineitem"])).collect())
+    dispatch = bd["phases_ms"].get("dispatch", 0.0)
+    log(f"adaptive (f): q1 at SF {SF} with routing on: kept on the device (no routing verdict), "
+        f"warm wall {wall:.1f} ms, rows equal to the CPU engine; its ledger's dispatch "
+        f"{dispatch} ms over {kernels} kernels (torch.profiler, the next run) = "
+        f"{1e6 * dispatch / max(kernels, 1):.0f} ns per launch on this card, beside the "
+        f"routing default launchOverheadNs {cfg.ROUTING_LAUNCH_OVERHEAD_NS.default} (the JAX "
+        "package's, not this card's)")
+
+
+def adaptive_phase(tables, cpu_rows) -> dict:
+    """The adaptive and API phase (a)-(c), (e), (f); (d) rides the TPC-DS
+    phase. Returns (a)'s match_starts launches."""
+    t0 = time.perf_counter()
+    launches = adaptive_shim(tables, cpu_rows)
+    adaptive_skew(tables)
+    adaptive_broadcast(tables)
+    adaptive_api(tables, cpu_rows)
+    adaptive_routing(tables, cpu_rows)
+    log(f"adaptive phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2418,6 +2966,8 @@ def main() -> int:
     runtime_launches = runtime_phase(tables, cpu_rows, partitioned)
     del partitioned
     mark("runtime phase")
+    adaptive_launches = adaptive_phase(tables, cpu_rows)
+    mark("adaptive and API phase")
     wide_string_hash(orders)
     memory_launches = memory_phase(tables)
     mark("memory phase")
@@ -2428,9 +2978,11 @@ def main() -> int:
     # the main paths: the slice phase's contains, the expression phase's
     # locate, substring_index and replace in their timed SF 1 runs, the
     # runtime phase's contains inside a fused stage and the memory phase's
-    # contains under injected OOMs
+    # contains under injected OOMs, and the adaptive phase's contains_agg
+    # under sparkVersion 3.2
     main_path = {"total": 0, "by_path": {}, "by_consumer": {}}
-    for part in (sliced["launches"], expr_launches, runtime_launches, memory_launches):
+    for part in (sliced["launches"], expr_launches, runtime_launches, memory_launches,
+                 adaptive_launches):
         _add_launches(main_path, part)
     record["launches"] = main_path["total"]
     record["launches_by_path"] = main_path["by_path"]

@@ -269,7 +269,22 @@ def batch_rows(batch: HostBatch) -> list:
     return list(zip(*cols)) if cols else [() for _ in range(batch.num_rows)]
 
 
-# ── Arrow input (lazy pyarrow) ──────────────────────────────────────────────
+# ── Arrow input and output (lazy pyarrow) ───────────────────────────────────
+
+
+def to_arrow(batch: HostBatch):
+    """One HostBatch → ``pa.Table`` with the schema's Arrow types, from the
+    same Python values ``collect()`` gives (imports pyarrow; raises
+    ``ImportError`` naming it where it is not installed)."""
+    try:
+        import pyarrow as pa
+    except ImportError as e:
+        raise ImportError("to_arrow() needs the pyarrow package, which is not installed") from e
+    schema = batch.schema.to_arrow()
+    arrays = [
+        pa.array(to_pylist(c), type=schema.field(i).type) for i, c in enumerate(batch.columns)
+    ]
+    return pa.Table.from_arrays(arrays, schema=schema)
 
 
 def from_arrow(table, schema: Optional[Schema] = None) -> HostBatch:
@@ -340,5 +355,6 @@ __all__ = [
     "np_from_host",
     "string_column",
     "strings_from_list",
+    "to_arrow",
     "to_pylist",
 ]

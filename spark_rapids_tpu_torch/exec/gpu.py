@@ -1179,6 +1179,112 @@ class GpuUnionExec(Exec):
         return PartitionSet(parts)
 
 
+#: guards the entries of every query's reuse memo (a shared exchange is
+#: reached from several partition tasks at once)
+_REUSE_LOCK = threading.Lock()
+
+# which join side may be SPLIT under skew (the other side is replicated;
+# replication must not be able to emit unmatched rows of its own side)
+_SPLITTABLE_SIDES = {
+    "inner": ("left", "right"),
+    "left": ("left",),
+    "left_semi": ("left",),
+    "left_anti": ("left",),
+    "right": ("right",),
+    "full": (),
+}
+
+
+def _aqe_join_plan(sa, sb, n, advisory, sides, skew_thresh, skew_factor):
+    """One shared AQE plan for both shuffle reads of a join: per output
+    slot, a list of (source partition, split index, split count) for each
+    side. Coalescing groups adjacent small partitions; a skewed partition
+    (one side > max(threshold, factor x median), other side small) is
+    split across the slots coalescing freed while the other side's
+    partition replicates into each. Deterministic in (sa, sb) so both
+    exchanges compute identical plans. Copied from the JAX package's
+    ``exec/tpu.py::_aqe_join_plan``."""
+    combined = [x + y for x, y in zip(sa, sb)]
+    skewed: dict = {}
+    if sides and skew_thresh > 0:
+        med_a = sorted(sa)[n // 2]
+        med_b = sorted(sb)[n // 2]
+        for p in range(n):
+            if (
+                "left" in sides
+                and sa[p] > max(skew_thresh, skew_factor * med_a)
+                and sb[p] <= skew_thresh
+            ):
+                skewed[p] = "left"
+            elif (
+                "right" in sides
+                and sb[p] > max(skew_thresh, skew_factor * med_b)
+                and sa[p] <= skew_thresh
+            ):
+                skewed[p] = "right"
+    groups: list = []
+    cur: list = []
+    by = 0
+    for p in range(n):
+        if p in skewed:
+            if cur:
+                groups.append(("g", cur))
+                cur, by = [], 0
+            groups.append(("s", [p]))
+            continue
+        if cur and by + combined[p] > advisory:
+            groups.append(("g", cur))
+            cur, by = [], 0
+        cur.append(p)
+        by += combined[p]
+    if cur:
+        groups.append(("g", cur))
+    free = n - len(groups)
+    out_a: list = [[] for _ in range(n)]
+    out_b: list = [[] for _ in range(n)]
+    slot = 0
+    for kind, g in groups:
+        if kind == "s" and free > 0:
+            p = g[0]
+            side = skewed[p]
+            big = sa[p] if side == "left" else sb[p]
+            want = max(2, int(big // max(advisory, 1)))
+            k = min(free + 1, want, n)
+            free -= k - 1
+            for j in range(k):
+                if side == "left":
+                    out_a[slot].append((p, j, k))
+                    out_b[slot].append((p, 0, 1))
+                else:
+                    out_a[slot].append((p, 0, 1))
+                    out_b[slot].append((p, j, k))
+                slot += 1
+        else:
+            for p in g:
+                out_a[slot].append((p, 0, 1))
+                out_b[slot].append((p, 0, 1))
+            slot += 1
+    return out_a, out_b
+
+
+def _row_range_slice(db: DeviceBatch, j: int, k: int) -> DeviceBatch:
+    """Rows of live-row range slice j of k, moved to the prefix (the skew
+    split unit). Live rows are the prefix ``[0, num_rows)``, so the slice
+    is rows ``[n*j//k, n*(j+1)//k)``: one shifted gather at the batch's
+    capacity, the padding re-masked past the slice's own count (as
+    ``resilience/retry.py::split_batch`` re-masks its halves). Rows keep
+    their order, as the JAX package's compaction keeps them."""
+    n = db.num_rows.to(torch.int64)
+    lo = (n * j) // k
+    cnt = (n * (j + 1)) // k - lo
+    cap = db.capacity
+    iota = torch.arange(cap, dtype=torch.int64, device=db.device)
+    out = gather_batch(db, torch.clamp(lo + iota, 0, cap - 1), cnt.to(torch.int32))
+    live = iota < cnt
+    cols = [dc_replace(c, validity=c.validity & live) for c in out.columns]
+    return DeviceBatch(out.schema, cols, out.num_rows)
+
+
 class GpuShuffleExchangeExec(Exec):
     """Partitioned exchange with on-device bucketing and device-side slicing
     (GpuShuffleExchangeExec + the four GpuPartitioning impls), the port of
@@ -1188,14 +1294,23 @@ class GpuShuffleExchangeExec(Exec):
     resident running offset; single = all batches, shrunk, into partition 0.
     Every partition's batches stay on the device.
 
-    Left out of the port so far, each with its place in ROADMAP.md:
+    Under ``spark.sql.adaptive.enabled`` the read is adaptive, as in the
+    JAX package (``exec/tpu.py:2613-2714``): from the measured live-row
+    bytes of every bucket (one count fetch per exchange, memoized) adjacent
+    small partitions coalesce into one reader slot, and when the exchange
+    feeds a shuffled join linked to its peer (``exec/gpu_join.py``) a
+    skewed partition splits across the freed slots while the peer's
+    partition replicates. Both sides compute one plan from the combined
+    sizes, so positional pairing holds. The assignment is memoized under
+    a lock: partition tasks and both sides of a join reach it at once.
+    Each exchange records ``aqe_groups`` and ``aqe_splits``. A node that
+    exchange reuse (``plan/reuse.py``) shares between consumers memoizes
+    its ``PartitionSet`` in the query's ``reuse_cache``.
 
-    * the mesh (SPMD all_to_all) path, the multi-process exchange and the
-      shuffle manager (Queue A item 13) — the overrides keep an exchange on
-      the CPU engine while ``spark.rapids.shuffle.manager.enabled`` is set;
-    * AQE partition coalescing and skew splitting, and exchange reuse
-      (Queue A item 16) — the overrides keep an exchange on the CPU engine
-      while ``spark.sql.adaptive.enabled`` is set.
+    Left out of the port so far: the mesh (SPMD all_to_all) path, the
+    multi-process exchange and the shuffle manager (Queue A item 13) — the
+    overrides keep an exchange on the CPU engine while
+    ``spark.rapids.shuffle.manager.enabled`` is set.
 
     Every bucketing step runs behind ``with_oom_retry``, as in the JAX
     package. Unlike the JAX package's in-memory exchange, the slices it
@@ -1213,6 +1328,12 @@ class GpuShuffleExchangeExec(Exec):
         from .cpu import _bind_partitioning
 
         self.partitioning = _bind_partitioning(partitioning, child.output)
+        # AQE coalescing coordination: a co-partitioned consumer (shuffled
+        # join) links its two feeding exchanges so both compute ONE shared
+        # assignment from combined sizes; if only one side is an exchange,
+        # coalescing is disabled to keep positional pairing intact.
+        self._aqe_peer: "GpuShuffleExchangeExec | None" = None
+        self._aqe_disabled = False
 
     @property
     def num_partitions(self) -> int:
@@ -1290,9 +1411,15 @@ class GpuShuffleExchangeExec(Exec):
             for o in self.partitioning.order
         ]
 
-    def _materialize(self, kind: str, fn, child_parts: PartitionSet, ctx: ExecContext) -> list:
+    def _materialize(
+        self, kind: str, fn, child_parts: PartitionSet, ctx: ExecContext, rows=None
+    ) -> list:
         """Every input batch bucketed into its output partitions, each slice
-        registered in the spill catalog (a list of handles per partition)."""
+        registered in the spill catalog (a list of handles per partition).
+        With ``rows`` (a list; the adaptive read passes one), each input
+        batch also appends its slices' live-row counts as one int32
+        ``[nparts]`` device tensor, so the sizes cross to the host later in
+        one fetch."""
         from ..mem.spill import SpillPriorities, with_oom_retry
 
         catalog = ctx.catalog
@@ -1300,10 +1427,26 @@ class GpuShuffleExchangeExec(Exec):
         buckets = [[] for _ in range(nparts)]
 
         def park(p: int, slices) -> None:
+            """Whole batches into partition ``p`` ("single", a range
+            exchange without bounds)."""
+            if rows is not None:
+                for s in slices:
+                    one = torch.zeros(nparts, dtype=torch.int32, device=s.device)
+                    one[p] = s.num_rows
+                    rows.append(one)
             for s in slices:
                 buckets[p].append(
                     catalog.register(s, SpillPriorities.INPUT_FROM_SHUFFLE, owner="exchange")
                 )
+        def park_all(slices) -> None:
+            """One input batch's slices, slice p into partition p."""
+            if rows is not None:
+                rows.append(torch.stack([sl.num_rows.to(torch.int32) for sl in slices]))
+            for p in range(nparts):
+                buckets[p].append(
+                    catalog.register(slices[p], SpillPriorities.INPUT_FROM_SHUFFLE, owner="exchange")
+                )
+
         if kind == "range":
             order = self.partitioning.order
             batches, group_lists = [], []
@@ -1342,8 +1485,7 @@ class GpuShuffleExchangeExec(Exec):
             all_words.reverse()
             while batches:  # inputs free as they are bucketed
                 slices = with_oom_retry(catalog, fn, batches.pop(), all_words.pop(), dev_bounds)
-                for p in range(nparts):
-                    park(p, [slices[p]])
+                park_all(slices)
                 del slices
         elif kind == "hash":
             # drain every partition first (queues all upstream work), then
@@ -1352,8 +1494,7 @@ class GpuShuffleExchangeExec(Exec):
             drained.reverse()
             while drained:  # slices consume the list, so inputs free as we go
                 slices = with_oom_retry(catalog, fn, drained.pop())
-                for p in range(nparts):
-                    park(p, [slices[p]])
+                park_all(slices)
                 del slices
         elif kind == "single":
             # coalesce to one partition; shrink sparse batches (e.g.
@@ -1370,13 +1511,30 @@ class GpuShuffleExchangeExec(Exec):
                     if offset is None:
                         offset = torch.tensor(pi % nparts, dtype=torch.int64, device=db.device)
                     slices = with_oom_retry(catalog, fn, db, offset % nparts)
-                    for p in range(nparts):
-                        park(p, [slices[p]])
+                    park_all(slices)
                     offset = offset + db.num_rows
                     del slices, db
         return buckets
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
+        # exchange reuse (plan/reuse.py): a node shared by several consumers
+        # materializes once per query — the ReuseExchange analogue. A task
+        # re-attempted from lineage, or a speculative duplicate, re-reads the
+        # shared buckets (their handles stay registered until the query's
+        # end); nothing materializes twice.
+        if getattr(self, "_reuse_shared", False):
+            with _REUSE_LOCK:  # one lock per shared node and query
+                entry = ctx.reuse_cache.setdefault(id(self), [threading.Lock(), None])
+            # the node's own lock, held while its subtree executes: a shared
+            # exchange beneath takes its own, and a partition task that
+            # reaches this node from a broadcast build waits for one set
+            with entry[0]:
+                if entry[1] is None:
+                    entry[1] = self._execute_impl(ctx)
+            return entry[1]
+        return self._execute_impl(ctx)
+
+    def _execute_impl(self, ctx: ExecContext) -> PartitionSet:
         nparts = self.num_partitions
         kind = self._kind()
         exchange_child = self.children[0]
@@ -1395,22 +1553,130 @@ class GpuShuffleExchangeExec(Exec):
             exchange_child = exchange_child.children[0]
         fn = self._scatter_fn(kind, nparts, pre_filter)
         child_parts = exchange_child.execute(ctx)
-        state: dict = {}
-        lock = threading.Lock()
+        from .. import config as cfg
 
-        def bucket(p: int) -> list:
+        adaptive = cfg.ADAPTIVE_ENABLED.get(ctx.conf) and not self._aqe_disabled
+        state: dict = {}
+        lock = threading.RLock()
+
+        def materialize() -> list:
             with lock:
                 if "buckets" not in state:
-                    state["buckets"] = self._materialize(kind, fn, child_parts, ctx)
-                return state["buckets"][p]
+                    rows = [] if adaptive else None
+                    state["buckets"] = self._materialize(kind, fn, child_parts, ctx, rows)
+                    state["rows"] = rows
+                return state["buckets"]
+
+        def read(h):
+            db = h.get_batch()
+            h.unpin()  # spillable again once the reader lets go of it
+            return db
+
+        if not adaptive:
+
+            def make(p):
+                def it():
+                    for h in materialize()[p]:
+                        db = read(h)
+                        yield db
+                        del db
+
+                return it
+
+            return PartitionSet([make(p) for p in range(nparts)])
+        return self._adaptive_read(ctx, materialize, read, state, lock)
+
+    def _adaptive_read(self, ctx: ExecContext, materialize, read, state: dict, lock) -> PartitionSet:
+        """AQE partition coalescing + skew-join splitting
+        (GpuCustomShuffleReaderExec / CoalescedPartitionSpec +
+        OptimizeSkewedJoin analogues, the JAX package's adaptive branch):
+        measured output sizes group adjacent small partitions into one
+        reader slot, and — when this exchange feeds a shuffled join — an
+        oversized partition is split across the freed slots while the
+        peer's partition is replicated. The partition COUNT stays static
+        (PartitionSets are fixed-arity); both join sides compute the SAME
+        plan from the combined measurements, so positional pairing holds."""
+        from .. import config as cfg
+
+        nparts = self.num_partitions
+        advisory = cfg.ADVISORY_PARTITION_SIZE.get(ctx.conf)
+        skew_on = cfg.SKEW_JOIN_ENABLED.get(ctx.conf)
+        skew_thresh = cfg.SKEW_JOIN_THRESHOLD.get(ctx.conf)
+        skew_factor = cfg.SKEW_JOIN_FACTOR.get(ctx.conf)
+        assign_lock = threading.Lock()
+
+        def my_sizes() -> list:
+            # LIVE-row bytes, not capacity bytes: bucket slices share the
+            # input's padded capacity, which would make every bucket look
+            # equally big and hide both small partitions and skew. One
+            # fetch of every bucket count, memoized: both sides of a
+            # linked join read each exchange's sizes.
+            with lock:
+                if "sizes" not in state:
+                    materialize()
+                    rows = state.pop("rows")
+                    if rows:
+                        counts = torch.stack(rows).to(torch.int64).sum(dim=0).cpu().tolist()
+                        ctx.metrics["aqeSizeSyncs"] += 1
+                    else:
+                        counts = [0] * nparts
+                    rb = _row_bytes(self.output)
+                    state["sizes"] = [int(c) * rb for c in counts]
+                return state["sizes"]
+
+        ctx.aqe_size_providers[id(self)] = my_sizes
+
+        def assignment() -> list:
+            with assign_lock:
+                if "assign" not in state:
+                    state["assign"] = plan_assignment()
+                return state["assign"]
+
+        def plan_assignment() -> list:
+            sizes = my_sizes()
+            peer = self._aqe_peer
+            if peer is None:
+                assign, _ = _aqe_join_plan(sizes, [0] * nparts, nparts, advisory, (), 0, 0)
+            else:
+                peer_fn = ctx.aqe_size_providers.get(id(peer))
+                if peer_fn is None:
+                    # peer never took the AQE path: identity grouping
+                    # preserves positional pairing
+                    self.aqe_groups = nparts
+                    return [[(p, 0, 1)] for p in range(nparts)]
+                sides = (
+                    _SPLITTABLE_SIDES.get(getattr(self, "_aqe_join_type", "inner"), ())
+                    if skew_on
+                    else ()
+                )
+                mine, theirs = sizes, peer_fn()
+                if getattr(self, "_aqe_side", "left") == "left":
+                    assign, _ = _aqe_join_plan(
+                        mine, theirs, nparts, advisory, sides, skew_thresh, skew_factor
+                    )
+                else:
+                    _, assign = _aqe_join_plan(
+                        theirs, mine, nparts, advisory, sides, skew_thresh, skew_factor
+                    )
+            self.aqe_groups = sum(1 for a in assign if a)
+            self.aqe_splits = sum(
+                1 for slot in assign for (_, j, k) in slot if k > 1 and j == 0
+            )
+            return assign
 
         def make(p):
             def it():
-                for h in bucket(p):
-                    db = h.get_batch()
-                    h.unpin()  # spillable again once the reader lets go of it
-                    yield db
-                    del db
+                buckets = materialize()
+                tok = ctx.cancel_token
+                for src, j, k in assignment()[p]:
+                    for h in buckets[src]:
+                        if tok is not None:
+                            tok.check()
+                        db = read(h)
+                        if k > 1:
+                            db = _row_range_slice(db, j, k)
+                        yield db
+                        del db
 
             return it
 
@@ -1523,6 +1789,7 @@ class GpuTakeOrderedAndProjectExec(Exec):
         self.order = [
             SortOrder(bind(o.child, child.output), o.ascending, o.nulls_first) for o in order
         ]
+        self.prefilter_hits = 0  # observability: candidate fast path taken
 
     @property
     def output(self) -> Schema:
@@ -1545,6 +1812,7 @@ class GpuTakeOrderedAndProjectExec(Exec):
                 mask, cnt = topn_candidates(merged, self.order[0], limit)
                 if int(cnt) <= cand_cap:  # the one host sync
                     ctx.metrics["topNCandidateHits"] += 1
+                    self.prefilter_hits += 1
                     # the candidates' rows in order, then the others: the
                     # first cand_cap hold every candidate
                     idx = first_k_positions(mask)[:cand_cap]

@@ -47,8 +47,13 @@ sync for their count. Unlike the JAX package, the build is first cut to
 its live rows (one count fetch per join task), so a compacted build does
 not multiply the pair space by its padding.
 
-Left out of the port so far, each with its place in ROADMAP.md: the AQE
-runtime broadcast switch and exchange linking (item 16) and the mesh
+Under ``spark.sql.adaptive.enabled`` the shuffled join links its two
+feeding exchanges (``_link_aqe_exchanges``) so both compute one coalesce
+and skew-split plan, and tries the runtime broadcast switch first
+(``_try_broadcast_switch``), both from the JAX package's
+``exec/tpu_join.py:56-93, :265-346``.
+
+Left out of the port so far, with its place in ROADMAP.md: the mesh
 placement of the two sides (item 13).
 """
 from __future__ import annotations
@@ -80,6 +85,40 @@ from .gpu import _row_bytes, val_to_column
 # while their match totals ride one batched sync (memory bound per stream);
 # the window also closes once its batches hold spark.rapids.sql.batchSizeBytes
 _PROBE_WINDOW = 8
+
+
+def _link_aqe_exchanges(left: Exec, right: Exec, join_type: str = "inner") -> None:
+    """Positional partition pairing requires both join inputs to share one
+    AQE coalesce assignment. Find the shuffle exchange feeding each side
+    (descending through batch-coalesce wrappers); link the pair so each
+    computes the grouping from combined sizes, or disable coalescing when
+    only one side is exchange-fed (the other side's partitioning is fixed).
+    The join type rides along so the skew-split pass knows which side may
+    be split (the other side is replicated — only legal when replication
+    cannot emit unmatched rows). Spark parity: AQE applies identical
+    CoalescedPartitionSpecs to both shuffle reads of a join
+    (ShufflePartitionsUtil) and OptimizeSkewedJoin splits a skewed side
+    while replicating the other."""
+    from .gpu import GpuCoalesceBatchesExec, GpuShuffleExchangeExec
+
+    def find(node: Exec):
+        while True:
+            if isinstance(node, GpuShuffleExchangeExec):
+                return node
+            if isinstance(node, GpuCoalesceBatchesExec):
+                node = node.children[0]
+                continue
+            return None
+
+    lex, rex = find(left), find(right)
+    if lex is not None and rex is not None:
+        lex._aqe_peer, rex._aqe_peer = rex, lex
+        lex._aqe_side, rex._aqe_side = "left", "right"
+        lex._aqe_join_type = rex._aqe_join_type = join_type
+    else:
+        for ex in (lex, rex):
+            if ex is not None:
+                ex._aqe_disabled = True
 
 
 def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
@@ -359,10 +398,87 @@ class GpuShuffledHashJoinExec(Exec):
             self._right_ordinals(),
         )
 
+    def _try_broadcast_switch(self, ctx: ExecContext):
+        """AQE runtime join-strategy switch (Spark's DynamicJoinSelection +
+        local shuffle reader; GpuCustomShuffleReaderExec analogue): when
+        the build side's MEASURED map-output size fits the broadcast
+        threshold, join every probe partition against ONE concatenated
+        build table and read the probe side's exchange LOCALLY — its
+        bucketing is skipped entirely. Returns ``(switched_partition_set |
+        None, reusable_build_parts | None)`` — the second slot hands an
+        already-executed build exchange back to the normal path so
+        declining never materializes it twice."""
+        from .gpu import GpuShuffleExchangeExec
+
+        if not cfg.ADAPTIVE_ENABLED.get(ctx.conf):
+            return None, None
+        # broadcast-build-right is only sound when unmatched BUILD rows
+        # never surface (they would duplicate per probe partition)
+        if self.join_type not in ("inner", "left", "left_semi", "left_anti"):
+            return None, None
+        left, right = self.children
+        if not isinstance(right, GpuShuffleExchangeExec):
+            return None, None
+        thresh = cfg.ADAPTIVE_BROADCAST_THRESHOLD.get(ctx.conf)
+        if thresh < 0:
+            thresh = cfg.AUTO_BROADCAST_THRESHOLD.get(ctx.conf)
+        if thresh < 0:
+            return None, None
+        rparts = right.execute(ctx)
+        size_fn = ctx.aqe_size_providers.get(id(right))
+        if size_fn is None:  # exchange didn't take the AQE path
+            return None, rparts
+        total = sum(size_fn())
+        self.aqe_build_bytes = total
+        # the measurement materialized the build side ON THIS thread; give
+        # back the device-semaphore permit it took, or this thread holds a
+        # task slot for the rest of the query and the partition tasks stall
+        ctx.semaphore.release_if_necessary()
+        if total > thresh:
+            # declined: hand the already-executed build partitions back so
+            # the normal path doesn't materialize the exchange twice
+            return None, rparts
+        self.aqe_broadcast_switched = True
+        # local shuffle read: bypass the probe exchange's bucketing (the
+        # broadcast build holds every key, so co-partitioning is moot)
+        probe_src = left.children[0] if isinstance(left, GpuShuffleExchangeExec) else left
+        lparts = probe_src.execute(ctx)
+        jt = self.join_type
+        bstate: dict = {}
+        block = threading.Lock()
+
+        def build_once() -> DeviceBatch:
+            with block:
+                if "b" not in bstate:
+                    from ..mem.spill import with_oom_retry
+
+                    batches = [db for p in rparts.parts for db in p()]
+                    bstate["b"] = (
+                        with_oom_retry(ctx.catalog, concat_device, batches)
+                        if batches
+                        else empty_batch(right.output, ctx.device)
+                    )
+                return bstate["b"]
+
+        def make(lt):
+            def it():
+                yield from _stream_probe_join(self, build_once, lt, jt, ctx)
+
+            return it
+
+        return PartitionSet([make(lt) for lt in lparts.parts]), None
+
     def execute(self, ctx: ExecContext) -> PartitionSet:
         left, right = self.children
+        # link BEFORE any side executes: the AQE coalesce/skew assignment
+        # must see its peer even when the broadcast-switch probe below
+        # executes the build exchange first (and then declines)
+        _link_aqe_exchanges(left, right, self.join_type)
+        switched, reuse_rparts = self._try_broadcast_switch(ctx)
+        if switched is not None:
+            return switched
         lparts = left.execute(ctx)
-        rparts = right.execute(ctx)
+        rparts = reuse_rparts if reuse_rparts is not None else right.execute(ctx)
         assert lparts.num_partitions == rparts.num_partitions, (
             f"{lparts.num_partitions} vs {rparts.num_partitions}"
         )

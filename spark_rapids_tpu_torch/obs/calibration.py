@@ -5,9 +5,10 @@ The override layer's island-weight un-conversion can run on *measured*
 costs instead of the hardcoded ``GpuOverrides._CBO_WEIGHTS`` guesses. This
 module is that table: an EWMA per-op-signature record of measured
 device-ns/row and host-ns/row, harvested from the executed plan's operator
-metric registries at query exit (``opTime`` ÷ output rows — the
-``profiling.instrument_plan`` wait-per-batch attribution, enabled while
-calibration runs) and persisted to a JSON file so a restarted session
+metric registries at query exit (``opTime`` ÷ rows — for a device node
+the ``profiling.instrument_plan`` wait-per-batch attribution over its
+sources' rows, for a host node its own pull time over its sources' rows,
+enabled while calibration runs) and persisted to a JSON file so a restarted session
 starts calibrated.
 
 Consumption (``plan/overrides.py``): with
@@ -15,8 +16,9 @@ Consumption (``plan/overrides.py``): with
 weights derive from measured device ns/row normalized against the
 cheapest measured op (the weight-1 unit the hardcoded table pins on
 ``GpuProjectExec``); otherwise behavior is bit-identical to the hardcoded
-table. The explain output names which table decided and with what
-numbers, so an un-conversion is always auditable.
+table. The routing pass (``spark.rapids.tpu.routing.enabled``) reads both
+sides' ns/row (``ns_per_row``). The explain output names which table
+decided and with what numbers, so an un-conversion is always auditable.
 
 File schema (``spark.rapids.tpu.cbo.calibrationFile``)::
 
@@ -134,19 +136,25 @@ class CostCalibration:
             op_time = ms.get("opTime")
             if op_time is None or op_time.value <= 0:
                 continue
-            rows = _rows_for(node)
+            device = getattr(node, "is_device", False)
+            rows = _rows_for(node) if device else _source_rows(node)
             if rows <= 0:
                 continue
-            field = (
-                "device_ns_per_row"
-                if getattr(node, "is_device", False)
-                else "host_ns_per_row"
-            )
+            field = "device_ns_per_row" if device else "host_ns_per_row"
             self._update(type(node).__name__, field, op_time.value / rows, rows)
             fed += 1
         return fed
 
     # ── consumption ─────────────────────────────────────────────────────
+    def ns_per_row(self, op: str, device: bool = True) -> Optional[float]:
+        """One op's measured ns/row on the device or the host side (None
+        when that side was never measured) — what the routing pass reads."""
+        with self._lock:
+            e = self._ops.get(op)
+        if e is None:
+            return None
+        return e.get("device_ns_per_row" if device else "host_ns_per_row")
+
     def device_weights(self) -> Dict[str, int]:
         """Measured device costs as integer island weights: each op's
         ns/row over the cheapest measured op's (the weight-1 unit),
@@ -167,6 +175,10 @@ class CostCalibration:
             op: max(0, min(100, int(round(v / unit)))) for op, v in pairs
         }
 
+    def snapshot(self) -> Dict[str, dict]:
+        with self._lock:
+            return {k: dict(v) for k, v in self._ops.items()}
+
 
 def _walk(node):
     yield node
@@ -183,6 +195,20 @@ def _rows_for(node) -> int:
         if rows_m is not None and rows_m.value > 0:
             return int(rows_m.value)
     return sum(_rows_for(c) for c in getattr(node, "children", ()))
+
+
+def _source_rows(node) -> int:
+    """Rows a host node's sources produced: the output rows
+    (``opOutputRows``, counted by ``profiling.instrument_plan``) of the
+    leaves beneath it — the row count a device node's ns/row is taken over
+    too, and the one the routing pass multiplies by. The JAX package
+    harvests no host ns/row: its host nodes count no rows."""
+    kids = getattr(node, "children", ())
+    if kids:
+        return sum(_source_rows(c) for c in kids)
+    ms = getattr(node, "metrics", None)
+    m = ms.get("opOutputRows") if ms else None
+    return int(m.value) if m is not None else 0
 
 
 # ── process-wide instances (one per file path; sessions share) ──────────────

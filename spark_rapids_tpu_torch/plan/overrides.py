@@ -19,7 +19,7 @@ channel of the project and filter), dates, date patterns, math, bitwise, strings
 ``match_starts`` kernel where they search), ``md5``, the task-context
 expressions, the aggregates but the collect family, and the windows. What
 the port does not run yet has no rule (nested types, ``GetJsonObject``,
-``Rand``, the input-file expressions, UDFs) or, like ``RLike`` and the
+the input-file expressions, UDFs) or, like ``Rand``, ``RLike`` and the
 regex functions, keeps the JAX package's CPU-engine rule. Every other node
 stays on the CPU engine with its reason in the explain, which is the
 system's own per-node fallback. (The JAX table binds ``exec.tpu``
@@ -57,47 +57,114 @@ from ..expr.base import Alias, BoundReference, Literal
 from ..expr.cast import Cast, can_cast_on_device
 from ..types import (
     BooleanType,
-    ByteType,
+    DataType,
     DateType,
     DecimalType,
-    DoubleType,
-    FloatType,
-    IntegerType,
-    LongType,
     Schema,
-    ShortType,
     StringType,
     TimestampType,
 )
 from .physical import Exec
 
-# ── expression rules ───────────────────────────────────────────────────────
+# ── TypeSig algebra (TypeChecks.scala:129-367) ─────────────────────────────
 
-_INTEGRAL = (ByteType, ShortType, IntegerType, LongType)
-_FLOATING = (FloatType, DoubleType)
+
+class TypeSig:
+    """Which data types a rule's inputs may have — the reference's
+    type-signature algebra, compacted to a set of type classes combinable
+    with ``+``. Rules carry a sig; the tagging walk rejects mismatches with
+    a reason naming the offending type, exactly like ``ExprChecks.tag``.
+    Copied from the JAX package's ``plan/overrides.py:52-105``."""
+
+    def __init__(self, *classes, note: str = ""):
+        self.classes = frozenset(classes)
+        self.note = note
+
+    def __add__(self, other: "TypeSig") -> "TypeSig":
+        return TypeSig(*(self.classes | other.classes), note=self.note or other.note)
+
+    def supports(self, dt: DataType) -> bool:
+        return isinstance(dt, tuple(self.classes)) if self.classes else True
+
+    def describe(self) -> str:
+        names = sorted(c.__name__.replace("Type", "") for c in self.classes)
+        return "+".join(names) if names else "any"
+
+
+def _mk_sigs():
+    from ..types import (
+        ArrayType,
+        ByteType,
+        DoubleType,
+        FloatType,
+        IntegerType,
+        LongType,
+        MapType,
+        NullType,
+        ShortType,
+        StructType,
+    )
+
+    integral = TypeSig(ByteType, ShortType, IntegerType, LongType)
+    fp = TypeSig(FloatType, DoubleType)
+    numeric = integral + fp + TypeSig(DecimalType)
+    temporal = TypeSig(DateType, TimestampType)
+    basic = numeric + temporal + TypeSig(BooleanType, StringType, NullType)
+    nested = TypeSig(ArrayType, StructType, MapType)
+    return {
+        "integral": integral,
+        # the two the JAX table composes inline; the port's narrower
+        # checks below name them
+        "fp": fp,
+        "temporal": temporal,
+        "numeric": numeric,
+        "orderable": basic,
+        "basic": basic,
+        "all": basic + nested,
+    }
+
+
+SIGS = _mk_sigs()
+
+# the port's narrower device surfaces, composed from SIGS: fixed-width
+# numbers without decimal (float aggregates, min/max), and the column types
+# with a device layout
+_INTEGRAL = SIGS["integral"]
+_FLOATING = SIGS["fp"]
 _NUMERIC = _INTEGRAL + _FLOATING
+_MINMAX = _NUMERIC + SIGS["temporal"] + TypeSig(BooleanType, StringType)
+_DEVICE_COLUMN = SIGS["numeric"] + SIGS["temporal"] + TypeSig(BooleanType, StringType)
+
+# ── expression rules ───────────────────────────────────────────────────────
 
 
 class ExprRule:
-    def __init__(self, cls, name: str, check: Optional[Callable] = None):
+    def __init__(
+        self,
+        cls,
+        name: str,
+        check: Optional[Callable] = None,
+        sig: Optional[TypeSig] = None,
+    ):
         self.cls = cls
         self.name = name
         self.conf_key = f"spark.rapids.sql.expression.{name}"
         self.check = check  # (expr, conf) -> Optional[str] (reason if bad)
+        self.sig = sig  # TypeSig over the expression's child types
 
 
 def _float_agg_check(e, conf: TpuConf) -> Optional[str]:
     """variableFloatAgg gate (reference RapidsConf.scala): float sums/avgs
     are evaluation-order dependent; when disabled they stay on CPU so the
     row-order result is Spark's."""
-    if isinstance(e.child.data_type, _FLOATING) and not conf.is_enabled(
+    if _FLOATING.supports(e.child.data_type) and not conf.is_enabled(
         cfg.VARIABLE_FLOAT_AGG
     ):
         return (
             "float/double sum/avg varies with evaluation order; disabled by "
             f"{cfg.VARIABLE_FLOAT_AGG.key}"
         )
-    if not isinstance(e.child.data_type, _NUMERIC):
+    if not _NUMERIC.supports(e.child.data_type):
         return (
             f"{type(e).__name__} over {e.child.data_type.simple_string} is not "
             "in the torch port yet"
@@ -116,9 +183,7 @@ def _cast_check(e: Cast, conf: TpuConf) -> Optional[str]:
 
 
 def _minmax_check(e, conf: TpuConf) -> Optional[str]:
-    if not isinstance(
-        e.child.data_type, _NUMERIC + (DateType, TimestampType, BooleanType, StringType)
-    ):
+    if not _MINMAX.supports(e.child.data_type):
         return (
             f"{type(e).__name__} input type {e.child.data_type.simple_string} is "
             "not in the torch port yet"
@@ -192,18 +257,6 @@ def _substring_index_check(e, conf: TpuConf) -> Optional[str]:
     return None
 
 
-def _integral_sig(e, conf: TpuConf) -> Optional[str]:
-    """The JAX package's integral TypeSig of the bitwise rules."""
-    for c in e.children():
-        dt = c.data_type
-        if not isinstance(dt, _INTEGRAL):
-            return (
-                f"{type(e).__name__} input type {dt.simple_string} is outside its "
-                "device signature (Byte+Integer+Long+Short)"
-            )
-    return None
-
-
 def _greatest_check(e, conf: TpuConf) -> Optional[str]:
     if any(isinstance(x.data_type, StringType) for x in e.exprs):
         return "greatest/least over strings is CPU-only"
@@ -256,7 +309,7 @@ def _interval_check(e, conf: TpuConf) -> Optional[str]:
 def _round_check(e, conf: TpuConf) -> Optional[str]:
     if not isinstance(e.scale, Literal):
         return "round scale must be a literal for the device path"
-    if not isinstance(e.child.data_type, _INTEGRAL) and not cfg.INCOMPATIBLE_OPS.get(conf):
+    if not _INTEGRAL.supports(e.child.data_type) and not cfg.INCOMPATIBLE_OPS.get(conf):
         # the reference gates float round the same way: "may round slightly
         # differently" under isIncompatEnabled (GpuOverrides.scala:2036-2077)
         return (
@@ -270,8 +323,14 @@ def _round_check(e, conf: TpuConf) -> Optional[str]:
 _EXPR_RULES: dict = {}
 
 
-def _expr(cls, name=None, check=None):
-    _EXPR_RULES[cls] = ExprRule(cls, name or cls.__name__, check)
+def _expr(cls, name=None, check=None, sig=None):
+    _EXPR_RULES[cls] = ExprRule(cls, name or cls.__name__, check, sig)
+
+
+def expr_rules() -> dict:
+    """The expression rule registry (class → rule), as the JAX package's
+    ``expr_rules()`` gives it to the docs generator."""
+    return dict(_EXPR_RULES)
 
 
 # the JAX package's expression rules (spark_rapids_tpu/plan/overrides.py),
@@ -320,10 +379,10 @@ for _cls in (
     agg.Corr,
 ):
     _expr(_cls)
-_expr(agg.Sum, check=_float_agg_check)
-_expr(agg.Average, check=_float_agg_check)
-_expr(agg.Min, check=_minmax_check)
-_expr(agg.Max, check=_minmax_check)
+_expr(agg.Sum, check=_float_agg_check, sig=SIGS["numeric"])
+_expr(agg.Average, check=_float_agg_check, sig=SIGS["numeric"])
+_expr(agg.Min, check=_minmax_check, sig=SIGS["orderable"])
+_expr(agg.Max, check=_minmax_check, sig=SIGS["orderable"])
 _expr(Cast, check=_cast_check)
 
 for _cls in (st.Length, st.Upper, st.Lower, st.InitCap, st.Reverse, st.Ascii, st.Substring,
@@ -366,7 +425,7 @@ for _cls in (
     bw.BitwiseAnd, bw.BitwiseOr, bw.BitwiseXor, bw.BitwiseNot,
     bw.ShiftLeft, bw.ShiftRight, bw.ShiftRightUnsigned,
 ):
-    _expr(_cls, check=_integral_sig)
+    _expr(_cls, sig=SIGS["integral"])
 _expr(mx.Round, check=_round_check)
 _expr(mx.BRound, check=_round_check)
 _expr(nx.Greatest, check=_greatest_check)
@@ -375,6 +434,20 @@ _expr(nx.Least, check=_greatest_check)
 for _cls in (msc.Murmur3Hash, msc.Md5, msc.SparkPartitionID, msc.MonotonicallyIncreasingID,
              msc.NormalizeNaNAndZero):
     _expr(_cls)
+
+
+def _rand_check(e, conf: TpuConf) -> Optional[str]:
+    """The JAX package's gate and reason (its ``overrides.py:459-466``);
+    past the gate the port has no device ``rand()`` yet (ROADMAP item 8)."""
+    if not cfg.INCOMPATIBLE_OPS.get(conf):
+        return (
+            "rand() on device is not bit-identical to Spark's XORShiftRandom "
+            "stream; enable spark.rapids.sql.incompatibleOps.enabled"
+        )
+    return "rand() on the device is not in the torch port yet"
+
+
+_expr(msc.Rand, check=_rand_check)
 
 _expr(sx.ConcatWs)
 _expr(sx.StringTranslate, check=_translate_check)
@@ -408,7 +481,7 @@ def _window_check(e, conf: TpuConf) -> Optional[str]:
                 return "numeric RANGE frames require exactly one ORDER BY key"
             ot = e.spec.order_by[0].child.data_type
             # decimal keys compare unscaled with scale-adjusted bounds
-            if not isinstance(ot, _NUMERIC + (DecimalType, DateType, TimestampType)):
+            if not (SIGS["numeric"] + SIGS["temporal"]).supports(ot):
                 return f"numeric RANGE frame over {ot.simple_string} is CPU-only"
         return None
     return f"window function {type(fn).__name__} has no device implementation"
@@ -428,11 +501,21 @@ def _check_expr_tree(e: Expression, conf: TpuConf, reasons: List[str]) -> bool:
     elif not conf.rule_enabled(rule.conf_key):
         reasons.append(f"expression {rule.name} disabled by {rule.conf_key}")
         ok = False
-    elif rule.check is not None:
-        why = rule.check(e, conf)
-        if why:
-            reasons.append(why)
-            ok = False
+    else:
+        if rule.sig is not None:
+            for c in e.children():
+                dt = c.data_type
+                if not rule.sig.supports(dt):
+                    reasons.append(
+                        f"{rule.name} input type {dt.simple_string} is "
+                        f"outside its device signature ({rule.sig.describe()})"
+                    )
+                    ok = False
+        if ok and rule.check is not None:
+            why = rule.check(e, conf)
+            if why:
+                reasons.append(why)
+                ok = False
     for c in e.children():
         ok = _check_expr_tree(c, conf, reasons) and ok
     return ok
@@ -445,9 +528,7 @@ def _check_schema(schema: Schema, conf: TpuConf, reasons: List[str], where: str)
         if isinstance(dt, DecimalType) and not conf.is_enabled(cfg.DECIMAL_ENABLED):
             reasons.append(f"{where}: decimal disabled by {cfg.DECIMAL_ENABLED.key}")
             ok = False
-        if not isinstance(
-            dt, _NUMERIC + (BooleanType, StringType, DateType, TimestampType, DecimalType)
-        ):
+        if not _DEVICE_COLUMN.supports(dt):
             reasons.append(
                 f"{where}: {dt.simple_string} columns are not in the torch port yet"
             )
@@ -473,6 +554,11 @@ _EXEC_RULES: dict = {}
 
 def _rule(cls, name, convert, exprs_of, check=None):
     _EXEC_RULES[cls] = ExecRule(cls, name, convert, exprs_of, check=check)
+
+
+def exec_rules() -> dict:
+    """The exec rule registry (CPU exec class → rule)."""
+    return dict(_EXEC_RULES)
 
 
 def _conv_agg(e: C.CpuHashAggregateExec, ch):
@@ -526,13 +612,13 @@ _rule(
 
 
 def _exchange_check(e: C.CpuShuffleExchangeExec, conf: TpuConf) -> Optional[str]:
-    """The port's exchange is the JAX package's in-process path only."""
-    for key in (cfg.ADAPTIVE_ENABLED, cfg.SHUFFLE_MANAGER_ENABLED):
-        if key.get(conf):
-            return (
-                f"{key.key} is set: the device exchange has no adaptive "
-                "coalescing or shuffle manager in the torch port yet"
-            )
+    """The port's exchange is the JAX package's in-process path, adaptive
+    read included; the shuffle manager is not ported yet."""
+    if cfg.SHUFFLE_MANAGER_ENABLED.get(conf):
+        return (
+            f"{cfg.SHUFFLE_MANAGER_ENABLED.key} is set: the device exchange has "
+            "no shuffle manager in the torch port yet"
+        )
     return None
 
 
@@ -645,6 +731,25 @@ _rule(
 # ── the override pass ──────────────────────────────────────────────────────
 
 
+def _fused_filters(island: List[Exec]) -> set:
+    """ids of the island's filters that the operator above folds in as a
+    liveness mask when it runs (the aggregate's ``_fused_child``, the hash
+    and range exchange's ``pre_filter``): such a filter never runs, and is
+    never measured, on its own."""
+    out = set()
+    for n in island:
+        if isinstance(n, G.GpuHashAggregateExec):
+            if n._fused_child()[1] is not None:
+                out.add(id(n.children[0]))
+        elif isinstance(n, G.GpuShuffleExchangeExec):
+            c = n.children[0]
+            if (isinstance(c, G.GpuFilterExec) and n._kind() in ("hash", "range")
+                    and G.fusable_filter(c.condition)):
+                out.add(id(c))
+    return out
+
+
+
 @dataclasses.dataclass
 class ExplainEntry:
     node: str
@@ -668,6 +773,8 @@ class GpuOverrides:
         self.explain: List[ExplainEntry] = []
         # stages formed by the fusion pass that follows (set by the session)
         self.fused_stages = 0
+        # exchanges shared by the reuse pass that follows (set by the session)
+        self.reused_exchanges = 0
         # cost-model source: the hardcoded per-op weights, or — when
         # spark.rapids.tpu.cbo.measuredWeights holds and the persisted
         # calibration table (obs/calibration.py) has measured device
@@ -683,6 +790,18 @@ class GpuOverrides:
             if measured:
                 self._cbo_weights = measured
                 self._cbo_source = "measured"
+        # calibrated engine routing: with measured per-op ns/row present,
+        # predict each device island's device-vs-host time and route
+        # sub-threshold islands (tiny input, full dispatch+transfer tax —
+        # the q6/q15 shape) back to the CPU engine. No calibration data or
+        # conf off: planning is unchanged.
+        self._routing_cal = None
+        if cfg.ROUTING_ENABLED.get(conf):
+            from ..obs import calibration as obs_cal
+
+            cal = obs_cal.get(cfg.CBO_CALIBRATION_FILE.get(conf))
+            if cal.snapshot():
+                self._routing_cal = cal
 
     def apply(self, plan: Exec) -> Exec:
         if not self.conf.is_enabled(cfg.SQL_ENABLED):
@@ -690,6 +809,8 @@ class GpuOverrides:
         converted = self._convert(plan)
         if self.conf.is_enabled(cfg.CBO_ENABLED):
             converted = self._cost_optimize(converted)
+        if self._routing_cal is not None:
+            converted = self._route(converted)
         if converted.is_device:
             # the query root funnels to the host anyway (collect); merging
             # partitions on the device first is the JAX package's plan shape
@@ -764,37 +885,46 @@ class GpuOverrides:
                 w += self._island_weight(c)
         return w
 
-    def _unconvert_island(self, plan: Exec, weight: Optional[int] = None) -> Exec:
+    def _unconvert_island(
+        self,
+        plan: Exec,
+        weight: Optional[int] = None,
+        reason: Optional[str] = None,
+        again: Optional[Callable] = None,
+    ) -> Exec:
         """Put a device island back on the CPU engine via each node's
-        ``_cpu_original`` seam, with the CBO's reason (and, at the root,
-        the weights that decided) in the explain output."""
+        ``_cpu_original`` seam. ``reason`` is the explain message (default:
+        the CBO island-weight wording, with the weights that decided only
+        at the root where ``weight`` is passed); ``again`` is the pass to
+        resume on the island's host children (default: CBO cost analysis —
+        the routing pass hands itself in)."""
+        if again is None:
+            again = self._cost_optimize
         if not plan.is_device:
-            return self._cost_optimize(plan)
-        kids = [self._unconvert_island(c) for c in plan.children]
+            return again(plan)
+        kids = [self._unconvert_island(c, reason=reason, again=again) for c in plan.children]
         orig = getattr(plan, "_cpu_original", None)
         if orig is None:
             return plan.with_new_children(kids)
-        detail = (
-            f" ({self._cbo_source} weights: island {weight} < "
-            f"transition cost {self._CBO_TRANSITION_COST})"
-            if weight is not None
-            else ""
-        )
-        self.explain.append(
-            ExplainEntry(
-                orig.node_string(),
-                False,
-                [f"cost-based optimizer: island too small to pay transitions{detail}"],
+        if reason is None:
+            detail = (
+                f" ({self._cbo_source} weights: island {weight} < "
+                f"transition cost {self._CBO_TRANSITION_COST})"
+                if weight is not None
+                else ""
             )
-        )
+            reason = f"cost-based optimizer: island too small to pay transitions{detail}"
+        self.explain.append(ExplainEntry(orig.node_string(), False, [reason]))
         return orig.with_new_children(kids)
 
-    def _keep_island(self, plan: Exec) -> Exec:
+    def _keep_island(self, plan: Exec, again: Optional[Callable] = None) -> Exec:
         """Inside a kept island: never re-evaluate interior sub-islands (the
         transition boundary wouldn't move, only device work would be lost);
         resume cost analysis below the island's host boundaries."""
+        if again is None:
+            again = self._cost_optimize
         kids = [
-            self._keep_island(c) if c.is_device else self._cost_optimize(c)
+            self._keep_island(c, again) if c.is_device else again(c)
             for c in plan.children
         ]
         return plan.with_new_children(kids)
@@ -806,6 +936,114 @@ class GpuOverrides:
                 return self._unconvert_island(plan, w)
             return self._keep_island(plan)
         return plan.with_new_children([self._cost_optimize(c) for c in plan.children])
+
+    # calibrated engine routing ────────────────────────────────────────────
+    # The CBO above reasons in unitless weights; this pass reasons in
+    # nanoseconds. With a measured cost table (obs/calibration.py) it
+    # predicts each device island's wall time on both engines — per-op
+    # ns/row times the island's estimated input rows, plus the fixed
+    # per-launch and transfer overheads of the routing confs — and sends the
+    # island to whichever engine is predicted faster. The q6/q15 shape (one
+    # tiny filter+agg over a small scan) loses more to dispatch and
+    # transfer than the device saves in compute. The JAX package's
+    # ``TpuOverrides._route``/``_route_verdict`` (``:1100-1190``), with the
+    # port's operator names.
+
+    #: plumbing nodes with no per-row ns of their own — they ride along
+    #: with whatever engine the island lands on
+    _ROUTING_FREE = frozenset({"GpuCoalescePartitionsExec", "GpuCoalesceBatchesExec"})
+
+    def _route(self, plan: Exec) -> Exec:
+        if plan.is_device:
+            reason = self._route_verdict(plan)
+            if reason is not None:
+                return self._unconvert_island(plan, reason=reason, again=self._route)
+            return self._keep_island(plan, again=self._route)
+        return plan.with_new_children([self._route(c) for c in plan.children])
+
+    def _route_verdict(self, plan: Exec) -> Optional[str]:
+        """Predicted-time comparison for the island rooted at ``plan``.
+        Returns the explain reason when the HOST engine is predicted
+        faster (island should be unconverted), None to stay on device.
+        Conservative by construction: any node either engine has no
+        measurement for, or an island with no estimable input rows, stays
+        on device — routing only ever acts on numbers it actually has. A
+        filter its parent folds in costs its host ns/row and no device time
+        or launch of its own (the JAX package looks for a device measurement
+        it never gets, and so keeps every such island, q6's among them, on
+        the device)."""
+        from ..sched.estimate import _leaf_bytes_rows
+        from ..sched.estimate import _walk as _est_walk
+
+        cal = self._routing_cal
+        island: List[Exec] = []
+        boundary_rows = 0
+
+        def collect(n: Exec) -> None:
+            island.append(n)
+            for c in n.children:
+                if c.is_device:
+                    collect(c)
+
+        collect(plan)
+        fused = _fused_filters(island)
+        # input rows: what the host boundaries feed the island
+        for n in island:
+            lb = _leaf_bytes_rows(n)
+            if lb is not None:
+                boundary_rows += lb[1]
+            for c in n.children:
+                if not c.is_device:
+                    boundary_rows += sum(
+                        r
+                        for leaf in _est_walk(c)
+                        for (_b, r) in [_leaf_bytes_rows(leaf) or (0, 0)]
+                    )
+        if boundary_rows <= 0:
+            return None
+        device_ns = 0.0
+        host_ns = 0.0
+        launches = 0
+        op_detail = []
+        for n in island:
+            dev_name = type(n).__name__
+            if dev_name in self._ROUTING_FREE:
+                continue
+            orig = getattr(n, "_cpu_original", None)
+            if orig is None:
+                return None  # no CPU form to route to
+            cpu_name = type(orig).__name__
+            h = cal.ns_per_row(cpu_name, device=False)
+            if id(n) in fused:
+                # folded into the operator above as its liveness mask: it
+                # never runs (nor is measured) on its own, and its device
+                # time is inside that operator's
+                if h is None:
+                    return None
+                host_ns += h * boundary_rows
+                op_detail.append(f"{dev_name} fused vs {cpu_name} {h:g}ns/row")
+                continue
+            d = cal.ns_per_row(dev_name, device=True)
+            if d is None or h is None:
+                return None  # unmeasured op: keep on device
+            device_ns += d * boundary_rows
+            host_ns += h * boundary_rows
+            launches += 1
+            op_detail.append(f"{dev_name} {d:g}ns/row vs {cpu_name} {h:g}ns/row")
+        if not launches:
+            return None
+        device_ns += (
+            launches * cfg.ROUTING_LAUNCH_OVERHEAD_NS.get(self.conf)
+            + cfg.ROUTING_TRANSFER_OVERHEAD_NS.get(self.conf)
+        )
+        if device_ns <= host_ns:
+            return None
+        return (
+            "calibrated routing: predicted device "
+            f"{device_ns / 1e6:.3f}ms > host {host_ns / 1e6:.3f}ms "
+            f"for ~{boundary_rows} rows over {launches} launches "
+            f"({'; '.join(op_detail)})"
+        )
 
     # transition insertion (GpuTransitionOverrides)
     def _insert_transitions(self, plan: Exec, want_device: bool) -> Exec:

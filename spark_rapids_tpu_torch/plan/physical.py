@@ -19,7 +19,9 @@ worker thread may install an attempt-scoped override with
 sequence number, its phase ledger (``obs/ledger.py``, set by the session's
 prepare) and the metrics level; every ``Exec`` has its own metric registry
 (``metric``, ``metrics_on``, ``collect_metrics``), as in the JAX package.
-Shuffle and mesh state come with later slices.
+It holds the adaptive exchanges' size providers and the reuse memo
+(``aqe_size_providers``, ``reuse_cache``, ``:129-132`` there). Shuffle and
+mesh state come with later slices.
 """
 from __future__ import annotations
 
@@ -98,6 +100,13 @@ class ExecContext:
         # every other partition checks.
         self._cancel_token = None
         self._token_tls = threading.local()
+        # AQE (spark.sql.adaptive.enabled): each adaptive exchange publishes
+        # its measured-size provider here, keyed by id, so a join's two
+        # linked exchanges compute ONE shared coalesce/skew assignment
+        self.aqe_size_providers: dict = {}
+        # exchange reuse (plan/reuse.py): shared exchange nodes memoize
+        # their PartitionSet here so every consumer reads one materialization
+        self.reuse_cache: dict = {}
 
     @property
     def cancel_token(self):

@@ -10,9 +10,10 @@ are importable from here, as from the JAX package's ``profiling.py``. What
 stays native here is the device profiler: ``query_trace`` captures one
 query under ``torch.profiler`` (CPU and, on a card, CUDA activity) and
 writes it as a Chrome trace, and ``instrument_plan``'s opTime debug mode
-waits for the device after every batch of every operator
+waits for the device after every batch of every device operator
 (``torch.cuda.synchronize`` on a CUDA device), inside an NVTX range named
-after the operator, so an operator's time is its own kernels'.
+after the operator, so an operator's time is its own kernels'; a host
+operator's time is its own pulls, its children's excluded.
 
 Copied from ``spark_rapids_tpu/profiling.py``, where ``jax.profiler``
 (``trace``, ``TraceAnnotation``) and ``jax.block_until_ready`` stand in
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
@@ -55,14 +57,43 @@ def _range(name: str, batch):
     return contextlib.nullcontext()
 
 
+#: per thread, the host pulls in flight: each entry sums the time of the
+#: host pulls nested in it, so a host node's opTime is its own
+_PULLS = threading.local()
+_DONE = object()
+
+
+def _host_pull(src):
+    """(next batch of ``src`` or ``_DONE``, ns spent in this pull outside
+    the host pulls nested in it)."""
+    stack = _PULLS.__dict__.setdefault("stack", [])
+    stack.append(0)
+    t0 = time.perf_counter_ns()
+    try:
+        x = next(src, _DONE)
+    finally:
+        took = time.perf_counter_ns() - t0
+        nested = stack.pop()
+        if stack:
+            stack[-1] += took
+    return x, took - nested
+
+
 def _wrap_partitions(node: Exec, pset: PartitionSet) -> PartitionSet:
     """Per-partition: mark each produced batch with an NVTX range named
-    after the node and attribute the blocked device time per produced
-    batch to the node's opTime metric."""
+    after the node and attribute the node's time per produced batch to its
+    opTime metric. A device node's time is the blocked device time after
+    the batch (its own kernels: its children waited already); a host node
+    computes inside the pull, so its time is the pull's, less the host
+    pulls of its children — what the calibrated routing's host ns/row
+    reads (the JAX package times a host node's wait, which is ~0)."""
     from .obs.metrics import MetricKind
 
     op_time = node.metric("opTime", "DEBUG", MetricKind.NANOS)
     batches_m = node.metric("opOutputBatches", "DEBUG")
+    # a host node's output rows (host batches count without a sync): the
+    # calibration divides a host node's time by its sources' rows
+    rows_m = None if node.is_device else node.metric("opOutputRows", "DEBUG")
     name = type(node).__name__
 
     def make(t):
@@ -75,7 +106,18 @@ def _wrap_partitions(node: Exec, pset: PartitionSet) -> PartitionSet:
                 batches_m.add(1)
                 yield db
 
-        return it
+        def host_it():
+            src = t()
+            while True:
+                b, own = _host_pull(src)
+                op_time.add(own)
+                if b is _DONE:
+                    return
+                batches_m.add(1)
+                rows_m.add(int(getattr(b, "num_rows", 0)))
+                yield b
+
+        return it if node.is_device else host_it
 
     return PartitionSet([make(t) for t in pset.parts])
 

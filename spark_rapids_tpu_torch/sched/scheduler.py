@@ -19,9 +19,8 @@ query's tracer whenever admission had to wait, so Perfetto shows admission
 stalls inside the query timeline.
 
 Copied from ``spark_rapids_tpu/sched/scheduler.py``. The per-plan run
-calibration keys on a hash of the plan's tree string, where the JAX package
-keys on its exchange-reuse canonical key (the port has no exchange reuse
-yet).
+calibration keys on the plan's exchange-reuse canonical key
+(``plan/reuse.py::canonical_key``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -237,10 +236,14 @@ class QueryScheduler:
         plan_key = None
         if enabled:
             # per-plan calibration bucket: a repeated query predicts from
-            # its own run history (its structural identity, the plan's
-            # tree string)
+            # its own run history (canonical structural identity — the
+            # exchange-reuse key). Plans with incomparable parameters
+            # simply stay on the global estimate.
             try:
-                plan_key = hash(plan.tree_string())
+                from ..plan.reuse import canonical_key
+
+                plan_key = canonical_key(plan)
+                hash(plan_key)
             except Exception:
                 plan_key = None
         timeout = cfg.SCHEDULER_QUERY_TIMEOUT_S.get(conf)

@@ -11,11 +11,15 @@ The device is explicit: ``TorchSession(conf, device=None)`` runs on
 
 The DataFrame surface so far: ``create_dataframe``, ``select`` (window
 expressions pulled into ``Window`` nodes), ``filter``, ``agg``,
-``group_by``, ``rollup``, ``cube``, ``sort``, ``limit``, ``union``,
-``distinct``, ``drop``, ``drop_duplicates``, ``intersect``, ``subtract``,
-``repartition``, ``join``, ``cross_join``, ``with_column`` and
-``with_column_renamed``, with the actions ``collect``, ``to_host``,
-``to_torch`` and ``explain`` (``explain("metrics")`` for the last run);
+``group_by`` (with ``pivot`` and the ``count``/``sum``/``avg``/``min``/
+``max`` shorthands), ``rollup``, ``cube``, ``sort``,
+``sort_within_partitions``, ``limit``, ``union``, ``distinct``, ``drop``,
+``drop_duplicates``, ``intersect``, ``subtract``, ``repartition``,
+``join``, ``cross_join``, ``with_column``, ``with_column_renamed``,
+``fillna``, ``dropna`` and ``sample``, with the actions ``collect``,
+``count``, ``head``, ``first``, ``take``, ``show``, ``to_host``,
+``to_torch``, ``to_arrow`` and ``to_pandas`` (pyarrow and pandas imported
+only there) and ``explain`` (``explain("metrics")`` for the last run);
 and the SQL front-end: ``sql(text, params)`` over the temp views that
 ``create_or_replace_temp_view`` registers (a plain dict: the JAX session's
 result-cache version bumps wait for the caches slice).
@@ -68,7 +72,7 @@ from .columnar.host import (
 from .config import TpuConf
 from .exec.cpu_join import extract_equi_join_keys
 from .expr import Alias, Expression, UnresolvedAttribute, bind, output_name
-from .functions import Column
+from .functions import Column, _e, col
 from .plan import logical as L
 from .plan.overrides import GpuOverrides
 from .plan.physical import ExecContext
@@ -96,6 +100,18 @@ class TorchSession:
 
     def __init__(self, conf: Optional[dict] = None, device=None):
         self.conf = TpuConf(conf or {})
+        # version shim (ShimLoader analogue): shim-driven defaults fill
+        # keys the user left unset; an unknown version raises
+        from .shims import get_shim
+
+        self.shim = get_shim(cfg.SPARK_VERSION.get(self.conf))
+        if self.conf.get_raw(cfg.ANSI_ENABLED.key) is None and self.shim.ansi_default():
+            self.conf = self.conf.set(cfg.ANSI_ENABLED.key, True)
+        if (
+            self.conf.get_raw(cfg.ADAPTIVE_ENABLED.key) is None
+            and self.shim.adaptive_default()
+        ):
+            self.conf = self.conf.set(cfg.ADAPTIVE_ENABLED.key, True)
         self.device = _resolve_device(device)
         if (
             cfg.SQL_ENABLED.get(self.conf)
@@ -140,6 +156,7 @@ class TorchSession:
         self._last_ledger = None
         self._last_tracer = None
         self._last_fused_stages = 0
+        self._last_reused_exchanges = 0
         # obs wiring: the dynamic-series cardinality cap is process-global
         # (as the registry it guards is), and the live scrape endpoint
         # starts here when spark.rapids.tpu.metrics.httpPort asks for it
@@ -184,6 +201,18 @@ class TorchSession:
         """Cancel every queued and running query; returns how many were
         flagged. The session stays fully usable afterwards."""
         return self._scheduler.cancel_all(reason)
+
+    def set_conf(self, key: str, value) -> None:
+        """Set one conf key for the queries that follow (per-query keys are
+        re-read at every query; ``startup_only`` keys keep the value the
+        session was made with). A fault-injection key rebuilds the
+        session's injector, as in the JAX session."""
+        self.conf = self.conf.set(key, value)
+        if key.startswith("spark.rapids.tpu.faults."):
+            from .resilience import faults as _faults
+
+            config = _faults.config_from_conf(self.conf)
+            self._fault_injector = None if config is None else _faults.FaultInjector(config)
 
     # ── SQL ─────────────────────────────────────────────────────────────
     def sql(self, text: str, params=None) -> "DataFrame":
@@ -301,8 +330,9 @@ class TorchSession:
         """(device plan, overrides) of a logical plan: subquery resolution
         (its counters add to ``metrics``; the overrides' explain begins
         with the subqueries' entries), the ANSI rewrite, column pruning, CPU
-        planning, the override pass and whole-stage fusion
-        (``plan/fusion.py``, where the JAX session calls it)."""
+        planning, the override pass, whole-stage fusion
+        (``plan/fusion.py``, where the JAX session calls it) and exchange
+        reuse (``plan/reuse.py``, ``spark.sql.exchange.reuse``)."""
         from .plan.fusion import fuse_stages
 
         sub_explain: list = []
@@ -329,6 +359,15 @@ class TorchSession:
         plan = overrides.apply(cpu_plan)
         overrides.explain[:0] = sub_explain
         plan, overrides.fused_stages = fuse_stages(plan, self.conf, breaker=self._breaker)
+        # exchange reuse AFTER fusion (the JAX session's order): fusing
+        # rewrites operator chains consistently across the plan, so identical
+        # exchange subtrees still canonicalize identically, while fusing after
+        # reuse would rewrite through physically shared nodes
+        overrides.reused_exchanges = 0
+        if cfg.EXCHANGE_REUSE_ENABLED.get(self.conf):
+            from .plan.reuse import reuse_exchanges
+
+            plan, overrides.reused_exchanges = reuse_exchanges(plan)
         return plan, overrides
 
     def _prepare_plan(self, lp: L.LogicalPlan, ctx: Optional[ExecContext] = None):
@@ -359,6 +398,7 @@ class TorchSession:
             ctx.ledger = led
         self._last_overrides = overrides
         self._last_fused_stages = overrides.fused_stages
+        self._last_reused_exchanges = overrides.reused_exchanges
         self._last_plan = final_plan
         self._assert_test_mode(overrides)
         if cfg.PROFILE_OPTIME.get(self.conf) or cfg.CBO_CALIBRATION_ENABLED.get(self.conf):
@@ -849,6 +889,18 @@ class DataFrame:
         return GroupedData(self, []).agg(*aggs)
 
     def sort(self, *cols, ascending: Union[bool, List[bool]] = True) -> "DataFrame":
+        orders = self._sort_orders(cols, ascending)
+        return DataFrame(self._session, L.Sort(orders, True, self._plan))
+
+    orderBy = sort
+    order_by = sort
+
+    def sort_within_partitions(self, *cols, ascending=True) -> "DataFrame":
+        """Sort each partition on its own (no range exchange)."""
+        orders = self._sort_orders(cols, ascending)
+        return DataFrame(self._session, L.Sort(orders, False, self._plan))
+
+    def _sort_orders(self, cols, ascending) -> List[L.SortOrder]:
         exprs = _to_exprs(cols)
         if isinstance(ascending, bool):
             ascending = [ascending] * len(exprs)
@@ -857,11 +909,7 @@ class DataFrame:
             False if (isinstance(c, Column) and getattr(c, "_sort_desc", False)) else a
             for c, a in zip(cols, ascending)
         ]
-        orders = [L.SortOrder(e, a) for e, a in zip(exprs, ascending)]
-        return DataFrame(self._session, L.Sort(orders, True, self._plan))
-
-    orderBy = sort
-    order_by = sort
+        return [L.SortOrder(e, a) for e, a in zip(exprs, ascending)]
 
     def limit(self, n: int) -> "DataFrame":
         return DataFrame(self._session, L.Limit(n, self._plan))
@@ -902,6 +950,112 @@ class DataFrame:
         return self.select(*exprs)
 
     withColumnRenamed = with_column_renamed
+
+    def fillna(self, value, subset: Optional[List[str]] = None) -> "DataFrame":
+        """Replace nulls with ``value`` in type-compatible columns
+        (pyspark DataFrameNaFunctions.fill: numeric values fill numeric
+        columns, strings fill strings, bools fill bools)."""
+        from .expr.base import Literal
+        from .expr.conditional import Coalesce
+        from .types import BooleanType, FractionalType, IntegralType, NumericType
+
+        if isinstance(value, dict):
+            # pyspark's per-column form: {'a': 0, 'b': 'x'}; subset is
+            # documented as IGNORED for dict values
+            per_col = dict(value)
+            subset = None
+        elif isinstance(value, (bool, int, float, str)):
+            per_col = None
+        else:
+            raise TypeError(
+                f"fillna value must be bool/int/float/str/dict, got {type(value)}"
+            )
+
+        def compatible(v, dt) -> bool:
+            return (
+                (isinstance(v, bool) and isinstance(dt, BooleanType))
+                or (
+                    isinstance(v, (int, float))
+                    and not isinstance(v, bool)
+                    and isinstance(dt, NumericType)
+                )
+                or (isinstance(v, str) and isinstance(dt, StringType))
+            )
+
+        names = set(subset) if subset is not None else None
+        exprs: List[Expression] = []
+        for f in self.schema:
+            dt = f.data_type
+            if per_col is not None:
+                v = per_col.get(f.name)
+                applies = v is not None and compatible(v, dt)
+            else:
+                v = value
+                applies = (names is None or f.name in names) and compatible(v, dt)
+            if applies:
+                if isinstance(dt, FractionalType):
+                    v = float(v)
+                elif isinstance(dt, IntegralType) and not isinstance(v, bool):
+                    v = int(v)
+                exprs.append(
+                    Alias(Coalesce((UnresolvedAttribute(f.name), Literal(v, dt))), f.name)
+                )
+            else:
+                exprs.append(UnresolvedAttribute(f.name))
+        return self.select(*exprs)
+
+    def dropna(
+        self,
+        how: str = "any",
+        thresh: Optional[int] = None,
+        subset: Optional[List[str]] = None,
+    ) -> "DataFrame":
+        """Drop rows with nulls (pyspark DataFrameNaFunctions.drop):
+        ``how='any'`` drops rows with any null among the subset,
+        ``'all'`` only all-null rows; ``thresh`` keeps rows with at least
+        that many non-nulls."""
+        from .expr.base import Literal
+        from .expr.conditional import If
+        from .types import INT
+
+        if how not in ("any", "all"):
+            raise ValueError(f"how must be 'any' or 'all', got {how!r}")
+        names = subset if subset is not None else list(self.schema.names)
+        if not names:
+            return self
+        non_null_count: Optional[Expression] = None
+        for n in names:
+            one = If(_e(col(n).is_not_null()), Literal(1, INT), Literal(0, INT))
+            non_null_count = (
+                one
+                if non_null_count is None
+                else _e(Column(non_null_count) + Column(one))
+            )
+        if thresh is None:
+            thresh = len(names) if how == "any" else 1
+        return self.filter(Column(non_null_count) >= thresh)
+
+    def sample(self, *args, **kwargs) -> "DataFrame":
+        """Bernoulli sample. Accepts pyspark's signatures:
+        ``sample(fraction, seed=0)`` or
+        ``sample(withReplacement, fraction, seed)`` (replacement must be
+        falsy — with-replacement sampling is not implemented). The filter
+        over ``rand(seed)`` runs on the CPU engine unless
+        ``spark.rapids.sql.incompatibleOps.enabled`` (the JAX package's
+        gate)."""
+        from .functions import rand as rand_fn
+
+        a = list(args)
+        with_replacement = kwargs.pop("withReplacement", None)
+        if a and isinstance(a[0], bool):
+            with_replacement = a.pop(0)
+        if with_replacement:
+            raise NotImplementedError("sample(withReplacement=True) is not supported")
+        fraction = kwargs.get("fraction", a[0] if a else None)
+        if fraction is None:
+            raise TypeError("sample() requires a fraction")
+        seed = kwargs.get("seed", a[1] if len(a) > 1 else 0)
+        return self.filter(rand_fn(int(seed)) < float(fraction))
 
     def join(
         self,
@@ -1021,6 +1175,69 @@ class DataFrame:
     def collect(self) -> List[tuple]:
         return batch_rows(self.to_host())
 
+    def count(self) -> int:
+        """The row count, from one aggregate query (through ``collect``:
+        the card's machine has no pyarrow)."""
+        from .functions import count as count_fn
+
+        return self.agg(count_fn("*").alias("count")).collect()[0][0]
+
+    def head(self, n: Optional[int] = None):
+        """pyspark: head() → first row or None; head(n) → list of rows
+        (including head(1) → one-element list)."""
+        if n is None:
+            rows = self.limit(1).collect()
+            return rows[0] if rows else None
+        return self.limit(n).collect()
+
+    def first(self):
+        """pyspark: first() == head() — a single row, or None when empty."""
+        return self.head()
+
+    def take(self, n: int) -> List[tuple]:
+        return self.limit(n).collect()
+
+    def show(self, n: int = 20, truncate: bool = True) -> None:
+        """Print the first ``n`` rows in pyspark's grid format (the JAX
+        session's ``show``, character for character)."""
+        rows = self.limit(n).collect()
+        names = list(self.schema.names)
+
+        def fmt(v):
+            s = "null" if v is None else str(v)
+            return s[:17] + "..." if truncate and len(s) > 20 else s
+
+        table = [[fmt(v) for v in r] for r in rows]
+        widths = [
+            max(len(names[i]), *(len(r[i]) for r in table)) if table else len(names[i])
+            for i in range(len(names))
+        ]
+        sep = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+        print(sep)
+        print("|" + "|".join(f" {names[i]:<{widths[i]}} " for i in range(len(names))) + "|")
+        print(sep)
+        for r in table:
+            print("|" + "|".join(f" {r[i]:<{widths[i]}} " for i in range(len(names))) + "|")
+        print(sep)
+
+    def to_arrow(self):
+        """The result as a ``pyarrow.Table`` (pyarrow is imported here, and
+        only here: without it this raises ``ImportError``)."""
+        from .columnar.host import to_arrow
+
+        return to_arrow(self.to_host())
+
+    def to_pandas(self):
+        """The result as a ``pandas.DataFrame`` (through ``to_arrow``; raises
+        ``ImportError`` naming the package that is missing)."""
+        try:
+            import pandas  # noqa: F401
+        except ImportError as e:
+            raise ImportError("to_pandas() needs the pandas package, which is not installed") from e
+        return self.to_arrow().to_pandas()
+
+    toPandas = to_pandas
+
     def to_torch(self):
         """Zero-copy device export: run the query and hand out the LIVE
         device-resident result as one ``DeviceBatch`` of torch tensors
@@ -1105,13 +1322,71 @@ class GroupedData:
         df: DataFrame,
         grouping: List[Expression],
         grouping_sets: Optional[List[List[int]]] = None,
+        pivot: Optional[tuple] = None,
     ):
         self._df = df
         self._grouping = grouping
         self._grouping_sets = grouping_sets
+        self._pivot = pivot
+
+    def pivot(self, pivot_col: str, values: Optional[list] = None) -> "GroupedData":
+        """Pivot on ``pivot_col`` — Catalyst's RewritePivot shape: each
+        (value, aggregate) pair becomes ``agg(if(p <=> value, x, null))``
+        (reference analogue: GpuPivotFirst); ``count`` yields null for
+        absent (group, value) combinations like Spark's DataFrame pivot.
+        When ``values`` is omitted they are collected eagerly from the data
+        (sorted, like Spark's auto-detection)."""
+        if self._grouping_sets is not None:
+            raise ValueError("pivot is only supported after a groupBy")
+        if values is None:
+            key = UnresolvedAttribute(pivot_col)
+            vals_df = DataFrame(self._df._session, L.Aggregate([key], [key], self._df._plan))
+            collected = [v for (v,) in vals_df.collect()]
+            non_null = sorted(v for v in collected if v is not None)
+            values = non_null + ([None] if None in collected else [])
+        return GroupedData(self._df, self._grouping, pivot=(pivot_col, values))
+
+    def _expand_pivot(self, agg_exprs: List[Expression]) -> List[Expression]:
+        import dataclasses as _dc
+
+        from .expr.aggregates import AggregateFunction, Count
+        from .expr.base import Literal, map_child_exprs, to_expr
+        from .expr.conditional import If
+        from .expr.predicates import EqualNullSafe, GreaterThan
+        from .types import NULL
+
+        pcol, values = self._pivot
+
+        def wrap(e: Expression, v) -> Expression:
+            if isinstance(e, AggregateFunction):
+                cond = EqualNullSafe(UnresolvedAttribute(pcol), to_expr(v))
+                guarded = If(cond, e.child, Literal(None, NULL))
+                agg = _dc.replace(e, child=guarded)
+                if isinstance(e, Count):
+                    # Spark's DataFrame pivot (PivotFirst / GpuPivotFirst)
+                    # yields NULL, not 0, when no input row matched the
+                    # pivot value; gate the count on a matched-row count
+                    matched = _dc.replace(e, child=If(cond, to_expr(1), Literal(None, NULL)))
+                    return If(GreaterThan(matched, to_expr(0)), agg, Literal(None, NULL))
+                return agg
+            if not e.children():
+                return e
+            return map_child_exprs(e, lambda c: wrap(c, v))
+
+        out: List[Expression] = []
+        multiple = len(agg_exprs) > 1
+        for v in values:
+            for a in agg_exprs:
+                base = str(v) if v is not None else "null"
+                name = f"{base}_{output_name(a)}" if multiple else base
+                target = a.child if isinstance(a, Alias) else a
+                out.append(Alias(wrap(target, v), name))
+        return out
 
     def agg(self, *aggs) -> DataFrame:
         agg_exprs = [a.expr if isinstance(a, Column) else a for a in aggs]
+        if self._pivot is not None:
+            agg_exprs = self._expand_pivot(agg_exprs)
         if self._grouping_sets is not None:
             return self._agg_grouping_sets(agg_exprs)
         # Spark: group-by output = grouping columns ++ aggregates
@@ -1161,3 +1436,28 @@ class GroupedData:
             self._df._session,
             L.Aggregate(grouping, out_keys + agg_exprs, expand),
         )
+
+    def count(self) -> DataFrame:
+        from .functions import count as count_fn
+
+        return self.agg(count_fn("*").alias("count"))
+
+    def sum(self, *names: str) -> DataFrame:
+        from .functions import sum as sum_fn
+
+        return self.agg(*[sum_fn(col(n)).alias(f"sum({n})") for n in names])
+
+    def avg(self, *names: str) -> DataFrame:
+        from .functions import avg as avg_fn
+
+        return self.agg(*[avg_fn(col(n)).alias(f"avg({n})") for n in names])
+
+    def min(self, *names: str) -> DataFrame:
+        from .functions import min as min_fn
+
+        return self.agg(*[min_fn(col(n)).alias(f"min({n})") for n in names])
+
+    def max(self, *names: str) -> DataFrame:
+        from .functions import max as max_fn
+
+        return self.agg(*[max_fn(col(n)).alias(f"max({n})") for n in names])

@@ -24,13 +24,17 @@ names ``assert_cpu_and_tpu_equal`` or ``tpu_session``), but those of
 """
 from __future__ import annotations
 
-import dataclasses
 import importlib
 import inspect
-import itertools
 
 import pytest
 import torch
+
+from tests.test_torch_dataframe_api import (  # the shared mirror helpers
+    PortSession,
+    _param_sets,
+    assert_jax_cpu_and_port_equal,
+)
 
 REF_MODULES = (
     "test_cast",
@@ -64,148 +68,7 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-# ── the JAX expression tree → the port's ──────────────────────────────────
-
-
-def to_port(obj):
-    """The port's twin of a JAX-package object: a ``Column`` or an
-    expression/type/plan dataclass becomes the port class of the same
-    module and name, rebuilt field by field; containers map item by item."""
-    from spark_rapids_tpu.functions import Column as JColumn
-    from spark_rapids_tpu_torch.functions import Column
-
-    if isinstance(obj, JColumn):
-        return Column(to_port(obj.expr))
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(to_port(x) for x in obj)
-    if isinstance(obj, dict):
-        return {k: to_port(v) for k, v in obj.items()}
-    mod = type(obj).__module__
-    if not mod.startswith("spark_rapids_tpu."):
-        return obj
-    port_mod = importlib.import_module("spark_rapids_tpu_torch." + mod.split(".", 1)[1])
-    cls = getattr(port_mod, type(obj).__name__)
-    if dataclasses.is_dataclass(obj):
-        return cls(**{
-            f.name: to_port(getattr(obj, f.name))
-            for f in dataclasses.fields(obj) if f.init
-        })
-    return cls()
-
-
-class PortFrame:
-    """A port DataFrame driven by JAX-package arguments."""
-
-    def __init__(self, df):
-        self._df = df
-
-    def __getattr__(self, name):
-        attr = getattr(self._df, name)
-        if not callable(attr):
-            return attr
-
-        def call(*args, **kwargs):
-            out = attr(*to_port(args), **to_port(kwargs))
-            return _wrap(out)
-
-        return call
-
-    def collect(self):
-        from spark_rapids_tpu.expr.base import AnsiError as JaxAnsiError
-        from spark_rapids_tpu_torch.expr.base import AnsiError
-
-        try:
-            return self._df.collect()
-        except AnsiError as e:
-            raise JaxAnsiError(str(e)) from e
-
-
-def _wrap(out):
-    from spark_rapids_tpu_torch.session import DataFrame, GroupedData
-
-    if isinstance(out, (DataFrame, GroupedData)):
-        return PortFrame(out)
-    return out
-
-
-class PortSession:
-    """``tpu_session``'s conf on the port's device engine, on the CPU."""
-
-    def __init__(self, extra=None, strict: bool = True):
-        from spark_rapids_tpu_torch import TorchSession
-
-        conf = {
-            "spark.rapids.sql.enabled": True,
-            "spark.rapids.sql.test.enabled": strict,
-            "spark.sql.shuffle.partitions": 8,
-        }
-        conf.update(extra or {})
-        self._s = TorchSession(conf, device="cpu")
-
-    def create_dataframe(self, data, schema=None, num_partitions: int = 1):
-        return PortFrame(self._s.create_dataframe(data, to_port(schema), num_partitions))
-
-    createDataFrame = create_dataframe
-
-
-def assert_jax_cpu_and_port_equal(
-    build_df, conf=None, sort_result=True, approx_float=False, allowed_non_tpu=None
-):
-    """``harness.assert_cpu_and_tpu_equal`` with the port's device engine in
-    place of the JAX one."""
-    from tests.harness import _normalize, _values_equal, cpu_session
-
-    extra = dict(conf or {})
-    if allowed_non_tpu:
-        extra["spark.rapids.sql.test.allowedNonGpu"] = ",".join(allowed_non_tpu)
-    cpu_rows = build_df(cpu_session(conf)).collect()
-    port_rows = build_df(PortSession(extra)).collect()
-    cpu_n, port_n = _normalize(cpu_rows, sort_result), _normalize(port_rows, sort_result)
-    assert len(cpu_n) == len(port_n), f"row count: JAX cpu={len(cpu_n)} port={len(port_n)}"
-    for i, (cr, pr) in enumerate(zip(cpu_n, port_n)):
-        assert len(cr) == len(pr), f"row {i} arity: {cr} vs {pr}"
-        for j, (cv, pv) in enumerate(zip(cr, pr)):
-            assert _values_equal(cv, pv, approx_float), (
-                f"row {i} col {j}: JAX cpu={cv!r} port={pv!r}\n"
-                f"JAX cpu rows: {cpu_n[max(0, i - 2): i + 3]}\n"
-                f"port rows: {port_n[max(0, i - 2): i + 3]}"
-            )
-
-
 # ── the mirrored cases ─────────────────────────────────────────────────────
-
-
-def _param_sets(fn):
-    """Every call of a reference test: its parametrize marks expanded (the
-    marks a ``pytest.param`` carries are kept with its values)."""
-    axes = []
-    for mark in reversed(getattr(fn, "pytestmark", [])):
-        if mark.name != "parametrize":
-            continue
-        names = mark.args[0]
-        names = [n.strip() for n in names.split(",")] if isinstance(names, str) else list(names)
-        ids = mark.kwargs.get("ids")
-        values = []
-        for k, v in enumerate(mark.args[1]):
-            marks = ()
-            if hasattr(v, "values") and hasattr(v, "marks"):
-                v, marks = v.values, v.marks
-                v = v if len(names) > 1 else v[0]
-            vals = tuple(v) if len(names) > 1 else (v,)
-            if callable(ids):
-                label = "-".join(str(ids(x)) for x in vals)
-            elif isinstance(ids, (list, tuple)):
-                label = str(ids[k])
-            else:
-                label = "-".join(str(x) for x in vals)
-            values.append((dict(zip(names, vals)), label, marks))
-        axes.append(values)
-    for combo in itertools.product(*axes):
-        kwargs, labels = {}, []
-        for kw, label, _ in combo:
-            kwargs.update(kw)
-            labels.append(label)
-        yield kwargs, "-".join(labels)
 
 
 def _mirrored():

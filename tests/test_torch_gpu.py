@@ -651,3 +651,134 @@ def test_runtime_ledger_and_trace_on_gpu(tmp_path):
     assert len(root) == 1 and ops
     assert all(e["args"]["parent_id"] in ops for e in events if e["cat"] == "batch")
     assert any(e["tid"] != root[0]["tid"] for e in events)
+
+
+# ── adaptive execution and exchange reuse on the card ─────────────────────
+
+
+def _aqe_sides(hot_fraction=0.0, n=200_000, keys=5_000, seed=11):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, keys, n)
+    if hot_fraction:
+        k = np.where(rng.random(n) < hot_fraction, 7, k)
+    left = {"k": k.astype(np.int64), "lv": rng.integers(0, 1000, n).astype(np.int64)}
+    right = {"k": np.arange(keys, dtype=np.int64), "rv": rng.standard_normal(keys)}
+    return left, right
+
+
+def _aqe_join(conf, left, right, how="inner", parts=4):
+    """(device rows, CPU-engine rows, device session) of one join."""
+    out = []
+    for enabled, device in ((True, "cuda"), (False, "cpu")):
+        s = TorchSession({"spark.sql.shuffle.partitions": 8, "spark.rapids.sql.enabled": enabled,
+                          "spark.rapids.sql.test.enabled": enabled,
+                          "spark.sql.autoBroadcastJoinThreshold": "-1", **conf}, device=device)
+        df = s.create_dataframe(left, num_partitions=parts).join(
+            s.create_dataframe(right, num_partitions=parts), on="k", how=how)
+        out.append((df.collect(), s))
+    return out[0][0], out[1][0], out[0][1]
+
+
+def _exchanges(plan):
+    from spark_rapids_tpu_torch.exec.gpu import GpuShuffleExchangeExec
+
+    found, stack = [], [plan]
+    while stack:
+        n = stack.pop(0)
+        if isinstance(n, GpuShuffleExchangeExec):
+            found.append(n)
+        stack.extend(n.children)
+    return found
+
+
+@pytest.mark.gpu
+def test_aqe_coalesced_join_on_gpu():
+    """Both linked exchanges of a shuffled join coalesce to one shared
+    grouping on the card; the rows equal the CPU engine's."""
+    _need_gpu()
+    left, right = _aqe_sides()
+    got, ref, s = _aqe_join({"spark.rapids.tpu.sparkVersion": "3.2",
+                             "spark.sql.adaptive.advisoryPartitionSizeInBytes": "1m"}, left, right)
+    ok, msg = rows_equal(ref, got)
+    assert ok, msg
+    groups = [ex.aqe_groups for ex in _exchanges(s._last_plan)]
+    assert len(groups) == 2 and groups[0] == groups[1] and 1 <= groups[0] < 8, groups
+    assert s._last_metrics["aqeSizeSyncs"] == 2
+
+
+@pytest.mark.gpu
+def test_aqe_skew_split_on_gpu():
+    """A key carrying 60% of the rows splits its partition on the card; a
+    full outer join of the same sides splits nothing; rows equal."""
+    _need_gpu()
+    left, right = _aqe_sides(hot_fraction=0.6)
+    conf = {"spark.sql.adaptive.enabled": True,
+            "spark.sql.adaptive.advisoryPartitionSizeInBytes": "1m",
+            "spark.sql.adaptive.skewJoin.skewedPartitionThresholdInBytes": "512k",
+            "spark.sql.adaptive.skewJoin.skewedPartitionFactor": 2}
+    for how, splits in (("inner", True), ("full", False)):
+        got, ref, s = _aqe_join(conf, left, right, how)
+        ok, msg = rows_equal(ref, got)
+        assert ok, (how, msg)
+        n = sum(getattr(ex, "aqe_splits", 0) for ex in _exchanges(s._last_plan))
+        assert (n >= 1) is splits, (how, n)
+
+
+@pytest.mark.gpu
+def test_aqe_broadcast_switch_on_gpu():
+    """A filtered build side under the runtime threshold switches the
+    shuffled join to a broadcast on the card; a right outer join does not;
+    rows equal."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.exec.gpu_join import GpuShuffledHashJoinExec
+
+    left, right = _aqe_sides()
+    conf = {"spark.sql.adaptive.enabled": True,
+            "spark.sql.adaptive.autoBroadcastJoinThreshold": "1m"}
+    for how, switched in (("inner", True), ("right", False)):
+        got, ref, s = _aqe_join(conf, left, right, how)
+        ok, msg = rows_equal(ref, got)
+        assert ok, (how, msg)
+        (j,) = [n for n in _walk(s._last_plan) if isinstance(n, GpuShuffledHashJoinExec)]
+        assert bool(getattr(j, "aqe_broadcast_switched", False)) is switched, how
+
+
+def _walk(plan):
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        yield n
+        stack.extend(n.children)
+
+
+@pytest.mark.gpu
+def test_reused_exchange_on_gpu(monkeypatch):
+    """A self-joined aggregate shares its exchange on the card: one
+    materialization per exchange node, rows equal to the CPU engine's and
+    to the run with reuse off."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.exec import gpu as G
+
+    mats = []
+    real = G.GpuShuffleExchangeExec._materialize
+    monkeypatch.setattr(G.GpuShuffleExchangeExec, "_materialize",
+                        lambda self, *a: (mats.append(id(self)), real(self, *a))[1])
+    left, _ = _aqe_sides()
+    rows = {}
+    for name, enabled, reuse, device in (("reuse", True, True, "cuda"),
+                                         ("no_reuse", True, False, "cuda"),
+                                         ("cpu", False, True, "cpu")):
+        s = TorchSession({"spark.sql.shuffle.partitions": 8, "spark.rapids.sql.enabled": enabled,
+                          "spark.sql.exchange.reuse": reuse}, device=device)
+        agg = s.create_dataframe(left, num_partitions=4).group_by("k").agg(
+            F.sum(F.col("lv")).alias("s"))
+        right = agg.with_column_renamed("k", "k2").with_column_renamed("s", "s2")
+        mats.clear()
+        rows[name] = agg.join(right, on=[("k", "k2")]).select("k", "s", "s2").collect()
+        if name == "reuse":
+            assert s._last_reused_exchanges >= 1 and len(mats) == len(set(mats))
+    for name in ("reuse", "no_reuse"):
+        ok, msg = rows_equal(rows["cpu"], rows[name])
+        assert ok, (name, msg)

@@ -8,7 +8,9 @@ It builds the port's hand-written CUDA kernels from the sources in the
 checkout (into build/torch_kernels/), holds each kernel against its plain
 torch version on the card, then drives the port's main paths through
 TorchSession → DataFrame → collect() at TPC-H SF 1 and holds every result
-against the port's own CPU engine:
+against the port's own CPU engine (the slice, join and TPC-H phases' and
+the nested collect's references at SF 1 come from 7 worker processes that
+run before any device run, each CPU-engine time its worker's):
 
 * the single-partition path: q1, q6, the two ``contains`` queries,
   ``orders_by_priority``, ``q18_big_orders`` and ``union_limit``; then q1
@@ -30,7 +32,7 @@ against the port's own CPU engine:
   against ``torch.kthvalue`` on 2^21 seeded words (a check, off the main
   path);
 * the expression path: the golden corpus (every expression fixture of
-  ``tests/golden/`` but ``split_at``, each equal to its literal, only the
+  ``tests/golden/``, ``split_at`` included, each equal to its literal, only the
   28 the JAX package keeps off the device off it; the 48 query fixtures
   from SQL text), one query per expression family at SF 1 (dates, casts,
   strings over ``match_starts``, math), each held column by column to the
@@ -111,14 +113,36 @@ against the port's own CPU engine:
   the SF 1 tables against the CPU engine: ``count``, ``head``, ``take``,
   ``first``, ``show``, ``fillna`` and ``dropna`` over customers left-joined
   to orders, ``sort_within_partitions``, q1's aggregates through
-  ``GroupedData``'s shorthands, ``pivot`` with and without values, and
+  ``GroupedData``'s shorthands (min, max and the pivots over lineitem's
+  first 600,000 rows), ``pivot`` with and without values, and
   ``sample``, whose ``rand()`` filter is the one node off the device; (f)
   calibrated routing: q1 and q6 harvested into a fresh calibration table,
   then a 1,000-row q6 routed to the CPU engine and q1 at SF 1 kept on the
   device, with q1's ledger dispatch over its kernels (the card's own
   per-launch cost). The TPC-DS path prints each text's reused exchanges
-  and runs each text that reuses once more with
-  ``spark.sql.exchange.reuse=false``, rows equal.
+  and runs each text that shares at least 6 once more with
+  ``spark.sql.exchange.reuse=false``, rows equal;
+* the nested path (after the adaptive phase), strict, at SF 1: (a)
+  ``collect_list(l_partkey)``, ``collect_set(l_suppkey)`` and ``count`` of
+  lineitem by ``l_orderkey`` at 1 partition and at 4 x 8, every list's size
+  equal to its count, rows equal to each other and to the CPU engine, and
+  ``collect_list(o_clerk)`` by ``o_custkey`` held at SF 0.1; (b)
+  ``posexplode`` of the lists back to every lineitem row (sums, counts and
+  positions checked); (c) a word count over ``explode(split(o_comment, "
+  "))`` and ``split(o_comment, "ly ")``, their token totals equal to a numpy
+  count of delimiters + 1, held to the CPU engine at SF 0.1; (d)
+  ``get_json_object`` of ``$.k``, ``$.p`` and ``$.x.c`` over a JSON column
+  built on the card from orders, equal to the source columns,
+  ``match_starts`` launched by its key steps and held to its plain version
+  on each plane, held to the CPU engine at SF 0.1; (e) ``range(0, 1e9, 1,
+  8)`` where ``id % 7 == 3``, summed and counted, equal to the closed form
+  with nothing uploaded; (f) a ``torch_udf`` bit-identical to its
+  expression, a python udf translated onto the card, an untranslatable one
+  on the CPU engine with its reason; (g) ``rand(7)`` bit-identical across
+  two runs and the CPU engine; (h) struct, map and array access over orders
+  and a host-built map column uploaded, downloaded, spilled to disk and
+  restored bit for bit. The pandas execs are not driven (the card's machine
+  has no pandas; one line says so).
 
 It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
@@ -159,9 +183,10 @@ SF 1 with its device wall, bytes uploaded, peak device memory above what
 the session held and the nodes off the device, one line per query at SF
 0.1 with both engines' walls, the summary line (the 96 walls at SF 1 and
 the geomean of CPU engine / device at SF 0.1), and one split line and one
-hold line per BASELINE query; one JSON line with each kernel's
-launches on the main paths (the slice phase's and the expression
-phase's), error, times and bound; and last the line
+hold line per BASELINE query; the nested phase, one line per step (a)–(h)
+with its device walls and peaks, then its seconds; one JSON line with each
+kernel's launches on the main paths (the slice, expression, runtime,
+memory, adaptive and nested phases' timed runs), error, times and bound; and last the line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -348,10 +373,85 @@ def _scan_widths(session) -> list:
     ]
 
 
-def slice_phase(tables) -> dict:
-    """The slice's queries on the card and on the port's CPU engine, one
-    partition each. Returns the match_starts launches of the main path's
-    run and the CPU engine's rows by query."""
+#: worker processes of the CPU engine's references at SF 1 (the slice, join
+#: and TPC-H phases' queries and the nested phase's collect), run before
+#: any timed device run so that they never share the host with one
+CPU_REF_PROCS = 7
+#: the references that take longest, submitted first
+CPU_REF_FIRST = ("q13", "q1", "q19", "nested collect", "q21", "union_limit", "q12")
+#: a reference worker's tables and session (``_cpu_ref_worker_init``)
+_REF_TABLES: dict = {}
+_REF_SESSION = None
+_REF_SF = SF
+
+
+def _cpu_ref_names() -> list:
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES
+
+    names = list(SLICE_QUERIES) + list(JOIN_QUERIES) + [f"q{n}" for n in TPCH_NEW]
+    names.append("nested collect")
+    return sorted(names, key=lambda n: (n not in CPU_REF_FIRST,
+                                        CPU_REF_FIRST.index(n) if n in CPU_REF_FIRST else 0))
+
+
+def _cpu_ref_worker_init(sf: float) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.tpch.datagen import TABLES, gen_orders_lineitem, gen_table
+
+    global _REF_SESSION, _REF_SF
+    torch.set_num_threads(1)  # the workers share the host's cores
+    _REF_SF = sf
+    orders, lineitem = gen_orders_lineitem(sf, SEED)
+    _REF_TABLES.update({"orders": orders, "lineitem": lineitem})
+    _REF_TABLES.update({n: gen_table(n, sf, SEED) for n in TABLES if n not in _REF_TABLES})
+    _REF_SESSION = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+
+
+def _cpu_ref_worker(name: str) -> tuple:
+    """(name, the CPU engine's result, ms): rows, or for the nested
+    collect the host batch."""
+    from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES, SLICE_QUERIES, tpch_query
+
+    s, tables = _REF_SESSION, _REF_TABLES
+    t0 = time.perf_counter()
+    if name == "nested collect":
+        out = nested_collect_query(tables["lineitem"], 1)(s).to_host()
+    elif name in SLICE_QUERIES or name in JOIN_QUERIES:
+        fn, _ = SLICE_QUERIES.get(name) or JOIN_QUERIES[name]
+        out = fn(lambda t: s.create_dataframe(tables[t])).collect()
+    else:
+        out = tpch_query(int(name[1:]), lambda t: s.create_dataframe(tables[t]), _REF_SF).collect()
+    return name, out, (time.perf_counter() - t0) * 1e3
+
+
+def cpu_reference_pool(sf: float = SF) -> dict:
+    """The port's CPU engine's results at SF 1 for the slice, join and TPC-H
+    phases' queries and the nested phase's collect, from ``CPU_REF_PROCS``
+    spawned worker processes (each generates the tables from the seed and
+    runs one query at a time, the slowest first): ``{name: (result, ms)}``.
+    Each CPU-engine time is its worker's, with the others running beside
+    it. The pool ends with the call."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(CPU_REF_PROCS, multiprocessing.get_context("spawn"),
+                             _cpu_ref_worker_init, (sf,)) as pool:
+        done = [pool.submit(_cpu_ref_worker, n) for n in _cpu_ref_names()]
+        out = {name: (res, ms) for name, res, ms in (f.result() for f in done)}
+    log(f"cpu references: the CPU engine's results of {len(out)} queries at SF {sf} in "
+        f"{CPU_REF_PROCS} worker processes at once, before any device run: "
+        f"{time.perf_counter() - t0:.1f} s (serial sum {sum(ms for _, ms in out.values()) / 1e3:.1f} s)")
+    return out
+
+
+def slice_phase(tables, cpu_ref) -> dict:
+    """The slice's queries on the card, one partition each, against the
+    port's CPU engine's rows from ``cpu_ref`` (:func:`cpu_reference_pool`).
+    Returns the match_starts launches of the main path's run and the CPU
+    engine's rows by query."""
     import torch
 
     from spark_rapids_tpu_torch import TorchSession
@@ -360,7 +460,6 @@ def slice_phase(tables) -> dict:
     from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
 
     gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
-    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.reset_counts()  # counts from here on are the main path's
     cpu_rows, walls = {}, {}
     for name, (fn, used) in SLICE_QUERIES.items():
@@ -378,9 +477,8 @@ def slice_phase(tables) -> dict:
         widths = _scan_widths(gpu)
         if name in ("q1", "q6") and widths != [7 if name == "q1" else 4]:
             raise AssertionError(f"{name}: the scan reads {widths} columns after pruning")
-        t0 = time.perf_counter()
-        want = cpu_rows[name] = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
-        cpu_ms = (time.perf_counter() - t0) * 1e3
+        want, cpu_ms = cpu_ref[name]
+        cpu_rows[name] = want
         ok, msg = rows_equal(got, want)
         if not ok or not want:
             raise AssertionError(f"{name}: device rows differ from the CPU engine: {msg}")
@@ -390,7 +488,7 @@ def slice_phase(tables) -> dict:
         rows = ", ".join(map(str, got[0])) if len(got) == 1 else f"{len(got)} rows"
         log(f"slice phase: {name} at SF {SF} over {'+'.join(used)}: device wall "
             f"{wall_ms:.1f} ms, uploaded {uploaded} bytes ({'+'.join(map(str, widths))} "
-            f"columns), CPU engine {cpu_ms:.1f} ms, match_starts launches "
+            f"columns), CPU engine {cpu_ms:.1f} ms (in a reference worker), match_starts launches "
             f"{launches}, result {rows}; equal to the CPU engine, nothing off the "
             "device but scans")
     log(f"slice phase: match_starts launches per path: {json.dumps(SK.LAUNCHES_BY_PATH)}")
@@ -406,9 +504,9 @@ def _join_kinds(plan: str) -> list:
     return [ln.strip().lstrip("* ").split(" ")[0] for ln in plan.splitlines() if "HashJoin" in ln]
 
 
-def join_phase(tables, walls) -> dict:
-    """The TPC-H join queries on the card and on the port's CPU engine, one
-    input partition each. Every result must equal the CPU engine's with
+def join_phase(tables, walls, cpu_ref) -> dict:
+    """The TPC-H join queries on the card, one input partition each, against
+    the port's CPU engine's rows from ``cpu_ref``. Every result must equal the CPU engine's with
     nothing off the device but the scans, and the plans must hold both
     kinds of hash join between them. Returns the CPU engine's rows by
     query; each query's device and CPU-engine walls go into ``walls``."""
@@ -420,7 +518,6 @@ def join_phase(tables, walls) -> dict:
     from spark_rapids_tpu_torch.tpch.queries import JOIN_QUERIES
 
     gpu = TorchSession({"spark.rapids.sql.enabled": True}, device="cuda")
-    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.reset_counts()  # this path's own counts
     cpu_rows, kinds = {}, set()
     for name, (fn, used) in JOIN_QUERIES.items():
@@ -440,9 +537,8 @@ def join_phase(tables, walls) -> dict:
             raise AssertionError(f"join {name}: nodes off the device: {off}")
         joins = _join_kinds(gpu._physical_plan(df._plan)[0].tree_string())
         kinds.update(joins)
-        t0 = time.perf_counter()
-        want = cpu_rows[name] = fn(lambda t: cpu.create_dataframe(tables[t])).collect()
-        cpu_ms = (time.perf_counter() - t0) * 1e3
+        want, cpu_ms = cpu_ref[name]
+        cpu_rows[name] = want
         ok, msg = rows_equal(got, want)
         if not ok or not want:
             raise AssertionError(f"join {name}: device rows differ from the CPU engine: {msg}")
@@ -452,7 +548,8 @@ def join_phase(tables, walls) -> dict:
             f"uploaded {metrics['hostToDeviceBytes']} bytes, peak device memory {peak} bytes "
             f"({peak - held} above the {held} held before it), "
             f"joins {joins}, join output-size syncs {metrics['joinProbeSyncs']}, CPU engine "
-            f"{cpu_ms:.1f} ms, result {rows}; equal to the CPU engine, nothing off the device "
+            f"{cpu_ms:.1f} ms (in a reference worker), result {rows}; equal to the CPU engine, "
+            "nothing off the device "
             "but scans")
     if not {"GpuShuffledHashJoin", "GpuBroadcastHashJoin"} <= kinds:
         raise AssertionError(f"join phase: the SF {SF} plans hold only {sorted(kinds)}")
@@ -488,15 +585,19 @@ TPCDS_CONF = {"spark.rapids.sql.incompatibleOps.enabled": True}
 #: children take about 13 s beside them), and the texts they start with
 #: (the slowest there: 6-37 s each on the H100's host)
 TPCDS_CHECK_PROCS = 7
+#: texts sharing at least this many exchanges run once more with reuse off
+#: (a depth cut that keeps the script within its time limit: 15 of the 44
+#: texts that reuse)
+TPCDS_REUSE_RERUN_MIN = 6
 TPCDS_CHECK_FIRST = (4, 72, 67, 11, 47, 57)
 #: a CPU-engine worker's session (``_tpcds_cpu_worker_init``)
 _CPU_SESSION = None
 
 
-def tpch_phase(tables, walls) -> dict:
-    """The other 13 TPC-H queries on the card and on the port's CPU engine,
-    one input partition, each run once cold (a fresh session: its pruned
-    columns uploaded). Every result must equal the CPU engine's with
+def tpch_phase(tables, walls, cpu_ref) -> dict:
+    """The other 13 TPC-H queries on the card, one input partition, each run
+    once cold (a fresh session: its pruned columns uploaded), against the
+    port's CPU engine's rows from ``cpu_ref``. Every result must equal the CPU engine's with
     nothing off the device but the scans (the subqueries' plans included),
     and at least one top-N must take the candidate path. Each query's
     radix selects are timed with CUDA events. Returns the CPU engine's rows
@@ -509,7 +610,6 @@ def tpch_phase(tables, walls) -> dict:
     from spark_rapids_tpu_torch.testing import rows_equal
     from spark_rapids_tpu_torch.tpch.queries import tpch_query
 
-    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
     SK.reset_counts()  # this path's own counts
     real_select = G.radix_select_kth
     cpu_rows, total_hits = {}, 0
@@ -544,9 +644,8 @@ def tpch_phase(tables, walls) -> dict:
         hits = metrics.get("topNCandidateHits", 0)
         total_hits += hits
         radix_ms = timer.totals_ms()["radix"]
-        t0 = time.perf_counter()
-        want = cpu_rows[name] = tpch_query(n, lambda t: cpu.create_dataframe(tables[t]), SF).collect()
-        cpu_ms = (time.perf_counter() - t0) * 1e3
+        want, cpu_ms = cpu_ref[name]
+        cpu_rows[name] = want
         ok, msg = rows_equal(got, want)
         if not ok or (not want and n != 20):
             raise AssertionError(f"tpch {name}: device rows differ from the CPU engine: {msg}")
@@ -557,7 +656,8 @@ def tpch_phase(tables, walls) -> dict:
             f"{peak} bytes ({peak - held} above the {held} held before it), nodes off the device "
             f"0 (only scans), top-N candidate hits {hits}, radix selects {len(shapes)} over "
             f"{shapes} words {radix_ms:.3f} ms, join output-size syncs "
-            f"{metrics['joinProbeSyncs']}, CPU engine {cpu_ms:.1f} ms, result {rows}; equal to "
+            f"{metrics['joinProbeSyncs']}, CPU engine {cpu_ms:.1f} ms (in a reference worker), "
+            f"result {rows}; equal to "
             "the CPU engine")
     if total_hits == 0:
         raise AssertionError("tpch phase: no top-N took the candidate path")
@@ -597,8 +697,8 @@ def _add_launches(acc: dict, more: dict) -> None:
 
 
 def expr_golden() -> None:
-    """The golden corpus on the card: every expression fixture but
-    ``split_at`` through ``TorchSession(device=None)`` in test mode under
+    """The golden corpus on the card: every expression fixture (``split_at``
+    included) through ``TorchSession(device=None)`` in test mode under
     ``tests/test_golden.py``'s conf, each equal to its literal, only the 28
     fixtures the JAX package keeps off the device allowed off it (each
     checked off, with its reason); then the 48 query fixtures from SQL
@@ -2193,7 +2293,7 @@ def tpcds_phase() -> None:
         log(f"tpcds phase: q{q} at SF {TPCDS_SF}, one input partition, cold: device wall {wall_ms:.1f} ms, "
             f"uploaded {uploaded} bytes, peak device memory {peak} bytes above what was held, "
             f"nodes off the device 0 (only scans), {len(rows)} rows, reused exchanges {reused[q]}")
-        if reused[q]:
+        if reused[q] >= TPCDS_REUSE_RERUN_MIN:
             # (d) exchange reuse: the same text with reuse off, rows equal
             df, plain, off_ms, _, _, off = _run_tpcds(
                 q, TPCDS_SF, conf={"spark.sql.exchange.reuse": False})
@@ -2666,6 +2766,12 @@ def _explain_off(session) -> list:
             if not e.on_device and not e.node.startswith("CpuScan")]
 
 
+#: lineitem rows of adaptive (e)'s min/max and pivot checks: a depth cut
+#: that keeps the script within its time limit (their two CPU-engine
+#: references take about 40 s at SF 1)
+ADAPTIVE_API_ROWS = 600_000
+
+
 def adaptive_api(tables, cpu_rows) -> None:
     """(e) The DataFrame surface on the SF 1 tables, each result held to
     the port's CPU engine (harness tolerance): one CPU-engine run per check
@@ -2757,8 +2863,8 @@ def adaptive_api(tables, cpu_rows) -> None:
     done(f"sort_within_partitions at {INPUT_PARTITIONS} partitions, {got.num_rows} rows in order")
 
     # q1's aggregates through GroupedData's shorthands
-    def q1_grouped(s):
-        return (s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS)
+    def q1_grouped(s, li=tables["lineitem"]):
+        return (s.create_dataframe(li, num_partitions=INPUT_PARTITIONS)
                 .filter(F.col("l_shipdate") <= date(1998, 9, 2))
                 .with_column("disc_price", F.col("l_extendedprice") * (1 - F.col("l_discount")))
                 .with_column("charge", F.col("disc_price") * (1 + F.col("l_tax")))
@@ -2772,18 +2878,21 @@ def adaptive_api(tables, cpu_rows) -> None:
                                           for s, a, c in zip(sums, avgs, counts)])
     if not ok:
         raise AssertionError(f"adaptive (e): q1 through GroupedData differs: {msg}")
-    mins = sorted(q1_grouped(gpu).min("l_quantity", "l_shipdate").collect())
-    maxs = sorted(q1_grouped(gpu).max("l_quantity", "l_shipdate").collect())
+    # a depth cut: min/max and the pivots over lineitem's first rows
+    part = tables["lineitem"].slice(0, ADAPTIVE_API_ROWS)
+    mins = sorted(q1_grouped(gpu, part).min("l_quantity", "l_shipdate").collect())
+    maxs = sorted(q1_grouped(gpu, part).max("l_quantity", "l_shipdate").collect())
     c = F.col
-    want = q1_grouped(cpu).agg(F.min(c("l_quantity")), F.min(c("l_shipdate")),
-                               F.max(c("l_quantity")), F.max(c("l_shipdate"))).collect()
+    want = q1_grouped(cpu, part).agg(F.min(c("l_quantity")), F.min(c("l_shipdate")),
+                                     F.max(c("l_quantity")), F.max(c("l_shipdate"))).collect()
     ok, msg = rows_equal(want, [a + b[2:] for a, b in zip(mins, maxs)])
     if not ok:
         raise AssertionError(f"adaptive (e): GroupedData.min/max differ: {msg}")
-    done("q1 through GroupedData.sum/avg/count equal to q1's CPU-engine rows, min/max equal")
+    done("q1 through GroupedData.sum/avg/count equal to q1's CPU-engine rows, min/max equal "
+         f"(over the first {ADAPTIVE_API_ROWS} rows)")
 
     def pv(s, values):
-        return (s.create_dataframe(tables["lineitem"], num_partitions=INPUT_PARTITIONS)
+        return (s.create_dataframe(part, num_partitions=INPUT_PARTITIONS)
                 .group_by("l_returnflag").pivot("l_linestatus", values).sum("l_extendedprice"))
 
     want_df = pv(cpu, ["F", "O"])
@@ -2795,7 +2904,8 @@ def adaptive_api(tables, cpu_rows) -> None:
         ok, msg = rows_equal(want, g.collect())
         if not ok:
             raise AssertionError(f"adaptive (e): pivot {values}: {msg}")
-    done(f"pivot without and with values, columns {want_df.columns}")
+    done(f"pivot without and with values over the first {ADAPTIVE_API_ROWS} rows, columns "
+         f"{want_df.columns}")
 
     # sample: the Rand filter stays on the CPU engine (the JAX rule's gate)
     samp = TorchSession({"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}, device="cuda")
@@ -2893,6 +3003,509 @@ def adaptive_phase(tables, cpu_rows) -> dict:
     return launches
 
 
+# ── the nested phase: arrays, structs, maps, collect, explode, split,
+#    get_json_object, range, UDFs, rand ────────────────────────────────────
+
+NESTED_HOLD_SF = 0.1
+
+
+def _nested_session(extra=None, device=None, enabled=True):
+    from spark_rapids_tpu_torch import TorchSession
+
+    conf = {"spark.rapids.sql.enabled": enabled}
+    if enabled:
+        conf["spark.rapids.sql.test.enabled"] = True  # strict: only scans off the device
+    conf.update(extra or {})
+    return TorchSession(conf, device=device if device is not None else
+                        (None if enabled else "cpu"))
+
+
+def _nested_timed(label, run, session):
+    """(host batch, wall ms, peak device bytes above what was held) of one
+    strict run; raises if anything but a scan left the device."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = run(session).to_host()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    _stayed_on_device(label, session)
+    return got, wall, torch.cuda.max_memory_allocated() - held
+
+
+def _nested_cpu(run):
+    """The CPU engine's host batch of ``run`` and its wall in ms."""
+    s = _nested_session(enabled=False)
+    t0 = time.perf_counter()
+    ref = run(s).to_host()
+    return ref, (time.perf_counter() - t0) * 1e3
+
+
+def _held(label, ref, got) -> None:
+    from spark_rapids_tpu_torch.testing import columns_equal
+
+    ok, msg = columns_equal(ref, got)
+    if not ok:
+        raise AssertionError(f"nested {label}: the device differs from the CPU engine: {msg}")
+
+
+def _col(hb, name):
+    return hb.columns[hb.schema.index_of(name)]
+
+
+def nested_collect_query(li, parts: int):
+    """(a)'s query: collect_list(l_partkey), collect_set(l_suppkey) and
+    count of lineitem by l_orderkey, sorted by the key."""
+    from spark_rapids_tpu_torch import functions as F
+
+    def run(s):
+        return (s.create_dataframe(li, num_partitions=parts)
+                .group_by("l_orderkey")
+                .agg(F.collect_list(F.col("l_partkey")).alias("parts"),
+                     F.collect_set(F.col("l_suppkey")).alias("supps"),
+                     F.count("*").alias("n"))
+                .sort("l_orderkey"))
+
+    return run
+
+
+def nested_collect(tables, cpu_ref) -> None:
+    """(a) collect_list, collect_set and count of lineitem by l_orderkey at
+    1 partition and at 4 x 8, held to the CPU engine's result from
+    ``cpu_ref``; (b) posexplode of the lists back to every lineitem row, in
+    the same device plan."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+
+    li = tables["lineitem"]
+
+    def collect(parts):
+        return nested_collect_query(li, parts)
+
+    conf48 = {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS}
+    one, one_ms, one_peak = _nested_timed("collect 1", collect(1), _nested_session())
+    many, many_ms, many_peak = _nested_timed(
+        f"collect {INPUT_PARTITIONS}x{SHUFFLE_PARTITIONS}", collect(INPUT_PARTITIONS),
+        _nested_session(conf48))
+    n = _col(one, "n").data
+    for name in ("parts", "supps"):
+        c = _col(one, name)
+        sizes = np.diff(c.offsets)
+        if name == "parts" and not np.array_equal(sizes, n):
+            raise AssertionError("nested (a): a size(collect_list) differs from its count")
+        if name == "supps" and (sizes > n).any():
+            raise AssertionError("nested (a): a collect_set is longer than its count")
+    _held(f"collect {INPUT_PARTITIONS}x{SHUFFLE_PARTITIONS} against 1 partition", one, many)
+    ref, cpu_ms = cpu_ref["nested collect"]
+    _held("collect at SF 1", ref, one)
+    del ref
+    W = int(np.diff(_col(one, "parts").offsets).max())
+    log(f"nested (a): collect_list(l_partkey), collect_set(l_suppkey), count by l_orderkey at "
+        f"SF {SF} ({li.num_rows} rows, {one.num_rows} groups, largest {W}): device wall "
+        f"{one_ms:.1f} ms at 1 partition (peak {one_peak} bytes), {many_ms:.1f} ms at "
+        f"{INPUT_PARTITIONS} x {SHUFFLE_PARTITIONS} (peak {many_peak} bytes), equal; every "
+        f"size(list) equal to its count; equal to the CPU engine at SF {SF} ({cpu_ms:.1f} ms)")
+    del one, many
+
+    # a string collect_list at the hold's scale
+    o_small, _ = gen_orders_lineitem(NESTED_HOLD_SF, SEED)
+
+    def clerks(s):
+        return (s.create_dataframe(o_small).group_by("o_custkey")
+                .agg(F.collect_list(F.col("o_clerk")).alias("clerks")).sort("o_custkey"))
+
+    got, ms, _ = _nested_timed("string collect", clerks, _nested_session())
+    ref, cpu_ms = _nested_cpu(clerks)
+    _held("string collect_list", ref, got)
+    log(f"nested (a): collect_list(o_clerk) by o_custkey at SF {NESTED_HOLD_SF} "
+        f"({got.num_rows} groups): device {ms:.1f} ms, equal to the CPU engine ({cpu_ms:.1f} ms)")
+
+    def exploded(s):
+        lists = (s.create_dataframe(li).group_by("l_orderkey")
+                 .agg(F.collect_list(F.col("l_partkey")).alias("parts"),
+                      F.count("*").alias("n")))
+        rows = lists.select(F.col("l_orderkey"), F.col("n"), F.posexplode(F.col("parts")))
+        return rows.agg(F.count("*").alias("rows"), F.sum(F.col("col")).alias("s"),
+                        F.min(F.col("pos")).alias("lo"),
+                        F.sum(F.col("pos")).alias("pos_sum"),
+                        F.sum(F.col("n")).alias("n_sum"))
+
+    got, ms, peak = _nested_timed("posexplode", exploded, _nested_session())
+    rows, s, lo, pos_sum, n_sum = (int(c.data[0]) for c in got.columns)
+    pk = _col(li, "l_partkey").data
+    sizes = np.bincount(np.unique(_col(li, "l_orderkey").data, return_inverse=True)[1])
+    # each order of k rows gives positions 0..k-1 (sum k(k-1)/2) and adds k
+    # to n_sum k times
+    want = (li.num_rows, int(pk.sum()), 0, int((sizes * (sizes - 1) // 2).sum()),
+            int((sizes * sizes).sum()))
+    if (rows, s, lo, pos_sum, n_sum) != want:
+        raise AssertionError(f"nested (b): posexplode gave {(rows, s, lo, pos_sum, n_sum)}, "
+                             f"want {want}")
+    log(f"nested (b): posexplode of the collected lists back to {rows} rows: the sum of "
+        f"l_partkey and the row count equal lineitem's, positions 0 to size-1 in every group "
+        f"(min 0, sum {pos_sum}); device wall {ms:.1f} ms, peak {peak} bytes")
+
+
+def _numpy_tokens(col, delim: bytes):
+    """Tokens per row of ``split(col, delim)`` counted on the host: the
+    delimiter's non-overlapping occurrences + 1 (an independent count)."""
+    import numpy as np
+
+    raw = col.data.tobytes()
+    offs = col.offsets.tolist()
+    return np.array([raw[offs[i]:offs[i + 1]].count(delim) + 1 for i in range(len(col))],
+                    dtype=np.int64)
+
+
+def nested_split(tables) -> None:
+    """(c) a word count over o_comment: explode(split(o_comment, " ")),
+    grouped and counted, and the multi-byte ``split(o_comment, "ly ")``."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+
+    orders = tables["orders"]
+    comment = _col(orders, "o_comment")
+    toks = {d: _numpy_tokens(comment, d.encode()) for d in (" ", "ly ")}
+    max_tok = int(max(t.max() for t in toks.values()))
+    conf = {"spark.rapids.sql.split.maxTokens": max(16, max_tok)}
+
+    def words(src):
+        def run(s):
+            return (s.create_dataframe(src).select(
+                F.explode(F.split(F.col("o_comment"), " ")).alias("w"))
+                .group_by("w").agg(F.count("*").alias("n")).sort("w"))
+        return run
+
+    def sizes(src, delim):
+        def run(s):
+            return s.create_dataframe(src).agg(
+                F.sum(F.size(F.split(F.col("o_comment"), delim))).alias("t"))
+        return run
+
+    got, wc_ms, wc_peak = _nested_timed("word count", words(orders), _nested_session(conf))
+    total_words = int(_col(got, "n").data.sum())
+    line = []
+    for delim in (" ", "ly "):
+        got_t, ms, peak = _nested_timed(f"split {delim!r}", sizes(orders, delim),
+                                        _nested_session(conf))
+        t = int(got_t.columns[0].data[0])
+        if t != int(toks[delim].sum()) or (delim == " " and t != total_words):
+            raise AssertionError(f"nested (c): split {delim!r} gave {t} tokens (word count "
+                                 f"{total_words}), numpy counts {int(toks[delim].sum())}")
+        line.append(f"split(o_comment, {delim!r}): {t} tokens, equal to numpy's delimiters + 1, "
+                    f"{ms:.1f} ms, peak {peak} bytes")
+    o_small, _ = gen_orders_lineitem(NESTED_HOLD_SF, SEED)
+    dev, ms_small, _ = _nested_timed("word count hold", words(o_small), _nested_session(conf))
+    ref, cpu_ms = _nested_cpu(words(o_small))
+    _held("word count", ref, dev)
+
+    def multi(s):
+        return s.create_dataframe(o_small).select(
+            F.col("o_orderkey"), F.split(F.col("o_comment"), "ly ").alias("parts"))
+
+    dev, _, _ = _nested_timed("split 'ly ' hold", multi, _nested_session(conf))
+    ref, _ = _nested_cpu(multi)
+    _held("split 'ly '", ref, dev)
+    log(f"nested (c): word count over o_comment at SF {SF}: {got.num_rows} words, {total_words} "
+        f"tokens (maxTokens {conf['spark.rapids.sql.split.maxTokens']}, the longest row "
+        f"{max_tok}), device wall {wc_ms:.1f} ms, peak {wc_peak} bytes; " + "; ".join(line)
+        + f"; the word count and split(o_comment, 'ly ') equal to the CPU engine at SF "
+        f"{NESTED_HOLD_SF} ({cpu_ms:.1f} ms)")
+
+
+def nested_json(tables) -> dict:
+    """(d) get_json_object over a compact JSON column built on the device
+    from orders; ``match_starts``'s launches for its key steps are counted
+    for the timed SF 1 run only, and the kernel is held bit for bit to its
+    plain version on every plane that run handed it."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem
+    from spark_rapids_tpu_torch.types import STRING
+
+    conf = {"spark.rapids.sql.getJsonObject.enabled": True}
+
+    def extract(src):
+        def run(s):
+            j = F.concat(F.lit('{"k":'), F.col("o_orderkey").cast(STRING),
+                         F.lit(',"p":"'), F.col("o_orderpriority"),
+                         F.lit('","c":"'), F.col("o_clerk"),
+                         F.lit('","x":{"c":'), F.col("o_custkey").cast(STRING), F.lit("}}"))
+            df = s.create_dataframe(src).select(F.col("o_orderkey"), j.alias("j"))
+            return df.select(F.col("o_orderkey"),
+                             F.get_json_object(F.col("j"), "$.k").alias("k"),
+                             F.get_json_object(F.col("j"), "$.p").alias("p"),
+                             F.get_json_object(F.col("j"), "$.x.c").alias("c"))
+        return run
+
+    seen = []
+    real = SK.match_starts
+
+    def record(data, lengths, pat, consumer="direct"):
+        seen.append((data, lengths, pat))
+        return real(data, lengths, pat, consumer)
+
+    SK.match_starts = record
+    try:
+        SK.reset_counts()
+        got, ms, peak = _nested_timed("get_json_object", extract(tables["orders"]),
+                                      _nested_session(conf))
+        launches = _launch_counts(SK)
+    finally:
+        SK.match_starts = real
+    if launches["by_consumer"].get("get_json_object", 0) <= 0:
+        raise AssertionError("nested (d): get_json_object launched match_starts no time")
+    checked = []
+    for data, lengths, pat in seen:
+        if not torch.equal(real(data, lengths, pat), SK.match_starts_plain(data, lengths, pat)):
+            raise AssertionError("nested (d): match_starts differs from plain on the "
+                                 "get_json_object path")
+        checked.append((tuple(data.shape), len(pat)))
+    del seen
+    o = tables["orders"]
+    order = np.argsort(_col(got, "o_orderkey").data, kind="stable")
+    src = np.argsort(_col(o, "o_orderkey").data, kind="stable")
+    for name, col, fmt in (("k", "o_orderkey", str), ("p", "o_orderpriority", None),
+                           ("c", "o_custkey", str)):
+        from spark_rapids_tpu_torch.columnar.host import to_pylist
+
+        g = to_pylist(_col(got, name).take(order))
+        w = to_pylist(_col(o, col).take(src))
+        if fmt is not None:
+            w = [fmt(x) for x in w]
+        if g != w:
+            raise AssertionError(f"nested (d): $.{name} differs from {col}")
+    o_small, _ = gen_orders_lineitem(NESTED_HOLD_SF, SEED)
+    dev, _, _ = _nested_timed("get_json_object hold", extract(o_small), _nested_session(conf))
+    ref, cpu_ms = _nested_cpu(extract(o_small))
+    _held("get_json_object", ref, dev)
+    log(f"nested (d): get_json_object $.k, $.p and $.x.c over a JSON column built on the card "
+        f"from orders at SF {SF}: equal to o_orderkey, o_orderpriority and o_custkey; device "
+        f"wall {ms:.1f} ms, peak {peak} bytes; match_starts launches {launches['total']} "
+        f"({json.dumps(launches['by_consumer'])}, per path {json.dumps(launches['by_path'])}), "
+        f"bit-identical to match_starts_plain on every plane (shape, L) {json.dumps(checked)}; "
+        f"equal to the CPU engine at SF {NESTED_HOLD_SF} ({cpu_ms:.1f} ms)")
+    return launches
+
+
+def nested_range() -> None:
+    """(e) range(0, 1e9, 1, 8) filtered on id % 7 == 3, summed and counted,
+    against the closed form, with nothing uploaded."""
+    from spark_rapids_tpu_torch import functions as F
+
+    end = 1_000_000_000
+
+    def run(s):
+        return s.range(0, end, 1, 8).filter(F.col("id") % 7 == 3).agg(
+            F.sum(F.col("id")).alias("s"), F.count("*").alias("n"))
+
+    s = _nested_session()
+    got, ms, peak = _nested_timed("range", run, s)
+    total, n = (int(c.data[0]) for c in got.columns)
+    want_n = (end - 1 - 3) // 7 + 1
+    want_s = 3 * want_n + 7 * want_n * (want_n - 1) // 2
+    up = s._last_metrics["hostToDeviceBytes"]
+    if (total, n) != (want_s, want_n) or up:
+        raise AssertionError(f"nested (e): range gave sum {total}, count {n}, uploaded {up}; "
+                             f"want {want_s}, {want_n}, 0")
+    log(f"nested (e): range(0, {end}, 1, 8) where id % 7 == 3: count {n}, sum {total}, the "
+        f"closed form; {up} bytes uploaded; device wall {ms:.1f} ms, peak {peak} bytes")
+
+
+def nested_udfs(tables) -> None:
+    """(f) a torch_udf over lineitem equals the same expression bit for bit;
+    a translatable python udf runs on the device under the udf compiler, an
+    untranslatable one stays on the CPU engine with its reason."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.types import DOUBLE, LONG, STRING
+
+    li = tables["lineitem"]
+    net = F.torch_udf(lambda p, d: p * (1.0 - d) + p.sqrt(), returnType=DOUBLE)
+
+    def via_udf(s):
+        return s.create_dataframe(li).select(net(F.col("l_extendedprice"),
+                                                 F.col("l_discount")).alias("v"))
+
+    def via_expr(s):
+        p, d = F.col("l_extendedprice"), F.col("l_discount")
+        return s.create_dataframe(li).select((p * (1.0 - d) + F.sqrt(p)).alias("v"))
+
+    a, a_ms, _ = _nested_timed("torch_udf", via_udf, _nested_session())
+    b, b_ms, _ = _nested_timed("torch_udf expression", via_expr, _nested_session())
+    if not np.array_equal(a.columns[0].data.view(np.int64), b.columns[0].data.view(np.int64)):
+        raise AssertionError("nested (f): the torch_udf differs from its expression")
+    tx = F.udf(lambda v: v * 2 + 1, returnType=LONG)
+    s = _nested_session({"spark.rapids.sql.udfCompiler.enabled": True})
+    got, tx_ms, _ = _nested_timed(
+        "translated udf", lambda s: s.create_dataframe(li).select(
+            tx(F.col("l_partkey")).alias("v")), s)
+    plan = s._last_plan.tree_string()
+    want = _col(li, "l_partkey").data * 2 + 1
+    if "GpuProject" not in plan or not np.array_equal(got.columns[0].data, want):
+        raise AssertionError(f"nested (f): the translated udf did not run on the device: {plan}")
+    raw = F.udf(lambda v: str(sorted([v]))[:3], returnType=STRING)
+    s = _nested_session({"spark.rapids.sql.udfCompiler.enabled": True,
+                         "spark.rapids.sql.test.enabled": False})
+    rows = s.create_dataframe(li.slice(0, 1000)).select(raw(F.col("l_linenumber")).alias("w")
+                                                       ).collect()
+    reasons = [r for e in s._last_overrides.explain if not e.on_device for r in e.reasons
+               if "CPU engine" in r]
+    if not reasons or len(rows) != 1000:
+        raise AssertionError(f"nested (f): the untranslatable udf: {rows[:3]}")
+    log(f"nested (f): torch_udf over lineitem ({li.num_rows} rows) bit-identical to the same "
+        f"expression ({a_ms:.1f} ms against {b_ms:.1f} ms); a python udf translated by the udf "
+        f"compiler ran in a device project ({tx_ms:.1f} ms); an untranslatable one stayed on "
+        f"the CPU engine: {reasons[0]!r}")
+    del a, b, got
+
+
+def nested_rand(tables) -> None:
+    """(g) rand(7) over lineitem under incompatibleOps: two device runs
+    bit-identical, and equal to the CPU engine's bit for bit."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import functions as F
+
+    conf = {"spark.rapids.sql.incompatibleOps.enabled": True}
+
+    def run(s):
+        return s.create_dataframe(tables["lineitem"]).select(F.col("l_orderkey"),
+                                                             F.rand(7).alias("r"))
+
+    a, ms, _ = _nested_timed("rand", run, _nested_session(conf))
+    b, _, _ = _nested_timed("rand again", run, _nested_session(conf))
+    s = _nested_session(conf, enabled=False)
+    t0 = time.perf_counter()
+    c = run(s).to_host()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    bits = [x.columns[1].data.view(np.int64) for x in (a, b, c)]
+    if not (np.array_equal(bits[0], bits[1]) and np.array_equal(bits[0], bits[2])):
+        raise AssertionError("nested (g): rand(7) is not bit-identical across runs and engines")
+    r = a.columns[1].data
+    log(f"nested (g): rand(7) over lineitem: two device runs and the CPU engine bit-identical "
+        f"({len(r)} values in [{r.min():.6f}, {r.max():.6f}], mean {r.mean():.6f}); device "
+        f"{ms:.1f} ms, CPU engine {cpu_ms:.1f} ms")
+
+
+def nested_struct_map(tables) -> None:
+    """(h) struct, GetStructField, a map column built on the host with
+    GetMapValue and element_at, array and array_contains over orders; a
+    host-built nested batch uploaded and downloaded whole, and spilled and
+    restored through the spill catalog bit for bit."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.columnar.device import (
+        column_planes,
+        device_to_host,
+        host_to_device,
+    )
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, HostColumn, to_pylist
+    from spark_rapids_tpu_torch.mem import spill as PS
+    from spark_rapids_tpu_torch.types import DOUBLE, LONG, STRING, MapType, Schema, StructField
+
+    o = tables["orders"]
+    n = o.num_rows
+    # map<priority, totalprice>: one entry a row, built with numpy
+    pri = _col(o, "o_orderpriority")
+    m = HostColumn(MapType(STRING, DOUBLE), None, np.ones(n, bool),
+                   np.arange(n + 1, dtype=np.int32),
+                   (pri, HostColumn(DOUBLE, _col(o, "o_totalprice").data, np.ones(n, bool))))
+    hb = HostBatch(Schema(list(o.schema.fields) + [StructField("m", m.dtype)]),
+                   list(o.columns) + [m], n)
+
+    def run(s):
+        df = s.create_dataframe(hb).select(
+            F.col("o_orderkey"),
+            F.struct(F.col("o_custkey").alias("c"), F.col("o_clerk").alias("k")).alias("st"),
+            F.array(F.col("o_custkey"), F.col("o_shippriority").cast(LONG)).alias("arr"),
+            F.col("m"))
+        return df.select(
+            F.col("o_orderkey"), F.col("st")["c"].alias("c"), F.col("st")["k"].alias("k"),
+            F.element_at(F.col("m"), "1-URGENT").alias("urgent"),
+            F.col("m")["5-LOW"].alias("low"),
+            F.element_at(F.col("arr"), 1).alias("first"),
+            F.array_contains(F.col("arr"), 0).alias("has0"),
+            F.size(F.col("arr")).alias("two"))
+
+    got, ms, peak = _nested_timed("struct and map", run, _nested_session())
+    g = {f.name: c for f, c in zip(got.schema, got.columns)}
+    price = _col(o, "o_totalprice").data
+    pr = np.array(to_pylist(pri), dtype=object)
+    checks = [
+        np.array_equal(g["c"].data, _col(o, "o_custkey").data),
+        to_pylist(g["k"]) == to_pylist(_col(o, "o_clerk")),
+        np.array_equal(g["urgent"].validity, pr == "1-URGENT"),
+        np.array_equal(g["urgent"].data[pr == "1-URGENT"], price[pr == "1-URGENT"]),
+        np.array_equal(g["low"].validity, pr == "5-LOW"),
+        np.array_equal(g["first"].data, _col(o, "o_custkey").data),
+        np.array_equal(g["has0"].data, _col(o, "o_shippriority").data == 0),
+        bool((g["two"].data == 2).all()),
+    ]
+    if not all(checks):
+        raise AssertionError(f"nested (h): struct/map/array checks {checks}")
+    # a host-built nested batch: upload, download, spill and restore
+    nb = HostBatch(Schema([StructField("m", m.dtype)]), [m], n)
+    db = host_to_device(nb, "cuda")
+    back = device_to_host(db)
+    if to_pylist(back.columns[0])[:1000] != to_pylist(m)[:1000] or back.num_rows != n:
+        raise AssertionError("nested (h): the host-built map column did not round-trip")
+    want = [t.clone() for c in db.columns for t in column_planes(c)]
+    cat = PS.BufferCatalog()
+    h = cat.register(db)
+    del db
+    freed = cat.synchronous_spill(h.size_bytes)
+    cat.host_limit = 0
+    cat.synchronous_spill(0)
+    tier = PS.StorageTier.NAMES[cat._buffers[h.id].tier]
+    restored = [t for c in h.get_batch().columns for t in column_planes(c)]
+    if tier != "DISK" or not all(torch.equal(a, b) for a, b in zip(want, restored)):
+        raise AssertionError(f"nested (h): the spilled map batch (tier {tier}) did not restore "
+                             f"bit for bit")
+    h.close()
+    log(f"nested (h): struct, GetStructField, a host-built map<string,double> with GetMapValue "
+        f"and element_at, array, element_at and array_contains over orders ({n} rows): equal "
+        f"to the source columns; device wall {ms:.1f} ms, peak {peak} bytes; the map column "
+        f"uploaded and downloaded whole; its batch spilled ({freed} bytes freed) to {tier} and "
+        f"restored bit for bit ({len(want)} planes)")
+
+
+def nested_phase(tables, cpu_ref) -> dict:
+    """The nested phase, strict (nothing but scans off the device), at SF 1:
+    (a) collect, (b) posexplode, (c) split and a word count, (d)
+    get_json_object, (e) range, (f) UDFs, (g) rand, (h) structs and maps.
+    The pandas execs run on the host over pandas, which this machine lacks:
+    they are not driven here. Returns get_json_object's match_starts
+    launches from (d)'s timed SF 1 run."""
+    t0 = time.perf_counter()
+    nested_collect(tables, cpu_ref)
+    nested_split(tables)
+    launches = nested_json(tables)
+    nested_range()
+    nested_udfs(tables)
+    nested_rand(tables)
+    nested_struct_map(tables)
+    log("nested phase: the pandas execs (map_in_pandas, apply_in_pandas, cogroup, pandas UDFs) "
+        "are not driven here: they run on the host over pandas, which this machine lacks")
+    log(f"nested phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2942,11 +3555,13 @@ def main() -> int:
         log(f"script: {done} done at {time.perf_counter() - script_t0:.1f} s")
 
     mark("build, data and kernel phase")
-    sliced = slice_phase(tables)
+    cpu_ref = cpu_reference_pool()
+    mark("CPU-engine references")
+    sliced = slice_phase(tables, cpu_ref)
     walls = sliced["walls"]
     q1_split(tables)
-    join_rows = join_phase(tables, walls)
-    tpch_rows = tpch_phase(tables, walls)
+    join_rows = join_phase(tables, walls, cpu_ref)
+    tpch_rows = tpch_phase(tables, walls, cpu_ref)
     tpch_summary(walls)
     q13_like_split(tables)
     radix_select_check()
@@ -2968,6 +3583,9 @@ def main() -> int:
     mark("runtime phase")
     adaptive_launches = adaptive_phase(tables, cpu_rows)
     mark("adaptive and API phase")
+    nested_launches = nested_phase(tables, {"nested collect": cpu_ref.pop("nested collect")})
+    del cpu_ref
+    mark("nested phase")
     wide_string_hash(orders)
     memory_launches = memory_phase(tables)
     mark("memory phase")
@@ -2979,10 +3597,10 @@ def main() -> int:
     # locate, substring_index and replace in their timed SF 1 runs, the
     # runtime phase's contains inside a fused stage and the memory phase's
     # contains under injected OOMs, and the adaptive phase's contains_agg
-    # under sparkVersion 3.2
+    # under sparkVersion 3.2, and the nested phase's get_json_object
     main_path = {"total": 0, "by_path": {}, "by_consumer": {}}
     for part in (sliced["launches"], expr_launches, runtime_launches, memory_launches,
-                 adaptive_launches):
+                 adaptive_launches, nested_launches):
         _add_launches(main_path, part)
     record["launches"] = main_path["total"]
     record["launches_by_path"] = main_path["by_path"]

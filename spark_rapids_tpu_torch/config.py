@@ -181,6 +181,41 @@ HAS_NANS = conf("spark.rapids.sql.hasNans").doc(
     "matching the reference)."
 ).boolean_conf(True)
 
+BATCH_SIZE_ROWS = conf("spark.rapids.sql.batchSizeRows").doc(
+    "Target row count of a generated batch (range()); the port's "
+    "capacities are bucketed to powers of two above it."
+).int_conf(1 << 20)
+
+SPLIT_MAX_TOKENS = conf("spark.rapids.sql.split.maxTokens").doc(
+    "Static token-plane width for device split(): a row splitting into "
+    "more tokens fails loudly (never truncates) — raise this or disable "
+    "spark.rapids.sql.expression.StringSplit for such data."
+).int_conf(16)
+
+GET_JSON_OBJECT_DEVICE = conf("spark.rapids.sql.getJsonObject.enabled").doc(
+    "Run get_json_object on the device via span extraction (its key steps "
+    "over the match_starts kernel). Like the reference's cudf "
+    "get_json_object (GpuOverrides.scala:2519) it returns nested results as "
+    "written (no re-serialization) and does not unescape string values — "
+    "exact on compact escape-free JSON; off by default because CPU Spark "
+    "normalizes through Jackson."
+).boolean_conf(False)
+
+UDF_COMPILER_ENABLED = conf("spark.rapids.sql.udfCompiler.enabled").doc(
+    "Translate simple python UDFs (arithmetic/comparison/conditional/math/"
+    "string-method subset) into expression trees that run on the device — "
+    "the udf-compiler analogue. Off by default like the reference: a "
+    "translated UDF null-propagates where the raw python function would "
+    "raise on None."
+).boolean_conf(False)
+
+PYTHON_PREFETCH_BATCHES = conf("spark.rapids.sql.python.prefetchBatches").doc(
+    "Bounded producer/consumer queue depth between the engine's batch "
+    "pipeline and streaming python UDF execs (mapInPandas): upstream "
+    "production overlaps python compute on a producer thread (the "
+    "reference's BatchQueue, GpuArrowEvalPythonExec.scala:188). 0 disables."
+).int_conf(2)
+
 OUT_OF_CORE_SORT_THRESHOLD = conf("spark.rapids.tpu.sort.outOfCoreThresholdBytes").doc(
     "Partition size above which GpuSortExec switches from single-batch sort "
     "to sorted-run merge (reference: GpuSortExec.scala:212 out-of-core mode "

@@ -10,7 +10,7 @@ Copied from ``spark_rapids_tpu/exec/cpu.py`` with the host currency changed
 from ``pyarrow.RecordBatch`` to the port's numpy ``HostBatch``. The operators
 the port's planner emits are carried over: scan, project, filter, the
 aggregate, coalesce, union, the hash/range/round-robin/single exchange,
-sort, top-N and limit. Range, generate and expand come with later slices.
+sort, top-N, limit, expand, range and generate (explode).
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ import numpy as np
 
 from ..columnar.host import (
     HostBatch,
+    HostColumn,
     batch_from_columns,
+    column_from_pylist,
     concat_batches,
     np_from_host,
 )
@@ -108,6 +110,145 @@ class CpuScanExec(Exec):
 
     def node_string(self):
         return f"CpuScan{self._schema.names}"
+
+
+class CpuRangeExec(Exec):
+    """``spark.range()`` — sequence generation (Spark's RangeExec; the
+    reference replaces it with GpuRangeExec, basicPhysicalOperators.scala).
+    Spark splits the range into ``num_partitions`` contiguous slices."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int):
+        super().__init__([])
+        from ..types import LONG
+
+        self.start = start
+        self.end = end
+        self.step = step
+        self.num_partitions = max(1, num_partitions)
+        self._schema = Schema([StructField("id", LONG, False)])
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def total_rows(self) -> int:
+        if self.step == 0:
+            raise ValueError("range step cannot be 0")
+        n = (self.end - self.start + self.step - (1 if self.step > 0 else -1)) // self.step
+        return max(0, n)
+
+    def partition_bounds(self) -> list:
+        """[(first_row_index, row_count)] per partition — contiguous slices."""
+        n = self.total_rows()
+        per = -(-n // self.num_partitions) if n else 0
+        out = []
+        for p in range(self.num_partitions):
+            lo = min(p * per, n)
+            hi = min(lo + per, n)
+            out.append((lo, hi - lo))
+        return out
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+        from ..types import LONG
+
+        batch_rows = cfg.BATCH_SIZE_ROWS.get(ctx.conf)
+        start, step, schema = self.start, self.step, self._schema
+        parts = []
+        for lo, cnt in self.partition_bounds():
+            def make(lo=lo, cnt=cnt):
+                def it():
+                    done = 0
+                    while done < cnt:
+                        m = min(batch_rows, cnt - done)
+                        first = start + (lo + done) * step
+                        ids = first + step * np.arange(m, dtype=np.int64)
+                        yield HostBatch(schema, [HostColumn(LONG, ids, np.ones(m, bool))], m)
+                        done += m
+
+                return it()
+
+            parts.append(make)
+        return PartitionSet(parts)
+
+    def node_string(self):
+        return f"CpuRange ({self.start}, {self.end}, step={self.step}, splits={self.num_partitions})"
+
+
+class CpuGenerateExec(Exec):
+    """explode/posexplode over arrays and maps (Spark GenerateExec; the
+    reference replaces it with GpuGenerateExec.scala). Each input row fans
+    out to one output row per element; null/empty collections yield no
+    rows (non-outer semantics)."""
+
+    def __init__(self, generator: Expression, out_names: List[str], child: Exec):
+        super().__init__([child])
+        self.generator = bind(generator, child.output)
+        self.out_names = list(out_names)
+        self._schema = self._compute_schema(child)
+
+    def _compute_schema(self, child: Exec) -> Schema:
+        from ..types import INT, MapType
+
+        g = self.generator
+        ct = g.child.data_type
+        fields = list(child.output.fields)
+        i = 0
+        if g.position:
+            fields.append(StructField(self.out_names[i], INT, False))
+            i += 1
+        if isinstance(ct, MapType):
+            fields.append(StructField(self.out_names[i], ct.key_type, False))
+            fields.append(StructField(self.out_names[i + 1], ct.value_type, True))
+        else:
+            fields.append(StructField(self.out_names[i], ct.element_type, True))
+        return Schema(fields)
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        from ..types import INT, MapType
+
+        schema_in = self.children[0].output
+        schema_out = self._schema
+        g = self.generator
+        ct = g.child.data_type
+        is_map = isinstance(ct, MapType)
+
+        def fn(it):
+            for rb in it:
+                c = _cpu_ctx(rb, schema_in)
+                v = g.child.eval(c)
+                data = c.broadcast(v.data)
+                valid = c.broadcast_bool(v.valid)
+                take: List[int] = []
+                pos: List[int] = []
+                elems: List = []
+                for i in range(rb.num_rows):
+                    if not valid[i] or data[i] is None:
+                        continue
+                    for j, el in enumerate(data[i]):
+                        take.append(i)
+                        pos.append(j)
+                        elems.append(el)
+                base = rb.take(np.asarray(take, dtype=np.int64))
+                cols = list(base.columns)
+                if g.position:
+                    cols.append(HostColumn(INT, np.asarray(pos, dtype=np.int32),
+                                           np.ones(len(pos), bool)))
+                if is_map:
+                    cols.append(column_from_pylist([k for k, _ in elems], ct.key_type))
+                    cols.append(column_from_pylist([x for _, x in elems], ct.value_type))
+                else:
+                    cols.append(column_from_pylist(elems, ct.element_type))
+                yield HostBatch(schema_out, cols, len(take))
+
+        return self.children[0].execute(ctx).map_partitions(fn)
+
+    def node_string(self):
+        return f"CpuGenerate {self.generator}"
 
 
 class CpuProjectExec(Exec):

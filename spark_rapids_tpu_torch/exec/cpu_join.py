@@ -104,6 +104,11 @@ def match_pairs(lvals, lvalid, rvals, rvalid) -> tuple:
 
 
 def _null_column(dt: DataType, n: int) -> HostColumn:
+    from ..columnar.host import column_from_pylist
+    from ..types import is_complex
+
+    if is_complex(dt):
+        return column_from_pylist([None] * n, dt)
     if isinstance(dt, StringType):
         return HostColumn(dt, np.zeros(0, np.uint8), np.zeros(n, bool), np.zeros(n + 1, np.int32))
     return HostColumn(dt, np.zeros(n, dt.np_dtype), np.zeros(n, bool))

@@ -6,8 +6,8 @@ algorithm from the device kernel (segmented scans) so differential tests
 cross-check two independent implementations.
 
 Copied from ``spark_rapids_tpu/exec/cpu_window.py``, on numpy ``HostBatch``es
-in place of Arrow record batches. The windowed pandas UDF
-(``GroupedAggUdf``) waits for the UDF slice (ROADMAP Queue A) and raises.
+in place of Arrow record batches, the windowed pandas UDF
+(``GroupedAggUdf``, WindowInPandas) included.
 """
 from __future__ import annotations
 
@@ -184,9 +184,66 @@ class CpuWindowExec(Exec):
         from ..expr.udf import GroupedAggUdf
 
         if isinstance(fn, GroupedAggUdf):
-            raise NotImplementedError(
-                "the windowed pandas UDF is not in the torch port yet"
+            # WindowInPandas: the GROUPED_AGG pandas UDF sees each row's
+            # frame as pandas Series (reference GpuWindowInPandasExecBase).
+            # Whole-partition frames collapse to one call per segment.
+            from ..expr.udf import np_to_series, scalar_from_agg_result
+
+            arg_series = []
+            for a in fn.args:
+                x = bind(a, schema)
+                d_, v_ = _val_to_np(ctx, x.eval(ctx))
+                d_ = np.array(np.broadcast_to(np.asarray(d_), (n,)), copy=True)
+                m_ = np.array(
+                    np.broadcast_to(np.asarray(v_).astype(bool), (n,)), copy=True
+                )
+                arg_series.append(np_to_series(x.data_type, d_, m_))
+            out_dt = fn.return_type
+            is_str = isinstance(out_dt, StringType)
+            out = np.empty(n, dtype=object) if is_str else np.zeros(n, out_dt.np_dtype)
+            ov = np.zeros(n, dtype=bool)
+            order_info = None
+            sentinels = (UNBOUNDED_PRECEDING, CURRENT_ROW, UNBOUNDED_FOLLOWING)
+            if frame.frame_type == "range" and not (
+                frame.lower in sentinels and frame.upper in sentinels
+            ):
+                o = we.spec.order_by[0]
+                obound = bind(o.child, schema)
+                od, ovv = _val_to_np(ctx, obound.eval(ctx))
+                od = np.asarray(od)
+                if not np.issubdtype(od.dtype, np.floating):
+                    od = od.astype(np.int64)
+                frame = frame.scaled_for_decimal(obound.data_type)
+                order_info = (
+                    od if o.ascending else -od,
+                    np.asarray(ovv).astype(bool),
+                )
+            whole_partition = (
+                frame.lower == UNBOUNDED_PRECEDING
+                and frame.upper == UNBOUNDED_FOLLOWING
             )
+
+            def call(lo, hi):
+                args = [s_.iloc[lo : hi + 1].reset_index(drop=True) for s_ in arg_series]
+                return scalar_from_agg_result(out_dt, fn.fn(*args))
+
+            for s, e in zip(seg_bounds[:-1], seg_bounds[1:]):
+                if whole_partition:
+                    scalar, valid = call(s, e - 1)
+                    out[s:e] = scalar
+                    ov[s:e] = valid
+                else:
+                    for i in range(s, e):
+                        lo, hi = _frame_bounds(frame, i, s, e, peer_start, order_info)
+                        if lo > hi:
+                            # empty frame: Spark still calls the UDF (a
+                            # count-style UDF returns 0, not NULL)
+                            scalar, valid = call(0, -1)
+                        else:
+                            scalar, valid = call(lo, hi)
+                        out[i] = scalar
+                        ov[i] = valid
+            return out, ov
 
         # aggregate over frame
         inner = _agg_input(fn)

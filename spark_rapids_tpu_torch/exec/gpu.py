@@ -58,14 +58,24 @@ from ..columnar.device import (
     device_to_host,
     empty_batch,
     host_to_device,
+    map_planes,
 )
 from ..expr import Expression, bind, output_name
 from ..expr.aggregates import AggregateFunction
 from ..expr.base import Ctx, Val
 from ..expr.misc import contains_task_dependent
-from ..ops.aggregate import group_aggregate
+from ..ops.aggregate import group_aggregate, group_max_size
 from ..ops.concat import concat_device
-from ..ops.gather import bulk_shrink, compact, gather_batch, partition_slices, row_counts, slice_head
+from ..ops.gather import (
+    bulk_shrink,
+    compact,
+    gather_batch,
+    gather_column,
+    partition_slices,
+    row_counts,
+    shrink_one,
+    slice_head,
+)
 from ..ops.hash import murmur3_rows, partition_ids
 from ..ops.scan import first_k_positions
 from ..ops.sortkeys import (
@@ -95,7 +105,14 @@ from . import task
 
 def val_to_column(ctx: Ctx, val: Val, dtype) -> DeviceColumn:
     """Materialize an expression result into a full DeviceColumn."""
+    from ..types import ArrayType, MapType, StructType
+
     xp = ctx.xp
+    if isinstance(dtype, (ArrayType, MapType)):
+        lengths = ctx.broadcast(val.lengths).to(torch.int32)
+        return DeviceColumn(dtype, None, val.full_valid(ctx), lengths, val.children)
+    if isinstance(dtype, StructType):
+        return DeviceColumn(dtype, None, val.full_valid(ctx), None, val.children)
     if isinstance(dtype, StringType):
         data = xp.asarray(val.data)
         if data.ndim == 1:  # scalar string literal [w]
@@ -667,11 +684,13 @@ def aggregate_fn(
     child_schema: Schema,
     pre_filter: Optional[Expression] = None,
     has_nans: bool = True,
+    collect_width: int = 0,
 ):
     """The group aggregate of one device batch (update or merge+evaluate) —
     the JAX package's ``aggregate_kernel``. ``pre_filter`` folds a child
     filter's predicate in as a liveness mask: no compaction between the
-    filter and the aggregate."""
+    filter and the aggregate. ``collect_width`` is the collect family's
+    element-plane width, from ``aggregate_width_fn``."""
 
     def _aggregate(batch: DeviceBatch) -> DeviceBatch:
         c = Ctx.for_device(batch)
@@ -704,6 +723,7 @@ def aggregate_fn(
             ops,
             live_mask=live if pre_filter is not None else None,
             has_nans=has_nans,
+            collect_width=collect_width,
         )
         if mode == "partial":
             return DeviceBatch(out_schema, out_keys + out_aggs, num_groups)
@@ -716,7 +736,12 @@ def aggregate_fn(
         for f in agg_fns:
             nbuf = len(f.buffer_types)
             bufs = [
-                Val(out_aggs[i + j].data, out_aggs[i + j].validity, out_aggs[i + j].lengths)
+                Val(
+                    out_aggs[i + j].data,
+                    out_aggs[i + j].validity,
+                    out_aggs[i + j].lengths,
+                    out_aggs[i + j].children,
+                )
                 for j in range(nbuf)
             ]
             agg_results.append(f.evaluate(gctx, bufs))
@@ -730,6 +755,43 @@ def aggregate_fn(
         return DeviceBatch(out_schema, cols, num_groups)
 
     return _aggregate
+
+
+def aggregate_width_fn(grouping: tuple, pre_filter, has_nans: bool):
+    """The collect family's width pre-pass over one device batch (the JAX
+    package's ``_width_kernel``): the largest group's live-row count, an
+    int32 device scalar."""
+
+    def _width(batch: DeviceBatch) -> torch.Tensor:
+        c = Ctx.for_device(batch)
+        live = batch.row_mask()
+        if pre_filter is not None:
+            fv = pre_filter.eval(c)
+            live = live & c.broadcast_bool(fv.data) & fv.full_valid(c)
+        if not grouping:
+            return live.sum().to(torch.int32)
+        key_cols = [val_to_column(c, g.eval(c), g.data_type) for g in grouping]
+        key_cols = [dc_replace(k, validity=k.validity & live) for k in key_cols]
+        work = DeviceBatch(
+            Schema([StructField(f"k{i}", k.dtype, True) for i, k in enumerate(key_cols)]),
+            key_cols,
+            batch.num_rows,
+        )
+        return group_max_size(
+            work,
+            list(range(len(key_cols))),
+            live_mask=live if pre_filter is not None else None,
+            has_nans=has_nans,
+        )
+
+    return _width
+
+
+# Largest [capacity, W] collect element plane the device path will build
+# (~1 GB of int64). Beyond it (one group holding most of a huge input) the
+# padded layout is the wrong tool — the query fails with the kill-switch
+# hint instead of running the card out of memory.
+_COLLECT_PLANE_LIMIT = 1 << 27
 
 
 def aggregate_merge_fn(grouping: tuple, agg_fns: tuple, out_schema: Schema, has_nans: bool = True):
@@ -836,6 +898,7 @@ class GpuHashAggregateExec(Exec):
             has_nans,
         )
         merge = aggregate_merge_fn(grouping, agg_fns, self._schema, has_nans)
+        width = aggregate_width_fn(grouping, pre_filter, has_nans)
         device = ctx.device
         target = cfg.BATCH_SIZE_BYTES.get(ctx.conf)
         pack_filter = None if pre_filter is None else filter_fn(pre_filter)
@@ -895,12 +958,47 @@ class GpuHashAggregateExec(Exec):
                 if grouping:
                     return
                 batches = [empty_batch(child_schema, device)]
+            if self._has_collect:
+                yield once(collect, batches)
+                return
             # the concat is part of the retried work: an OOM there spills too
             out = once(lambda bs: fn(concat_device(bs)), batches)
             del batches  # the held input frees before the output moves on
             yield out
 
+        def collect(bs):
+            """The collect family's final/complete pass: the plane width
+            from the max-group-size pre-pass, fetched with the live-row
+            count in one host sync; the merged batch shrinks to its live rows
+            first, since the ``[capacity, W]`` element plane scales with both
+            (the JAX package's ``TpuHashAggregateExec.execute``)."""
+            merged = concat_device(bs)
+            n, w = torch.stack([merged.num_rows, width(merged)]).tolist()
+            merged = shrink_one(merged, n)
+            plane_w = bucket_capacity(max(w, 1))
+            if merged.capacity * plane_w > _COLLECT_PLANE_LIMIT:
+                raise RuntimeError(
+                    "device collect_list/collect_set needs a "
+                    f"[{merged.capacity}, {plane_w}] element plane "
+                    f"(> {_COLLECT_PLANE_LIMIT} elements) — a single "
+                    "group holds too many rows for the padded device "
+                    "layout; disable the device path with "
+                    "spark.rapids.sql.expression.CollectList=false / "
+                    "spark.rapids.sql.expression.CollectSet=false"
+                )
+            return aggregate_fn(
+                self.mode, grouping, agg_fns,
+                None if self.result_exprs is None else tuple(self.result_exprs),
+                self._schema, child_schema, pre_filter, has_nans, collect_width=plane_w,
+            )(merged)
+
         return child.execute(ctx).map_partitions(run)
+
+    @property
+    def _has_collect(self) -> bool:
+        return any(
+            op in ("collect_list", "collect_set") for f in self.agg_fns for op in f.update_ops
+        )
 
     def node_string(self):
         return (
@@ -984,15 +1082,7 @@ def _rows_view(batch: DeviceBatch, lo: int, hi: int) -> DeviceBatch:
     """Rows ``[lo, hi)`` of ``batch`` as views, in a capacity of the next
     power of two where the batch holds it (no copy)."""
     end = min(batch.capacity, lo + bucket_capacity(max(hi - lo, 1)))
-    cols = [
-        DeviceColumn(
-            c.dtype,
-            c.data[lo:end],
-            c.validity[lo:end],
-            None if c.lengths is None else c.lengths[lo:end],
-        )
-        for c in batch.columns
-    ]
+    cols = [map_planes(c, lambda t: t[lo:end]) for c in batch.columns]
     return DeviceBatch(
         batch.schema, cols, torch.tensor(hi - lo, dtype=torch.int32, device=batch.device)
     )
@@ -1883,3 +1973,147 @@ class GpuExpandExec(Exec):
 
     def node_string(self):
         return f"GpuExpand x{len(self.projections)}"
+
+
+# ── generators and range ────────────────────────────────────────────────────
+
+
+class GpuRangeExec(Exec):
+    """Device-side sequence generation (GpuRangeExec,
+    basicPhysicalOperators.scala; the JAX package's ``TpuRangeExec``): the
+    ids are born on the device, with no upload."""
+
+    def __init__(self, cpu_range):
+        super().__init__([])
+        self._cpu = cpu_range
+        self._schema = cpu_range.output
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+        from ..types import LONG
+
+        batch_rows = cfg.BATCH_SIZE_ROWS.get(ctx.conf)
+        start, step, schema = self._cpu.start, self._cpu.step, self._schema
+        device = ctx.device
+        parts = []
+        for lo, cnt in self._cpu.partition_bounds():
+            def make(lo=lo, cnt=cnt):
+                def it():
+                    ctx.semaphore.acquire_if_necessary()
+                    tok = ctx.cancel_token
+                    done = 0
+                    while done < cnt:
+                        if tok is not None:
+                            tok.check()
+                        m = min(batch_rows, cnt - done)
+                        cap = bucket_capacity(max(m, 1))
+                        first = start + (lo + done) * step
+                        iota = torch.arange(cap, dtype=torch.int64, device=device)
+                        valid = iota < m
+                        ids = torch.where(valid, first + step * iota, 0)
+                        yield DeviceBatch(
+                            schema,
+                            [DeviceColumn(LONG, ids, valid)],
+                            torch.tensor(m, dtype=torch.int32, device=device),
+                        )
+                        done += m
+
+                return it()
+
+            parts.append(make)
+        return PartitionSet(parts)
+
+    def node_string(self):
+        c = self._cpu
+        return f"GpuRange ({c.start}, {c.end}, step={c.step}, splits={c.num_partitions})"
+
+
+class GpuGenerateExec(Exec):
+    """explode/posexplode on the device (GpuGenerateExec.scala; the JAX
+    package's ``TpuGenerateExec``). Output slot j maps to (row r_j, element
+    p_j) by a ``searchsorted`` over the cumulative element counts — no
+    scatter; the output capacity is bucketed from one host sync of the total
+    element count per batch."""
+
+    def __init__(self, cpu_gen, child: Exec):
+        super().__init__([child])
+        self.generator = cpu_gen.generator  # bound against the same schema
+        self.out_names = cpu_gen.out_names
+        self._schema = cpu_gen.output
+
+    @property
+    def output(self) -> Schema:
+        return self._schema
+
+    @property
+    def is_device(self) -> bool:
+        return True
+
+    def _explode(self, batch: DeviceBatch) -> Optional[DeviceBatch]:
+        from ..types import INT, MapType
+
+        g = self.generator
+        ct = g.child.data_type
+        c = Ctx.for_device(batch)
+        v = g.child.eval(c)
+        live_rows = batch.row_mask() & c.broadcast_bool(v.valid)
+        lengths = torch.where(live_rows, c.broadcast(v.lengths), 0).to(torch.int64)
+        coff = torch.cumsum(lengths, 0)
+        total = int(coff[-1])  # the one host sync: the output capacity
+        if total == 0:
+            return None
+        out_cap = bucket_capacity(total)
+        j = torch.arange(out_cap, dtype=torch.int64, device=batch.device)
+        live = j < total
+        r = torch.clamp(torch.searchsorted(coff, j, right=True), 0, batch.capacity - 1)
+        prev = torch.where(r > 0, coff[torch.clamp(r - 1, min=0)], 0)
+        p = j - prev
+        out_cols = [gather_column(col, r, live) for col in batch.columns]
+        if g.position:
+            out_cols.append(DeviceColumn(INT, torch.where(live, p, 0).to(torch.int32), live))
+        n_out = torch.tensor(total, dtype=torch.int32, device=batch.device)
+        gctx = Ctx(c.xp, out_cap, True, [], n_out)
+        if isinstance(ct, MapType):
+            pairs = zip(v.children, (ct.key_type, ct.value_type))
+        else:
+            pairs = [(v.children[0], ct.element_type)]
+        for plane, dt in pairs:
+            out_cols.append(val_to_column(gctx, _plane_element(plane, r, p, live), dt))
+        return DeviceBatch(self._schema, out_cols, n_out)
+
+    def execute(self, ctx: ExecContext) -> PartitionSet:
+        def run(it):
+            tok = ctx.cancel_token
+            for db in it:
+                if tok is not None:
+                    tok.check()
+                out = self._explode(db)
+                if out is not None:
+                    yield out
+
+        return self.children[0].execute(ctx).map_partitions(run)
+
+    def node_string(self):
+        return f"GpuGenerate {self.generator}"
+
+
+def _plane_element(plane: DeviceColumn, r, p, live) -> Val:
+    """Element (r_j, p_j) of a padded element plane as a Val."""
+    W = plane.validity.shape[1]
+    safe = torch.clamp(p, 0, W - 1)
+    data = plane.data[r, safe]
+    valid = plane.validity[r, safe] & live
+    lengths = None
+    if plane.lengths is not None:
+        lengths = torch.where(live, plane.lengths[r, safe], 0)
+    mask = live[:, None] if data.ndim == 2 else live
+    return Val(torch.where(mask, data, torch.zeros((), dtype=data.dtype, device=data.device)),
+               valid, lengths)

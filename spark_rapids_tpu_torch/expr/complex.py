@@ -76,7 +76,7 @@ class Size(Expression):
         c = self.child.eval(ctx)
         xp = ctx.xp
         if ctx.is_device:
-            lengths = ctx.broadcast(c.lengths).astype(xp.int32)
+            lengths = xp.astype(ctx.broadcast(c.lengths), xp.int32)
             valid = c.full_valid(ctx)
             return Val(xp.where(valid, lengths, -1), xp.asarray(True))
         out = np.full(ctx.n, -1, dtype=np.int32)
@@ -156,7 +156,7 @@ class GetArrayItem(Expression):
         idx = self.index.eval(ctx)
         xp = ctx.xp
         if ctx.is_device:
-            eidx = ctx.broadcast(idx.data).astype(xp.int32)
+            eidx = xp.astype(ctx.broadcast(idx.data), xp.int32)
             lengths = ctx.broadcast(arr.lengths)
             ok = (
                 arr.full_valid(ctx)
@@ -194,8 +194,8 @@ class ElementAt(Expression):
         idx = self.key.eval(ctx)
         xp = ctx.xp
         if ctx.is_device:
-            k = ctx.broadcast(idx.data).astype(xp.int32)
-            lengths = ctx.broadcast(arr.lengths).astype(xp.int32)
+            k = xp.astype(ctx.broadcast(idx.data), xp.int32)
+            lengths = xp.astype(ctx.broadcast(arr.lengths), xp.int32)
             eidx = xp.where(k > 0, k - 1, lengths + k)
             ok = (
                 arr.full_valid(ctx)
@@ -258,7 +258,7 @@ class GetMapValue(Expression):
             pos_ok = xp.arange(W, dtype=xp.int32)[None, :] < lengths[:, None]
             eq = _plane_eq_scalar(ctx, keys, k) & pos_ok & keys.validity
             found = eq.any(axis=1)
-            eidx = xp.argmax(eq, axis=1).astype(xp.int32)
+            eidx = xp.astype(xp.argmax(xp.astype(eq, xp.int32), axis=1), xp.int32)
             ok = m.full_valid(ctx) & k.full_valid(ctx) & found
             return _element_val(ctx, values, eidx, ok)
         data = ctx.broadcast(m.data)
@@ -302,7 +302,7 @@ def _plane_eq_scalar(ctx: Ctx, plane, scalar: Val):
         bytes_eq = (p == s[:, None, :]).all(axis=2)
         len_eq = plane.lengths == slen[:, None]
         return bytes_eq & len_eq
-    sdata = ctx.broadcast(scalar.data).astype(plane.data.dtype)
+    sdata = xp.astype(ctx.broadcast(scalar.data), plane.data.dtype)
     return plane.data == sdata[:, None]
 
 

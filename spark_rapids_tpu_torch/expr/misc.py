@@ -31,6 +31,7 @@ from ..types import (
     StringType,
     DOUBLE,
 )
+from ..xp import is_torch
 from .base import Ctx, Expression, UnaryExpression, Val
 
 
@@ -281,6 +282,19 @@ class Rand(Expression, TaskDependent):
         xp = ctx.xp
         t = _require_task(ctx, "rand()")
         idx = xp.asarray(t.row_base, dtype=xp.int64) + xp.arange(ctx.n, dtype=xp.int64)
+        if is_torch(xp):
+            # torch has no uint32 + or >> on uint64: the same mixing in
+            # int64 lanes masked to 32 bits, as ops/hash.py does
+            m = 0xFFFFFFFF
+            pid = xp.asarray(t.part_id, dtype=xp.int64) & m
+            s1 = (self.seed & m) ^ ((pid * 0x9E3779B9) & m)
+            s2 = (s1 + 0x85EBCA6B) & m
+            s1 = s1.reshape(-1).expand(ctx.n)
+            s2 = s2.reshape(-1).expand(ctx.n)
+            hi = (hash_long(xp, idx, s1) >> 5).to(xp.float64)  # 27 bits
+            lo = (hash_long(xp, idx, s2) >> 6).to(xp.float64)  # 26 bits
+            u = (hi * float(1 << 26) + lo) * (1.0 / (1 << 53))
+            return Val(u, xp.asarray(True))
         pid = xp.asarray(t.part_id, dtype=xp.uint32)
         s1 = xp.astype(xp.asarray(np.uint32(self.seed & 0xFFFFFFFF)) ^ (pid * np.uint32(0x9E3779B9)), xp.uint32)
         s2 = xp.astype(s1 + np.uint32(0x85EBCA6B), xp.uint32)

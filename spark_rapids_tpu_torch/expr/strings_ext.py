@@ -240,97 +240,117 @@ class StringSplit(Expression):
         return Val(out, c.valid)
 
     def _eval_device(self, ctx: Ctx) -> Val:
+        import torch
+
         from ..columnar.device import DeviceColumn
         from .strings import dev_str
 
-        xp = ctx.xp
         kind, payload = split_device_pattern(self.pattern.value)
         v = self.child.eval(ctx)
         ch, lengths = dev_str(ctx, v)
+        ch = ch.to(torch.uint8)
+        lengths = lengths.to(torch.int32)
         n, w = ch.shape
         m = 1 if kind == "class" else len(payload)
-        idx = xp.arange(w, dtype=xp.int32)
-
-        if kind == "class":
-            alts = np.frombuffer(payload, dtype=np.uint8)
-            raw = xp.zeros((n, w), dtype=bool)
-            for b in alts:
-                raw = raw | (ch == int(b))
-            raw = raw & (idx[None, :] < lengths[:, None])
-            take = raw
-        else:
-            pat = np.frombuffer(payload, dtype=np.uint8)
-            raw = xp.ones((n, w), dtype=bool)
-            for t, b in enumerate(pat):
-                shifted = xp.concatenate(
-                    [ch[:, t:], xp.zeros((n, t), dtype=ch.dtype)], axis=1
-                ) if t else ch
-                raw = raw & (shifted == int(b))
-            raw = raw & (idx[None, :] + m <= lengths[:, None])
-            if m == 1:
-                take = raw
-            else:
-                # the reference skips overlaps with a lax.scan over the width
-                raise NotImplementedError("multi-byte split has no device implementation in the torch port yet")
-
+        device = ch.device
+        take = split_delimiter_starts(ch, lengths, kind, payload)
         if self.limit > 0:
-            order = xp.cumsum(xp.astype(take, xp.int32), axis=1)
+            order = torch.cumsum(take.to(torch.int32), dim=1)
             take = take & (order <= self.limit - 1)
-        ndelim = xp.astype(take.sum(axis=1), xp.int32)
-        ntok = ndelim + 1
+        ntok = take.sum(dim=1).to(torch.int32) + 1
         W = self.max_tokens
         if self.limit > 0:
             W = min(W, self.limit)
+        valid = ctx.broadcast_bool(v.valid)
         # overflow → kernel error channel (loud, never truncated)
         ctx.register_error(
             f"split produced more than "
             f"{W} tokens (spark.rapids.sql.split.maxTokens) — raise the "
             f"conf or disable spark.rapids.sql.expression.StringSplit",
-            (ntok > W) & ctx.broadcast_bool(v.valid),
+            (ntok > W) & valid,
         )
-        cum = xp.cumsum(xp.astype(take, xp.int32), axis=1)
-        big = xp.int32(w)
-        # delimiter positions in order: d_pos[:, t] = argmin over j of
-        # (take & cum == t+1) — W is small and static, a python loop fuses
-        d_pos = []
-        for t in range(W - 1):
-            cond = take & (cum == t + 1)
-            d_pos.append(xp.min(xp.where(cond, idx[None, :], big), axis=1))
-        if d_pos:
-            d_pos_m = xp.stack(d_pos, axis=1)  # [n, W-1]
-        else:
-            d_pos_m = xp.zeros((n, 0), dtype=xp.int32)
-        starts = xp.concatenate(
-            [xp.zeros((n, 1), xp.int32), xp.astype(d_pos_m + m, xp.int32)], axis=1
-        )  # [n, W]
-        tpos = xp.arange(W, dtype=xp.int32)[None, :]
-        last = tpos == (xp.minimum(ntok, W)[:, None] - 1)
-        ends = xp.concatenate(
-            [xp.astype(d_pos_m, xp.int32), xp.full((n, 1), w, xp.int32)], axis=1
-        )
-        ends = xp.where(last, lengths[:, None], ends)
-        tok_live = tpos < xp.minimum(ntok, W)[:, None]
-        tlen = xp.clip(ends - starts, 0, w) * tok_live
-        cidx = xp.arange(w, dtype=xp.int32)[None, None, :]
-        src = xp.clip(starts[:, :, None] + cidx, 0, w - 1)
-        gathered = xp.take_along_axis(
-            xp.broadcast_to(ch[:, None, :], (n, W, w)), src, axis=2
-        )
-        el_live = cidx < tlen[:, :, None]
-        edata = xp.astype(xp.where(el_live, gathered, 0), xp.uint8)
-        valid = ctx.broadcast_bool(v.valid)
-        elem = DeviceColumn(
-            STRING,
-            edata,
-            tok_live & valid[:, None],
-            xp.astype(tlen, xp.int32),
-        )
-        return Val(
-            None,
-            valid,
-            xp.astype(xp.where(valid, xp.minimum(ntok, W), 0), xp.int32),
-            (elem,),
-        )
+        # delimiter positions in order: d_pos[:, t] = first j where the
+        # running delimiter count reaches t + 1 (W is small and static)
+        cum = torch.cumsum(take.to(torch.int32), dim=1)
+        idx = torch.arange(w, dtype=torch.int32, device=device)[None, :]
+        d_pos = [
+            torch.where(take & (cum == t + 1), idx, w).min(dim=1).values
+            for t in range(W - 1)
+        ]
+        d_pos_m = (torch.stack(d_pos, dim=1) if d_pos
+                   else torch.zeros((n, 0), dtype=torch.int32, device=device))
+        starts = torch.cat([torch.zeros((n, 1), dtype=torch.int32, device=device), d_pos_m + m],
+                           dim=1)  # [n, W]
+        tpos = torch.arange(W, dtype=torch.int32, device=device)[None, :]
+        n_live_tok = torch.minimum(ntok, torch.tensor(W, dtype=torch.int32, device=device))
+        last = tpos == (n_live_tok[:, None] - 1)
+        ends = torch.cat([d_pos_m, torch.full((n, 1), w, dtype=torch.int32, device=device)], dim=1)
+        ends = torch.where(last, lengths[:, None], ends)
+        tok_live = tpos < n_live_tok[:, None]
+        tlen = (torch.clamp(ends - starts, 0, w) * tok_live).to(torch.int32)
+        edata = split_token_planes(ch, starts, tlen)
+        elem = DeviceColumn(STRING, edata, tok_live & valid[:, None], tlen)
+        counts = torch.where(valid, n_live_tok, 0).to(torch.int32)
+        return Val(None, valid, counts, (elem,))
+
+
+def split_delimiter_starts(ch, lengths, kind: str, payload: bytes):
+    """bool[n, w]: the delimiter occurrences split takes, at their first
+    byte, over a padded byte plane (the JAX package's mask and its
+    ``lax.scan``). A char class takes every member byte; a literal is
+    matched by shifted compares, and a multi-byte literal resolves
+    left-to-right without overlap — a scan over the width with an int32
+    carry of the bytes still covered by the last delimiter taken (a host
+    loop of whole-column ops here)."""
+    import torch
+
+    n, w = ch.shape
+    idx = torch.arange(w, dtype=torch.int32, device=ch.device)
+    if kind == "class":
+        raw = torch.zeros((n, w), dtype=torch.bool, device=ch.device)
+        for b in payload:
+            raw = raw | (ch == int(b))
+        return raw & (idx[None, :] < lengths[:, None])
+    m = len(payload)
+    raw = torch.ones((n, w), dtype=torch.bool, device=ch.device)
+    for t, b in enumerate(payload):
+        shifted = torch.nn.functional.pad(ch[:, t:], (0, t)) if t else ch
+        raw = raw & (shifted == int(b))
+    raw = raw & (idx[None, :] + m <= lengths[:, None])
+    if m == 1:
+        return raw
+    taken = torch.zeros_like(raw)
+    carry = torch.zeros(n, dtype=torch.int32, device=ch.device)
+    for j in range(w):
+        t = raw[:, j] & (carry == 0)
+        taken[:, j] = t
+        carry = torch.where(t, m - 1, torch.clamp(carry - 1, min=0)).to(torch.int32)
+    return taken
+
+
+def split_token_planes(ch, starts, tlen):
+    """uint8[n, W, w]: token t of row i is bytes ``[starts[i, t],
+    starts[i, t] + tlen[i, t])`` of ``ch`` row i, zero-padded. One ``[rows,
+    w]`` gather per token and chunk of rows: the JAX package's single
+    broadcast ``[n, W, w]`` gather index would need 8 bytes a slot (34 GB for
+    ``o_comment`` at TPC-H SF 1 with 16 tokens)."""
+    import torch
+
+    from ..columnar.device import _PLANE_CHUNK_ELEMS
+
+    n, w = ch.shape
+    W = starts.shape[1]
+    out = torch.zeros((n, W, w), dtype=torch.uint8, device=ch.device)
+    cols = torch.arange(w, dtype=torch.int64, device=ch.device)[None, :]
+    step = max(1, _PLANE_CHUNK_ELEMS // max(w, 1))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        rows = ch[lo:hi]
+        for t in range(W):
+            src = torch.clamp(starts[lo:hi, t, None].to(torch.int64) + cols, 0, w - 1)
+            keep = cols < tlen[lo:hi, t, None]
+            out[lo:hi, t] = torch.where(keep, torch.gather(rows, 1, src), 0)
+    return out
 
 
 @dataclass(frozen=True)

@@ -12,12 +12,20 @@ TPU-first mapping:
   this engine IS python). The planner falls back per-node with a reason,
   exactly like rows the reference can't translate via its udf-compiler.
 
+* ``TorchUdf`` — the RapidsUDF analogue, the port's ``JaxUdf``: the user
+  supplies ``fn(*tensors) -> tensor`` written with torch ops, and it runs
+  inside the device projection on the batch's own tensors — no transfer,
+  no interop layer. On the CPU engine the same ``fn`` gets the numpy
+  columns as (shared-memory) CPU tensors, so both engines evaluate one
+  function.
+
 Null semantics: UDFs are null-propagating over their inputs (Spark UDFs see
 None instead — ``PythonUdf`` passes None through to the callable like
-pyspark).
+pyspark; ``TorchUdf`` uses validity masks, so the fn sees zero-filled slots
+and must be total).
 
-Copied from ``spark_rapids_tpu/expr/udf.py`` without ``JaxUdf``, the device
-UDF traced by jax; its torch counterpart comes with a later slice.
+Copied from ``spark_rapids_tpu/expr/udf.py``, with ``TorchUdf`` in place of
+``JaxUdf``.
 """
 from __future__ import annotations
 
@@ -28,6 +36,47 @@ import numpy as np
 
 from ..types import DataType
 from .base import Ctx, Expression, Val, and_valid
+
+
+@dataclass(frozen=True)
+class TorchUdf(Expression):
+    """Device-capable UDF: ``fn`` maps torch tensors → one torch tensor
+    (the JAX package's ``JaxUdf``, whose ``fn`` maps jax arrays).
+
+    Identity-hashed via the function object, as there."""
+
+    fn: Callable
+    return_type: DataType
+    args: Tuple[Expression, ...]
+    name: str = "torch_udf"
+
+    @property
+    def data_type(self) -> DataType:
+        return self.return_type
+
+    def eval(self, ctx: Ctx) -> Val:
+        import torch
+
+        from ..xp import torch_dtype
+
+        vals = [a.eval(ctx) for a in self.args]
+        want = torch_dtype(self.return_type.np_dtype)
+        if ctx.is_device:
+            out = self.fn(*[v.full_data(ctx) for v in vals])
+            out = ctx.broadcast(torch.as_tensor(out, device=ctx.xp.device)).to(want)
+        else:
+            arrays = [
+                torch.from_numpy(np.ascontiguousarray(v.full_data(ctx))) for v in vals
+            ]
+            out = torch.as_tensor(self.fn(*arrays)).to(want)
+            out = np.broadcast_to(out.numpy(), (ctx.n,)).copy()
+        valid = and_valid(ctx, *[v.valid for v in vals]) if vals else None
+        if valid is None:
+            valid = ctx.broadcast_bool(True)
+        return Val(out, valid)
+
+    def __str__(self):
+        return f"{self.name}({', '.join(map(str, self.args))})"
 
 
 def np_to_series(dt, d: "np.ndarray", m: "np.ndarray"):

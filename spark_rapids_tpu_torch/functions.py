@@ -1067,3 +1067,26 @@ def pandas_udf(f=None, returnType=None, functionType="scalar"):
 
 
 vectorized_udf = pandas_udf
+
+
+def torch_udf(f=None, returnType=None):
+    """Device UDF: ``fn(*tensors) -> tensor`` written with torch ops; runs
+    inside the device projection on the batch's tensors (the RapidsUDF
+    analogue; the JAX package's ``jax_udf``). On the CPU engine the same
+    ``fn`` receives the columns as CPU tensors."""
+    from .types import DOUBLE as _D
+
+    rt = returnType if returnType is not None else _D
+
+    def wrap(fn):
+        from .expr.udf import TorchUdf
+
+        def call(*cols) -> Column:
+            return Column(TorchUdf(fn, rt, tuple(_e(c) for c in cols), fn.__name__))
+
+        call.__name__ = fn.__name__
+        return call
+
+    if f is None:
+        return wrap
+    return wrap(f)

@@ -22,8 +22,9 @@ Tier currencies:
   CPU (the tests), the host tier holds plain copies, so the tier walk runs
   without a card.
 * DISK   — the host tensors' numpy views written with ``np.savez`` into the
-  spill dir (metadata stays in the in-process catalog, as the reference
-  keeps TableMeta in memory). The JAX package writes a contiguous ``.srtf``
+  spill dir, each plane of a nested column under its own path key (``d0.1``
+  is the data of the second child of column 0); the metadata stays in the
+  in-process catalog, as the reference keeps TableMeta in memory. The JAX package writes a contiguous ``.srtf``
   frame through its native host plane where that is built; the port reads
   and writes ``.npz`` until its own loader of the native plane lands with
   the I/O slice (ROADMAP Queue A 10).
@@ -51,7 +52,7 @@ import numpy as np
 import torch
 
 from .. import config as cfg
-from ..columnar.device import DeviceBatch, DeviceColumn
+from ..columnar.device import DeviceBatch, DeviceColumn, column_planes
 from ..obs import metrics as obs_metrics
 
 # process-wide spill telemetry (obs/metrics.py catalog): bytes by tier
@@ -96,11 +97,7 @@ class SpillError(RuntimeError):
 
 def _tensors(batch: DeviceBatch) -> list:
     """Every tensor of a batch, repeats included, num_rows last."""
-    out = []
-    for c in batch.columns:
-        for t in (c.data, c.validity, c.lengths):
-            if t is not None:
-                out.append(t)
+    out = [t for c in batch.columns for t in column_planes(c)]
     out.append(batch.num_rows)
     return out
 
@@ -151,10 +148,16 @@ def _released_storages(buf: "_Buffer") -> dict:
         if sys.getrefcount(c) - _LOCAL_REFS > col_uses[id(c)]:
             held_cols.add(id(c))
     del c
-    # a tensor's references from the batch: one per field of a distinct
-    # column naming it, and num_rows
-    distinct = []
+    # a nested column's children: held when their tuple or a child column
+    # is referenced from outside the column
+    nested_held = {}
     for c in batch.columns:
+        _mark_children_held(c, id(c) in held_cols, nested_held)
+    del c
+    # a tensor's references from the batch: one per field of a distinct
+    # column (children included) naming it, and num_rows
+    distinct = []
+    for c in _all_columns(batch.columns):
         if all(c is not d for d in distinct):
             distinct.append(c)
     t_uses: dict = {}
@@ -181,7 +184,7 @@ def _released_storages(buf: "_Buffer") -> dict:
 
     del t
     for c in distinct:
-        held = id(c) in held_cols
+        held = id(c) in held_cols or nested_held.get(id(c), False)
         for name in ("data", "validity", "lengths"):
             if getattr(c, name) is not None:
                 visit(getattr(c, name), held)
@@ -191,6 +194,32 @@ def _released_storages(buf: "_Buffer") -> dict:
         if released and (impls is None or impls <= ours):
             out[key] = key[2]
     return out
+
+
+def _all_columns(cols) -> list:
+    """The columns and, depth first, their children."""
+    out = []
+    for c in cols:
+        out.append(c)
+        out.extend(_all_columns(c.children or ()))
+    return out
+
+
+def _mark_children_held(col, held: bool, out: dict) -> None:
+    """``out[id(child)]`` = whether each child column of ``col`` is reached
+    from outside the batch: its parent is, the children tuple is, or the
+    child itself is."""
+    kids = col.children
+    if kids is None:
+        return
+    held = held or sys.getrefcount(kids) - _LOCAL_REFS > 1  # col.children
+    uses: dict = {}
+    for k in kids:
+        uses[id(k)] = uses.get(id(k), 0) + 1
+    for k in kids:
+        k_held = held or sys.getrefcount(k) - _LOCAL_REFS > uses[id(k)]
+        out[id(k)] = out.get(id(k), False) or k_held
+        _mark_children_held(k, k_held, out)
 
 
 def _refcount_probe(hold: str) -> int:
@@ -306,7 +335,8 @@ class _Buffer:
         self.priority = priority
         self.tier = StorageTier.DEVICE
         self.device: Optional[DeviceBatch] = None
-        # host tier: ([(dtype, data, validity, lengths) per column], num_rows)
+        # host tier: ([(dtype, data, validity, lengths, children) per
+        # column, children in the same form or None], num_rows)
         self.host: Optional[tuple] = None
         self.path: Optional[str] = None
         self.schema = None
@@ -468,11 +498,7 @@ class BufferCatalog:
             def up(t):
                 return None if t is None else t.to(dev, non_blocking=True)
 
-            batch = DeviceBatch(
-                buf.schema,
-                [DeviceColumn(dt, up(d), up(v), up(ln)) for dt, d, v, ln in cols],
-                up(num_rows),
-            )
+            batch = DeviceBatch(buf.schema, [_from_host(c, up) for c in cols], up(num_rows))
             buf.device = batch
             buf.host = None
             buf.tier = StorageTier.DEVICE
@@ -517,8 +543,7 @@ class BufferCatalog:
                 copies[id(t)] = _host_copy(t)
             return copies[id(t)]
 
-        cols = [(c.dtype, down(c.data), down(c.validity), down(c.lengths))
-                for c in batch.columns]
+        cols = [_to_host(c, down) for c in batch.columns]
         host = (cols, down(batch.num_rows))
         if batch.device.type == "cuda":
             # the one sync of this buffer: its host copies are complete
@@ -574,12 +599,8 @@ class BufferCatalog:
         buf.path = path  # assigned BEFORE the write: failure cleanup unlinks it
         cols, num_rows = buf.host
         arrays = {"num_rows": num_rows.numpy()}
-        for i, (_dt, d, v, ln) in enumerate(cols):
-            arrays[f"v{i}"] = v.numpy()
-            if d is not None:
-                arrays[f"d{i}"] = d.numpy()
-            if ln is not None:
-                arrays[f"l{i}"] = ln.numpy()
+        for i, c in enumerate(cols):
+            _frame_column(c, str(i), arrays)
         np.savez(path, **arrays)
 
     def _disk_to_host(self, buf: _Buffer):
@@ -614,7 +635,7 @@ class BufferCatalog:
 
         with np.load(buf.path) as z:
             cols = [
-                (f.data_type, load(z, f"d{i}"), load(z, f"v{i}"), load(z, f"l{i}"))
+                _unframe_column(f.data_type, str(i), lambda name: load(z, name))
                 for i, f in enumerate(buf.schema)
             ]
             buf.host = (cols, load(z, "num_rows"))
@@ -693,6 +714,48 @@ class BufferCatalog:
                 "buffers": len(self._buffers),
                 "spill_count": self.spill_count,
             }
+
+
+def _to_host(c: DeviceColumn, down) -> tuple:
+    kids = None if c.children is None else tuple(_to_host(k, down) for k in c.children)
+    return (c.dtype, down(c.data), down(c.validity), down(c.lengths), kids)
+
+
+def _from_host(h: tuple, up) -> DeviceColumn:
+    dt, d, v, ln, kids = h
+    kids = None if kids is None else tuple(_from_host(k, up) for k in kids)
+    return DeviceColumn(dt, up(d), up(v), up(ln), kids)
+
+
+def _child_types(dt) -> tuple:
+    from ..types import ArrayType, MapType, StructType
+
+    if isinstance(dt, StructType):
+        return tuple(f.data_type for f in dt.fields)
+    if isinstance(dt, MapType):
+        return (dt.key_type, dt.value_type)
+    if isinstance(dt, ArrayType):
+        return (dt.element_type,)
+    return ()
+
+
+def _frame_column(h: tuple, path: str, arrays: dict) -> None:
+    """A host-tier column's planes into ``arrays`` under ``<plane><path>``
+    keys; child ``k`` of the column at ``path`` sits at ``path.k``."""
+    _dt, d, v, ln, kids = h
+    arrays[f"v{path}"] = v.numpy()
+    if d is not None:
+        arrays[f"d{path}"] = d.numpy()
+    if ln is not None:
+        arrays[f"l{path}"] = ln.numpy()
+    for k, kid in enumerate(kids or ()):
+        _frame_column(kid, f"{path}.{k}", arrays)
+
+
+def _unframe_column(dt, path: str, load) -> tuple:
+    kts = _child_types(dt)
+    kids = tuple(_unframe_column(kt, f"{path}.{k}", load) for k, kt in enumerate(kts)) or None
+    return (dt, load(f"d{path}"), load(f"v{path}"), load(f"l{path}"), kids)
 
 
 def with_oom_retry(catalog: Optional[BufferCatalog], fn: Callable, *args, retries: int = 2):

@@ -1,6 +1,7 @@
 """Sort-based group-by aggregation on the device — the port of
 ``spark_rapids_tpu/ops/aggregate.py`` (``group_aggregate`` and its helpers,
-and ``_ungrouped_aggregate``).
+the collect family's ``group_max_size`` and ``_group_collect``, and
+``_ungrouped_aggregate``).
 
 Grouped: radix-encode the keys → LSD radix sort → segment boundaries by
 adjacent difference → segmented scans over the sorted runs, with the group
@@ -19,15 +20,18 @@ Spark semantics, as in the JAX package: NULL keys form a group; float keys
 are normalized (-0.0 → 0.0, canonical NaN) as NormalizeFloatingNumbers
 does; sums wrap for longs; min/max/first/last are NULL on all-null groups;
 float min/max treat NaN as the greatest value, so a min over +inf and NaN is
-+inf; count is never null. The collect family (``collect_list``,
-``collect_set``) is not ported yet: the overrides keep it on the CPU engine.
++inf; count is never null. ``collect_list`` keeps input row order and
+``collect_set`` is value-ascending with NaN canonical and -0.0 as 0.0 (both
+never null: an all-null or empty group collects an empty array), built as
+``[cap, W]`` element planes whose width ``W`` the exec measures first
+(``group_max_size``).
 """
 from __future__ import annotations
 
 import torch
 
-from ..columnar.device import MIN_CAPACITY, DeviceBatch, DeviceColumn
-from ..types import LONG, DoubleType, FloatType, StringType
+from ..columnar.device import MIN_CAPACITY, DeviceBatch, DeviceColumn, element_plane
+from ..types import LONG, ArrayType, DoubleType, FloatType, StringType
 from .gather import gather_column
 from .scan import first_k_positions, logstep_scan, seg_end_flags, segscan
 from .sortkeys import (
@@ -171,10 +175,12 @@ def group_aggregate(
     ops: list,
     live_mask=None,
     has_nans: bool = True,
+    collect_width: int = 0,
 ) -> tuple:
     """Group ``batch`` rows by key columns; reduce ``agg_columns[i]`` with
     ``ops[i]``. Returns (key cols, agg cols, num_groups) — all [capacity]
     with live groups in the prefix, ``num_groups`` an int32 device scalar.
+    ``collect_width`` is the element-plane width of the collect ops.
 
     ``live_mask`` (bool[cap]) restricts which rows participate — the fused
     pre-filter path: a filter feeding an aggregate contributes a mask here
@@ -187,7 +193,9 @@ def group_aggregate(
         live = live_mask
         if live is None:
             live = torch.arange(cap, dtype=torch.int32, device=device) < batch.num_rows
-        out_aggs = ungrouped_aggregate(agg_columns, ops, live, MIN_CAPACITY)
+        out_aggs = ungrouped_aggregate(
+            agg_columns, ops, live, MIN_CAPACITY, collect_width, has_nans
+        )
         return [], out_aggs, torch.ones((), dtype=torch.int32, device=device)
     cap = batch.capacity
     keys = [_normalize_float(batch.columns[i], has_nans) for i in key_ordinals]
@@ -226,9 +234,13 @@ def group_aggregate(
     out_aggs: list = []
     str_words_cache: dict = {}  # id(col) → ascending base words (min+max share)
     for col, op in zip(agg_columns, ops):
-        if op in ("collect_list", "collect_set"):
-            raise NotImplementedError(f"{op} is not in the torch port yet")
         sc = gather_column(col, perm)
+        if op in ("collect_list", "collect_set"):
+            out_aggs.append(
+                _group_collect(op, col, sc, words, row_mask, n_live, live, starts, end_pos,
+                               group_live, collect_width, cap, has_nans)
+            )
+            continue
         v = sc.validity & live
         is_str = isinstance(col.dtype, StringType)
         if is_str and op in ("min", "max"):
@@ -278,7 +290,97 @@ def group_aggregate(
     return out_keys, out_aggs, num_groups
 
 
-def ungrouped_aggregate(agg_columns, ops, live: torch.Tensor, out_cap: int):
+def group_max_size(batch: DeviceBatch, key_ordinals: list, live_mask=None,
+                   has_nans: bool = True) -> torch.Tensor:
+    """Largest group's row count, an int32 device scalar — the collect
+    family's width pre-pass (an upper bound on any collect plane width)."""
+    cap = batch.capacity
+    device = batch.device
+    keys = [_normalize_float(batch.columns[i], has_nans) for i in key_ordinals]
+    row_mask = batch.row_mask() if live_mask is None else live_mask
+    n_live = batch.num_rows if live_mask is None else live_mask.sum().to(torch.int32)
+    if not keys:
+        return n_live.to(torch.int32)
+    words = batch_radix_words(keys)
+    perm = sort_permutation(words, row_mask)
+    live = torch.arange(cap, dtype=torch.int32, device=device) < n_live
+    starts = segment_starts([_take(w, perm) for w in words], live)
+    run = segscan(torch.ones(cap, dtype=torch.int32, device=device), starts, "add")
+    return torch.where(live, run, 0).max().to(torch.int32)
+
+
+def _adjacent_diff(words: list, perm) -> torch.Tensor:
+    """bool[cap]: the sorted word tuple differs from the row before."""
+    diff = torch.zeros(perm.shape[0], dtype=torch.bool, device=perm.device)
+    for w in words:
+        sw = _take(w, perm)
+        diff = diff | (sw != torch.cat([sw[:1], sw[:-1]]))
+    return diff
+
+
+def _group_collect(op, col, sc, key_words, row_mask, n_live, live, starts, end_pos,
+                   group_live, W: int, cap: int, has_nans: bool) -> DeviceColumn:
+    """collect_list / collect_set as an array-plane build — the device list
+    accumulator (reference GpuCollectList/GpuCollectSet,
+    AggregateFunctions.scala:644; the JAX package's ``_group_collect``). No
+    scatters: the kept rows compact to the front in (group, order) sequence
+    and each group's plane row gathers them through an offset + rank index
+    matrix. ``W`` is the bucketed size of the largest group, which the exec
+    measures in a prior pass (the one host sync this family needs).
+
+    collect_list keeps input row order (the key sort is stable); collect_set
+    re-sorts by value and keeps the first of each run of equal values, so
+    its output is value-ascending — deterministic, and mirrored by the CPU
+    engine (Spark itself guarantees no order)."""
+    device = sc.validity.device
+    idx = torch.arange(cap, dtype=torch.int32, device=device)
+    if op == "collect_set":
+        vcol = _normalize_float(col, has_nans)
+        vwords = column_radix_words(vcol, ascending=True, nulls_first=False)
+        perm2 = sort_permutation(key_words + vwords, row_mask)
+        starts2 = segment_starts([_take(w, perm2) for w in key_words], live)
+        use_sc = gather_column(vcol, perm2)
+        keep = use_sc.validity & live & (starts2 | _adjacent_diff(vwords, perm2))
+        ends2 = seg_end_flags(starts2 | (idx == n_live)) & live
+        use_starts, use_end_pos = starts2, first_k_positions(ends2)
+    else:
+        use_sc, use_starts, use_end_pos = sc, starts, end_pos
+        keep = sc.validity & live
+    kc = _take(segscan(keep.to(torch.int32), use_starts, "add"), use_end_pos)
+    kc = torch.where(group_live, kc, 0).to(torch.int32)
+    kept = gather_column(use_sc, first_k_positions(keep))
+    offs = torch.cumsum(kc, 0) - kc  # each group's first kept row
+    elem = element_plane(kept, offs, kc, max(W, 1))
+    return DeviceColumn(ArrayType(col.dtype, contains_null=False), None, group_live, kc, (elem,))
+
+
+def _ungrouped_collect(op, col, valid, out_cap: int, W: int, has_nans: bool):
+    """collect_list / collect_set with no keys: one array in row 0."""
+    device = valid.device
+    cap = valid.shape[0]
+    idx = torch.arange(cap, dtype=torch.int32, device=device)
+    if op == "collect_set":
+        vcol = _normalize_float(col, has_nans)
+        vwords = column_radix_words(vcol, ascending=True, nulls_first=False)
+        perm2 = sort_permutation(vwords, valid)
+        svals = gather_column(vcol, perm2)
+        keep = _take(valid, perm2) & ((idx == 0) | _adjacent_diff(vwords, perm2))
+    else:
+        perm2 = first_k_positions(valid)
+        svals = gather_column(col, perm2)
+        keep = _take(valid, perm2)
+    kept = gather_column(svals, first_k_positions(keep))
+    kcount = keep.sum().to(torch.int32)
+    one_live = torch.arange(out_cap, device=device) < 1
+    lengths = torch.where(one_live, kcount, 0).to(torch.int32)
+    starts = torch.zeros(out_cap, dtype=torch.int64, device=device)
+    elem = element_plane(kept, starts, lengths, max(W, 1))
+    return DeviceColumn(ArrayType(col.dtype, contains_null=False), None, one_live, lengths,
+                        (elem,))
+
+
+def ungrouped_aggregate(agg_columns, ops, live: torch.Tensor, out_cap: int,
+                        collect_width: int = 0, has_nans: bool = True):
     """Reduce each ``(column, op)`` over the rows where ``live`` holds.
     Returns one DeviceColumn of ``out_cap`` rows per op, the result in row 0."""
     device = live.device
@@ -304,7 +406,9 @@ def ungrouped_aggregate(agg_columns, ops, live: torch.Tensor, out_cap: int):
             return DeviceColumn(out_dtype or col.dtype, out, one_live & ok, lout)
 
         any_valid = valid.any()
-        if op == "sum":
+        if op in ("collect_list", "collect_set"):
+            out_aggs.append(_ungrouped_collect(op, col, valid, out_cap, collect_width, has_nans))
+        elif op == "sum":
             total = torch.where(valid, data, torch.zeros((), dtype=data.dtype, device=device)).sum(
                 dtype=data.dtype
             )

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..columnar.device import DeviceBatch, DeviceColumn, bucket_capacity, dc_replace
+from ..columnar.device import DeviceBatch, DeviceColumn, bucket_capacity, dc_replace, map_planes
 from .scan import first_k_positions
 
 
@@ -25,7 +25,10 @@ def gather_column(col: DeviceColumn, idx: torch.Tensor, idx_valid=None) -> Devic
     if idx_valid is not None:
         validity = validity & idx_valid
     lengths = col.lengths[idx] if col.lengths is not None else None
-    return DeviceColumn(col.dtype, data, validity, lengths)
+    children = None
+    if col.children is not None:  # nested planes share the row axis
+        children = tuple(gather_column(c, idx) for c in col.children)
+    return DeviceColumn(col.dtype, data, validity, lengths, children)
 
 
 def gather_batch(batch: DeviceBatch, idx: torch.Tensor, new_num_rows) -> DeviceBatch:
@@ -53,15 +56,7 @@ def shrink_one(batch: DeviceBatch, n: int) -> DeviceBatch:
     cap2 = bucket_capacity(max(n, 1))
     if cap2 >= batch.capacity:
         return batch
-    cols = [
-        DeviceColumn(
-            c.dtype,
-            c.data[:cap2],
-            c.validity[:cap2],
-            None if c.lengths is None else c.lengths[:cap2],
-        )
-        for c in batch.columns
-    ]
+    cols = [map_planes(c, lambda t: t[:cap2]) for c in batch.columns]
     return DeviceBatch(batch.schema, cols, batch.num_rows)
 
 

@@ -35,7 +35,8 @@ LAUNCHES = 0
 LAUNCHES_BY_PATH = {"vec16": 0, "bytes": 0}
 #: the same launches by consumer (the expression that asked for the mask;
 #: ``"direct"`` for a call from outside the expressions)
-LAUNCHES_BY_CONSUMER = {"contains": 0, "locate": 0, "substring_index": 0, "replace": 0}
+LAUNCHES_BY_CONSUMER = {"contains": 0, "locate": 0, "substring_index": 0, "replace": 0,
+                        "get_json_object": 0}
 
 
 def reset_counts() -> None:

@@ -8,21 +8,24 @@ The port's own table, after ``spark_rapids_tpu/plan/overrides.py``: the same
 tagging walk, kill-switch conf keys (``spark.rapids.sql.exec.<Name>`` /
 ``spark.rapids.sql.expression.<Name>``), explain reasons and transition
 pass. Its exec rules cover project, filter, grouped and ungrouped
-aggregation, sort, top-N, expand, the coalesce, the shuffle exchange,
-union, limit, the shuffled and broadcast hash joins, the broadcast
-exchange, the nested-loop and cartesian joins and the window. Its
-expression rules are the JAX package's, check and reason for check and
-reason, for the whole scalar surface the port runs on the device:
-arithmetic (decimal included), predicates, null handling, the GpuCast
-matrix (``can_cast_on_device``; ANSI casts raise through the device error
-channel of the project and filter), dates, date patterns, math, bitwise, strings (over the
-``match_starts`` kernel where they search), ``md5``, the task-context
-expressions, the aggregates but the collect family, and the windows. What
-the port does not run yet has no rule (nested types, ``GetJsonObject``,
-the input-file expressions, UDFs) or, like ``Rand``, ``RLike`` and the
-regex functions, keeps the JAX package's CPU-engine rule. Every other node
-stays on the CPU engine with its reason in the explain, which is the
-system's own per-node fallback. (The JAX table binds ``exec.tpu``
+aggregation (the collect family included), sort, top-N, expand, the
+coalesce, the shuffle exchange, union, limit, the shuffled and broadcast
+hash joins, the broadcast exchange, the nested-loop and cartesian joins,
+the window, generate (explode) and range. Its expression rules are the
+JAX package's, check and reason for check and reason: arithmetic (decimal
+included), predicates, null handling, the GpuCast matrix
+(``can_cast_on_device``; ANSI casts raise through the device error
+channel of the project and filter), dates, date patterns, math, bitwise,
+strings (over the ``match_starts`` kernel where they search; split;
+``get_json_object`` behind its key), ``md5``, ``rand``, the task-context
+expressions, the aggregates, the windows, the complex-type expressions
+over one level of array, struct and map nesting, and the device UDF
+(``TorchUdf``, the JAX package's ``JaxUdf``). The input-file expressions
+have no rule (they wait for the file scans); python UDFs, ``RLike`` and
+the regex functions keep the JAX package's CPU-engine rule. Nested
+columns cannot be sort, group, join or partition keys on the device
+(``_no_complex_keys``). Every other node stays on the CPU engine with its
+reason in the explain, which is the system's own per-node fallback. (The JAX table binds ``exec.tpu``
 directly, so it cannot be shared.)
 """
 from __future__ import annotations
@@ -127,13 +130,27 @@ def _mk_sigs():
 SIGS = _mk_sigs()
 
 # the port's narrower device surfaces, composed from SIGS: fixed-width
-# numbers without decimal (float aggregates, min/max), and the column types
-# with a device layout
+# numbers without decimal (float aggregates, min/max)
 _INTEGRAL = SIGS["integral"]
 _FLOATING = SIGS["fp"]
 _NUMERIC = _INTEGRAL + _FLOATING
 _MINMAX = _NUMERIC + SIGS["temporal"] + TypeSig(BooleanType, StringType)
-_DEVICE_COLUMN = SIGS["numeric"] + SIGS["temporal"] + TypeSig(BooleanType, StringType)
+
+
+def _device_type_ok(dt: DataType) -> bool:
+    """Types with a device layout: primitives/strings/decimal64, plus ONE
+    level of array/struct/map nesting over them (deeper nesting has no
+    padded-plane encoding — those plans stay on the CPU engine). The JAX
+    package's ``_device_type_ok``."""
+    from ..types import ArrayType, MapType, StructType, is_complex
+
+    if isinstance(dt, ArrayType):
+        return not is_complex(dt.element_type)
+    if isinstance(dt, MapType):
+        return not is_complex(dt.key_type) and not is_complex(dt.value_type)
+    if isinstance(dt, StructType):
+        return all(not is_complex(f.data_type) for f in dt.fields)
+    return True
 
 # ── expression rules ───────────────────────────────────────────────────────
 
@@ -437,20 +454,87 @@ for _cls in (msc.Murmur3Hash, msc.Md5, msc.SparkPartitionID, msc.MonotonicallyIn
 
 
 def _rand_check(e, conf: TpuConf) -> Optional[str]:
-    """The JAX package's gate and reason (its ``overrides.py:459-466``);
-    past the gate the port has no device ``rand()`` yet (ROADMAP item 8)."""
+    """The JAX package's gate and reason (its ``overrides.py:463-469``)."""
     if not cfg.INCOMPATIBLE_OPS.get(conf):
         return (
             "rand() on device is not bit-identical to Spark's XORShiftRandom "
             "stream; enable spark.rapids.sql.incompatibleOps.enabled"
         )
-    return "rand() on the device is not in the torch port yet"
+    return None
 
 
 _expr(msc.Rand, check=_rand_check)
 
+
+def _collect_check(e, conf: TpuConf) -> Optional[str]:
+    from ..types import is_complex
+
+    if is_complex(e.child.data_type):
+        return "collect over nested element types is not supported on device"
+    return None
+
+
+_expr(agg.CollectList, check=_collect_check)
+_expr(agg.CollectSet, check=_collect_check)
+
+
+def _merge_lists_check(e, conf: TpuConf) -> Optional[str]:
+    return (
+        "merging partial collect arrays (collect alongside DISTINCT "
+        "aggregates) runs on the CPU engine"
+    )
+
+
+_expr(agg.MergeLists, check=_merge_lists_check)
+_expr(agg.MergeSets, check=_merge_lists_check)
+
+# ── complex-type expressions (complexTypeCreator/Extractors,
+#    collectionOperations.scala) ──────────────────────────────────────────
+from ..expr import complex as cx  # noqa: E402
+
+
+def _complex_child_check(e, conf: TpuConf) -> Optional[str]:
+    dt = e.child.data_type
+    if not _device_type_ok(dt):
+        return f"{dt.simple_string} exceeds the device nesting support"
+    return None
+
+
+for _cls in (cx.CreateArray, cx.CreateNamedStruct):
+    _expr(_cls)
+for _cls in (cx.Size, cx.GetStructField, cx.GetArrayItem, cx.ElementAt, cx.GetMapValue,
+             cx.ArrayContains, cx.Explode):
+    _expr(_cls, check=_complex_child_check)
+
+def _split_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.pattern):
+        return "split pattern must be a string literal for the device path"
+    if sx.split_device_pattern(e.pattern.value) is None:
+        return (
+            "only literal / plain char-class split patterns run on device "
+            "(full regex is CPU-only, like the reference's "
+            "GpuStringSplitMeta gate)"
+        )
+    return None
+
+
+def _get_json_check(e, conf: TpuConf) -> Optional[str]:
+    if not st.is_string_literal(e.path):
+        return "get_json_object path must be a string literal"
+    if not cfg.GET_JSON_OBJECT_DEVICE.get(conf):
+        return (
+            "device get_json_object returns raw value spans (no Jackson "
+            "re-serialization / unescaping, like the reference's cudf "
+            f"kernel); enable {cfg.GET_JSON_OBJECT_DEVICE.key} to accept "
+            "the divergence (docs/compatibility.md)"
+        )
+    return None
+
+
 _expr(sx.ConcatWs)
 _expr(sx.StringTranslate, check=_translate_check)
+_expr(sx.StringSplit, check=_split_check)
+_expr(sx.GetJsonObject, check=_get_json_check)
 _expr(sx.RLike, check=_cpu_regex_check("rlike"))
 _expr(sx.RegExpReplace, check=_cpu_regex_check("regexp_replace"))
 _expr(sx.RegExpExtract, check=_cpu_regex_check("regexp_extract"))
@@ -492,6 +576,19 @@ for _cls in (W.RowNumber, W.Rank, W.DenseRank, W.Lead, W.Lag, W.PercentRank, W.C
     _expr(_cls)
 
 
+# ── UDFs (GpuUserDefinedFunction / GpuArrowEvalPythonExec seam) ───────────
+from ..expr import udf as _udf  # noqa: E402
+
+_expr(_udf.TorchUdf)
+_expr(
+    _udf.PythonUdf,
+    check=lambda e, conf: (
+        "python row UDFs execute on the CPU engine (register a torch_udf for "
+        "device execution — it runs inside the device projection)"
+    ),
+)
+
+
 def _check_expr_tree(e: Expression, conf: TpuConf, reasons: List[str]) -> bool:
     ok = True
     rule = _EXPR_RULES.get(type(e))
@@ -528,9 +625,9 @@ def _check_schema(schema: Schema, conf: TpuConf, reasons: List[str], where: str)
         if isinstance(dt, DecimalType) and not conf.is_enabled(cfg.DECIMAL_ENABLED):
             reasons.append(f"{where}: decimal disabled by {cfg.DECIMAL_ENABLED.key}")
             ok = False
-        if not _DEVICE_COLUMN.supports(dt):
+        if not _device_type_ok(dt):
             reasons.append(
-                f"{where}: {dt.simple_string} columns are not in the torch port yet"
+                f"{where}: {dt.simple_string} exceeds the device nesting support"
             )
             ok = False
     return ok
@@ -569,13 +666,19 @@ def _conv_agg(e: C.CpuHashAggregateExec, ch):
     return g
 
 
-def _no_collect(e: C.CpuHashAggregateExec, conf: TpuConf) -> Optional[str]:
-    if any(isinstance(f, (agg.CollectList, agg.MergeLists)) for f in e.agg_fns):
-        return (
-            "the collect family (collect_list, collect_set) is not in the torch "
-            "port yet"
-        )
-    return None
+def _no_complex_keys(exprs, what: str):
+    """Exec-level check: complex types cannot be sort/group/join/partition
+    keys on device (no radix-word encoding — reference gates these the same
+    way via TypeSig key signatures). The JAX package's ``_no_complex_keys``."""
+    from ..types import is_complex
+
+    def check(e, conf: TpuConf) -> Optional[str]:
+        for k in exprs(e):
+            if is_complex(k.data_type):
+                return f"{what} of type {k.data_type.simple_string} is not supported on device"
+        return None
+
+    return check
 
 
 _rule(
@@ -595,13 +698,14 @@ _rule(
     "HashAggregateExec",
     _conv_agg,
     lambda e: e.grouping + list(e.agg_fns) + (e.result_exprs or []),
-    check=_no_collect,
+    check=_no_complex_keys(lambda e: e.grouping, "grouping key"),
 )
 _rule(
     C.CpuSortExec,
     "SortExec",
     lambda e, ch: G.GpuSortExec(e.order, ch[0]),
     lambda e: [o.child for o in e.order],
+    check=_no_complex_keys(lambda e: [o.child for o in e.order], "sort key"),
 )
 _rule(
     C.CpuCoalescePartitionsExec,
@@ -619,7 +723,10 @@ def _exchange_check(e: C.CpuShuffleExchangeExec, conf: TpuConf) -> Optional[str]
             f"{cfg.SHUFFLE_MANAGER_ENABLED.key} is set: the device exchange has "
             "no shuffle manager in the torch port yet"
         )
-    return None
+    return _partition_key_check(e, conf)
+
+
+_partition_key_check = _no_complex_keys(lambda e: e.partitioning.exprs(), "partition key")
 
 
 _rule(
@@ -636,6 +743,7 @@ _rule(
     "TakeOrderedAndProjectExec",
     lambda e, ch: G.GpuTakeOrderedAndProjectExec(e.n, e.order, ch[0]),
     lambda e: [o.child for o in e.order],
+    check=_no_complex_keys(lambda e: [o.child for o in e.order], "sort key"),
 )
 _rule(
     C.CpuExpandExec,
@@ -661,17 +769,22 @@ def _conv_join(cls):
     )
 
 
+_join_key_check = _no_complex_keys(
+    lambda e: list(e.left_keys) + list(e.right_keys), "join key"
+)
 _rule(
     CJ.CpuShuffledHashJoinExec,
     "ShuffledHashJoinExec",
     _conv_join(GJ.GpuShuffledHashJoinExec),
     _join_exprs_of,
+    check=_join_key_check,
 )
 _rule(
     CJ.CpuBroadcastHashJoinExec,
     "BroadcastHashJoinExec",
     _conv_join(GJ.GpuBroadcastHashJoinExec),
     _join_exprs_of,
+    check=_join_key_check,
 )
 _rule(
     CJ.CpuBroadcastExchangeExec,
@@ -706,17 +819,6 @@ _rule(
 )
 
 
-def _window_keys_check(e: CpuWindowExec, conf: TpuConf) -> Optional[str]:
-    """Complex types cannot be window keys on the device (no radix-word
-    encoding), as in the JAX package's ``_no_complex_keys``."""
-    from ..types import is_complex
-
-    for k in list(e.spec.partition_by) + [o.child for o in e.spec.order_by]:
-        if is_complex(k.data_type):
-            return f"window key of type {k.data_type.simple_string} is not supported on device"
-    return None
-
-
 _rule(
     CpuWindowExec,
     "WindowExec",
@@ -724,7 +826,17 @@ _rule(
     lambda e: [we for _, we in e.window_cols]
     + list(e.spec.partition_by)
     + [o.child for o in e.spec.order_by],
-    check=_window_keys_check,
+    check=_no_complex_keys(
+        lambda e: list(e.spec.partition_by) + [o.child for o in e.spec.order_by],
+        "window key",
+    ),
+)
+_rule(C.CpuRangeExec, "RangeExec", lambda e, ch: G.GpuRangeExec(e), lambda e: [])
+_rule(
+    C.CpuGenerateExec,
+    "GenerateExec",
+    lambda e, ch: G.GpuGenerateExec(e, ch[0]),
+    lambda e: [e.generator],
 )
 
 

@@ -11,10 +11,12 @@ the port's DataFrame builds: local relations, project, filter, aggregate
 set, an Expand under them for several), sort, limit, union, repartition, joins
 (shuffled and broadcast hash joins with the JAX package's build-side
 choice, nested-loop and cartesian joins) and windows (a hash exchange on
-the partition keys, or a coalesce, under each window node). A global sort
-over several partitions range-partitions on its keys and sorts each
-partition, as in the JAX package. File scans and the rest come with later
-slices. One
+the partition keys, or a coalesce, under each window node), range,
+generate (explode) and the four pandas nodes (map, grouped map, cogrouped
+map and grouped-aggregate pandas UDFs, with the JAX package's exchanges
+under them). A global sort over several partitions range-partitions on its
+keys and sorts each partition, as in the JAX package. File scans, file
+writes and cached relations come with the I/O slice. One
 plan shape differs from the JAX package's: an ungrouped aggregate over
 several partitions exchanges its partials into one partition
 (``SinglePartitioning``) instead of coalescing them.
@@ -57,6 +59,17 @@ from ..plan.physical import Exec
 def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     if isinstance(lp, L.LocalRelation):
         return CpuScanExec(lp.table, lp.schema, lp.num_partitions, lp.source)
+    if isinstance(lp, L.Range):
+        from ..exec.cpu import CpuRangeExec
+
+        return CpuRangeExec(lp.start, lp.end, lp.step, lp.num_partitions)
+    if isinstance(lp, L.Generate):
+        from ..exec.cpu import CpuGenerateExec
+
+        return CpuGenerateExec(lp.generator, lp.out_names, plan_physical(lp.child, conf))
+    if isinstance(lp, (L.MapInPandas, L.FlatMapGroupsInPandas, L.FlatMapCoGroupsInPandas,
+                       L.AggregateInPandas)):
+        return _plan_pandas(lp, conf)
     if isinstance(lp, L.Project):
         return CpuProjectExec(lp.exprs, plan_physical(lp.child, conf))
     if isinstance(lp, L.Filter):
@@ -120,6 +133,71 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     )
 
 
+def _plan_pandas(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
+    """The pandas nodes (the JAX package's ``plan_physical`` branches):
+    whole key groups per partition behind a hash exchange on the grouping
+    keys (both sides of a cogroup co-partitioned on the common key type), or
+    one partition for a keyless group."""
+    from ..exec import cpu_pandas as CP
+
+    if isinstance(lp, L.MapInPandas):
+        return CP.CpuMapInPandasExec(lp.fn, lp.schema, plan_physical(lp.child, conf))
+    if isinstance(lp, L.FlatMapCoGroupsInPandas):
+        left = plan_physical(lp.left, conf)
+        right = plan_physical(lp.right, conf)
+        if _num_partitions_hint(left) != 1 or _num_partitions_hint(right) != 1:
+            # co-partition both sides on their keys with the same arity so
+            # matching key groups meet in the same partition pair. Mismatched
+            # key dtypes hash differently (murmur3 of int32 5 != int64 5);
+            # the PARTITIONING keys are cast to the common type — the frames
+            # the user's fn sees keep their own types
+            from ..expr.cast import Cast
+            from ..types import numeric_promote
+
+            lkeys: list = [UnresolvedAttribute(n) for n in lp.left_keys]
+            rkeys: list = [UnresolvedAttribute(n) for n in lp.right_keys]
+            for i, (ln, rn) in enumerate(zip(lp.left_keys, lp.right_keys)):
+                ta = lp.left.schema[ln].data_type
+                tb = lp.right.schema[rn].data_type
+                if type(ta) is type(tb):
+                    continue
+                try:
+                    common = numeric_promote(ta, tb)
+                except Exception:
+                    raise ValueError(
+                        f"cogroup keys {ln}:{ta.simple_string} and "
+                        f"{rn}:{tb.simple_string} are incompatible"
+                    )
+                if type(ta) is not type(common):
+                    lkeys[i] = Cast(lkeys[i], common)
+                if type(tb) is not type(common):
+                    rkeys[i] = Cast(rkeys[i], common)
+            nparts = cfg.SHUFFLE_PARTITIONS.get(conf)
+            left = CpuShuffleExchangeExec(P.HashPartitioning(nparts, lkeys), left)
+            right = CpuShuffleExchangeExec(P.HashPartitioning(nparts, rkeys), right)
+        return CP.CpuFlatMapCoGroupsInPandasExec(
+            lp.left_keys, lp.right_keys, lp.fn, lp.schema, left, right
+        )
+    child = plan_physical(lp.child, conf)
+    if _num_partitions_hint(child) != 1:
+        if lp.grouping:
+            # whole groups per partition (the reference plans its python
+            # exec behind a hash exchange on the grouping keys too)
+            child = CpuShuffleExchangeExec(
+                P.HashPartitioning(
+                    cfg.SHUFFLE_PARTITIONS.get(conf),
+                    [UnresolvedAttribute(n) for n in lp.grouping],
+                ),
+                child,
+            )
+        else:
+            # groupBy().applyInPandas: the whole frame is one group
+            child = CpuCoalescePartitionsExec(child)
+    if isinstance(lp, L.FlatMapGroupsInPandas):
+        return CP.CpuFlatMapGroupsInPandasExec(lp.grouping, lp.fn, lp.schema, child)
+    return CP.CpuAggregateInPandasExec(lp.grouping, lp.udfs, lp.schema, child)
+
+
 def _estimate_size(lp: L.LogicalPlan) -> Optional[int]:
     """Best-effort logical size estimate in bytes (Spark's statistics
     sizeInBytes analogue) used only for broadcast-side selection."""
@@ -144,7 +222,9 @@ def _has_broadcast_hint(lp: L.LogicalPlan) -> bool:
 
 
 def _num_partitions_hint(e: Exec) -> int:
-    if isinstance(e, (CpuScanExec, CpuShuffleExchangeExec)):
+    from ..exec.cpu import CpuRangeExec
+
+    if isinstance(e, (CpuScanExec, CpuShuffleExchangeExec, CpuRangeExec)):
         return e.num_partitions
     if isinstance(e, (CpuCoalescePartitionsExec, CpuLimitExec)):
         return 1

@@ -240,7 +240,7 @@ def split_batch(batch):
     so it allocates only the two validity masks."""
     import torch
 
-    from ..columnar.device import DeviceBatch, DeviceColumn
+    from ..columnar.device import DeviceBatch, dc_replace, map_planes
 
     cap = batch.capacity
     half = cap // 2
@@ -249,15 +249,10 @@ def split_batch(batch):
     def part(lo: int, hi: int):
         n = torch.clamp(batch.num_rows - lo, 0, hi - lo).to(torch.int32)
         live = torch.arange(hi - lo, dtype=torch.int32, device=batch.device) < n
-        cols = [
-            DeviceColumn(
-                c.dtype,
-                None if c.data is None else c.data[lo:hi],
-                c.validity[lo:hi] & live,
-                None if c.lengths is None else c.lengths[lo:hi],
-            )
-            for c in batch.columns
-        ]
+        cols = []
+        for c in batch.columns:
+            c = map_planes(c, lambda t: t[lo:hi])
+            cols.append(dc_replace(c, validity=c.validity & live))
         return DeviceBatch(batch.schema, cols, n)
 
     return part(0, half), part(half, cap)

@@ -65,6 +65,7 @@ from .columnar.host import (
     HostBatch,
     HostColumn,
     batch_rows,
+    column_from_pylist,
     concat_batches,
     from_arrow,
     string_column,
@@ -78,7 +79,7 @@ from .plan.overrides import GpuOverrides
 from .plan.physical import ExecContext
 from .plan.planner import plan_physical
 from .plan.pruning import prune_columns
-from .types import Schema, StringType, StructField
+from .types import Schema, StringType, StructField, is_complex
 
 
 def _resolve_device(device) -> torch.device:
@@ -246,8 +247,10 @@ class TorchSession:
         num_partitions: int = 1,
     ) -> "DataFrame":
         """A DataFrame over in-memory data: a ``HostBatch``, a dict of
-        columns (numpy arrays, or sequences of str/None for strings), or a
-        ``pyarrow`` Table/RecordBatch (pyarrow is imported only then)."""
+        columns (numpy arrays; sequences of str/None for strings; Python
+        lists, dicts and, with a schema, tuples or dicts for array, map and
+        struct columns), or a ``pyarrow`` Table/RecordBatch (pyarrow is
+        imported only then)."""
         if isinstance(data, HostBatch):
             batch = data
             if schema is not None and schema != batch.schema:
@@ -261,6 +264,14 @@ class TorchSession:
         return DataFrame(self, L.LocalRelation(batch, batch.schema, num_partitions))
 
     createDataFrame = create_dataframe
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: int = 1) -> "DataFrame":
+        """``spark.range``: one ``id`` column of longs; on the device the ids
+        are born there, with nothing uploaded."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, L.Range(start, end, step, num_partitions))
 
     # ── execution ───────────────────────────────────────────────────────
     def _resolve_subqueries(self, lp: L.LogicalPlan, metrics=None, explain=None) -> L.LogicalPlan:
@@ -326,6 +337,24 @@ class TorchSession:
 
         return L.transform_expressions(lp, fix)
 
+    def _translate_udfs(self, lp: L.LogicalPlan) -> L.LogicalPlan:
+        """udf-compiler pass: rewrite translatable python UDFs into plain
+        expression trees so they run on the device (reference
+        udf-compiler/CatalystExpressionBuilder.scala; the subset is
+        documented in expr/udf_compiler.py). Untranslatable UDFs keep their
+        CPU fallback. The JAX session's ``_translate_udfs``."""
+        from .expr.udf import PythonUdf
+        from .expr.udf_compiler import try_translate
+
+        def fix(e):
+            if isinstance(e, PythonUdf):
+                t = try_translate(e.fn, list(e.args), e.return_type)
+                if t is not None:
+                    return t
+            return e
+
+        return L.transform_expressions(lp, fix)
+
     def _physical_plan(self, lp: L.LogicalPlan, metrics=None):
         """(device plan, overrides) of a logical plan: subquery resolution
         (its counters add to ``metrics``; the overrides' explain begins
@@ -335,8 +364,23 @@ class TorchSession:
         reuse (``plan/reuse.py``, ``spark.sql.exchange.reuse``)."""
         from .plan.fusion import fuse_stages
 
+        import dataclasses as _dc
+
+        from .expr.strings_ext import StringSplit
+
         sub_explain: list = []
         lp = self._resolve_subqueries(lp, metrics, sub_explain)
+        if cfg.UDF_COMPILER_ENABLED.get(self.conf):
+            lp = self._translate_udfs(lp)
+        # the device split's token-plane width is a conf (the JAX session
+        # wires it in the same place)
+        mt = cfg.SPLIT_MAX_TOKENS.get(self.conf)
+        lp = L.transform_expressions(
+            lp,
+            lambda e: _dc.replace(e, max_tokens=mt)
+            if isinstance(e, StringSplit) and e.max_tokens != mt
+            else e,
+        )
         if cfg.ANSI_ENABLED.get(self.conf):
             # Spark resolves ansiEnabled into Cast at analysis time
             import dataclasses as _dc
@@ -785,6 +829,12 @@ def _batch_from_dict(data: dict, schema: Optional[Schema]) -> HostBatch:
             cols.append(values)
             continue
         dt = schema[i].data_type if schema is not None else None
+        if dt is None and not isinstance(values, np.ndarray):
+            dt = _nested_type_of(values)
+        if dt is not None and is_complex(dt):
+            cols.append(column_from_pylist(values, dt))
+            fields.append(StructField(name, dt))
+            continue
         arr = np.asarray(values) if not isinstance(values, np.ndarray) else values
         if dt is None:
             if arr.dtype.kind == "U" or (
@@ -805,6 +855,35 @@ def _batch_from_dict(data: dict, schema: Optional[Schema]) -> HostBatch:
     if any(len(c) != n for c in cols):
         raise ValueError("columns of different lengths")
     return HostBatch(schema or Schema(fields), cols, n)
+
+
+def _nested_type_of(values):
+    """The nested type of a Python column (lists → array, dicts → map from
+    their first non-empty values; None for anything else). A struct needs
+    the schema."""
+    from .types import BOOLEAN, DOUBLE, LONG, STRING, ArrayType, MapType
+
+    def scalar(v):
+        for t, dt in ((bool, BOOLEAN), (int, LONG), (float, DOUBLE), (str, STRING)):
+            if isinstance(v, t):
+                return dt
+        raise TypeError(f"no SQL type inferred for {type(v).__name__} values; pass a schema")
+
+    def first(xs):
+        return next((x for x in xs if x is not None), None)
+
+    v = first(values)
+    if isinstance(v, list):
+        e = first(x for row in values if row for x in row)
+        return ArrayType(scalar(e) if e is not None else STRING)
+    if isinstance(v, dict):
+        items = [kv for row in values if row for kv in row.items()]
+        k, x = first(k for k, _ in items), first(x for _, x in items)
+        return MapType(scalar(k) if k is not None else STRING,
+                       scalar(x) if x is not None else STRING)
+    if isinstance(v, tuple):
+        raise TypeError("a column of tuples is a struct: pass a schema naming its fields")
+    return None
 
 
 def _to_exprs(cols: Sequence[Union[str, Column, Expression]]) -> List[Expression]:
@@ -857,7 +936,17 @@ class DataFrame:
     # ── transformations ─────────────────────────────────────────────────
     def select(self, *cols) -> "DataFrame":
         exprs, plan = _extract_windows(_to_exprs(cols), self._plan)
+        exprs, plan = _extract_generators(exprs, plan)
         return DataFrame(self._session, L.Project(exprs, plan))
+
+    def map_in_pandas(self, fn, schema) -> "DataFrame":
+        """``fn(iterator of pd.DataFrame) -> iterator of pd.DataFrame`` per
+        partition (pyspark mapInPandas; reference GpuMapInPandasExec).
+        ``schema`` declares the result columns. Runs on the host, over
+        pandas."""
+        return DataFrame(self._session, L.MapInPandas(fn, _to_schema(schema), self._plan))
+
+    mapInPandas = map_in_pandas
 
     def filter(self, condition: Union[Column, Expression]) -> "DataFrame":
         e = condition.expr if isinstance(condition, Column) else condition
@@ -1383,8 +1472,83 @@ class GroupedData:
                 out.append(Alias(wrap(target, v), name))
         return out
 
+    def apply_in_pandas(self, fn, schema) -> DataFrame:
+        """``fn(pd.DataFrame) -> pd.DataFrame`` once per key group (pyspark
+        applyInPandas; reference GpuFlatMapGroupsInPandasExec). Grouping
+        must be plain columns; ``schema`` declares the result columns."""
+        names = self._plain_key_names("apply_in_pandas")
+        return DataFrame(
+            self._df._session,
+            L.FlatMapGroupsInPandas(names, fn, _to_schema(schema), self._df._plan),
+        )
+
+    applyInPandas = apply_in_pandas
+
+    def cogroup(self, other: "GroupedData") -> "CoGroupedData":
+        """Pair this grouped frame with another for
+        ``cogroup(...).apply_in_pandas(fn, schema)`` (pyspark cogroup;
+        reference GpuFlatMapCoGroupsInPandasExec)."""
+        if not isinstance(other, GroupedData):
+            raise TypeError("cogroup expects another groupBy()")
+        return CoGroupedData(self, other)
+
+    def _plain_key_names(self, what: str) -> List[str]:
+        if self._grouping_sets is not None or self._pivot is not None:
+            raise ValueError(f"{what} requires a plain groupBy")
+        names = []
+        for g in self._grouping:
+            if not isinstance(g, UnresolvedAttribute):
+                raise ValueError(f"{what} grouping must be plain columns")
+            names.append(g.name)
+        return names
+
+    def _agg_in_pandas(self, agg_exprs: List[Expression]) -> DataFrame:
+        """GROUPED_AGG pandas UDF route: pre-project key + argument columns,
+        then AggregateInPandas evaluates one scalar per (group, udf)."""
+        from .expr.udf import GroupedAggUdf
+
+        keys = self._plain_key_names("grouped-agg pandas UDFs")
+        proj: List[Expression] = [UnresolvedAttribute(n) for n in keys]
+        udfs = []
+        child_schema = self._df.schema
+        out_fields = [StructField(n, child_schema[n].data_type, True) for n in keys]
+        for i, a in enumerate(agg_exprs):
+            target = a.child if isinstance(a, Alias) else a
+            if not isinstance(target, GroupedAggUdf):
+                raise ValueError(
+                    "grouped-agg pandas UDFs cannot be mixed with other "
+                    f"aggregates in one agg() (got {a})"
+                )
+            arg_names = []
+            for j, arg in enumerate(target.args):
+                nm = f"__pagg_arg{i}_{j}"
+                proj.append(Alias(arg, nm))
+                arg_names.append(nm)
+            out_name = output_name(a)
+            udfs.append((out_name, target.fn, target.return_type, arg_names))
+            out_fields.append(StructField(out_name, target.return_type, True))
+        projected = L.Project(proj, self._df._plan)
+        return DataFrame(
+            self._df._session,
+            L.AggregateInPandas(keys, udfs, Schema(out_fields), projected),
+        )
+
     def agg(self, *aggs) -> DataFrame:
+        from .expr.udf import GroupedAggUdf
+
         agg_exprs = [a.expr if isinstance(a, Column) else a for a in aggs]
+
+        def has_grouped_agg(e) -> bool:
+            stack = [e]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, GroupedAggUdf):
+                    return True
+                stack.extend(x.children())
+            return False
+
+        if any(has_grouped_agg(a) for a in agg_exprs):
+            return self._agg_in_pandas(agg_exprs)
         if self._pivot is not None:
             agg_exprs = self._expand_pivot(agg_exprs)
         if self._grouping_sets is not None:
@@ -1461,3 +1625,84 @@ class GroupedData:
         from .functions import max as max_fn
 
         return self.agg(*[max_fn(col(n)).alias(f"max({n})") for n in names])
+
+
+class CoGroupedData:
+    """Two co-grouped frames awaiting ``apply_in_pandas`` (pyspark
+    ``GroupedData.cogroup``; reference GpuFlatMapCoGroupsInPandasExec)."""
+
+    def __init__(self, left: GroupedData, right: GroupedData):
+        self._left = left
+        self._right = right
+
+    def apply_in_pandas(self, fn, schema) -> DataFrame:
+        """``fn(left_pd, right_pd) -> pd.DataFrame`` once per key group
+        present on either side; an absent side arrives as an empty frame
+        with that side's columns."""
+        lk = self._left._plain_key_names("cogroup apply_in_pandas")
+        rk = self._right._plain_key_names("cogroup apply_in_pandas")
+        if len(lk) != len(rk):
+            raise ValueError(f"cogroup key counts differ: {lk} vs {rk}")
+        return DataFrame(
+            self._left._df._session,
+            L.FlatMapCoGroupsInPandas(
+                lk, rk, fn, _to_schema(schema), self._left._df._plan, self._right._df._plan
+            ),
+        )
+
+    applyInPandas = apply_in_pandas
+
+
+def _to_schema(schema) -> Schema:
+    """Accept a Schema, a pyspark-style DDL string (``"a long, b double"``),
+    or a list of (name, DataType) pairs / StructFields."""
+    if isinstance(schema, Schema):
+        return schema
+    if isinstance(schema, str):
+        from .types import parse_ddl_schema
+
+        return parse_ddl_schema(schema)
+    return Schema([f if isinstance(f, StructField) else StructField(f[0], f[1], True)
+                   for f in schema])
+
+
+def _extract_generators(exprs: List[Expression], plan: L.LogicalPlan) -> tuple:
+    """Pull a top-level explode/posexplode out of a projection into a
+    Generate node below it (Spark's ExtractGenerator; the JAX session's
+    ``_extract_generators``); the projection then references the
+    generator's output columns by name."""
+    from .expr.complex import Explode, contains_generator
+    from .types import MapType
+
+    if not any(contains_generator(e) for e in exprs):
+        return exprs, plan
+    new_exprs: List[Expression] = []
+    generator = None
+    internal: List[str] = []  # collision-proof Generate output names
+    for e in exprs:
+        alias = e.name if isinstance(e, Alias) else None
+        target = e.child if isinstance(e, Alias) else e
+        if isinstance(target, Explode):
+            if generator is not None:
+                raise ValueError("only one generator per select is supported")
+            generator = target
+            ct = bind(target.child, plan.schema).data_type
+            public: List[str] = []
+            if target.position:
+                public.append("pos")
+            if isinstance(ct, MapType):
+                if alias is not None:
+                    raise ValueError(
+                        "explode of a map produces two columns (key, value); "
+                        "select them by name instead of aliasing the explode"
+                    )
+                public.extend(["key", "value"])
+            else:
+                public.append(alias or "col")
+            internal = [f"__gen{i}" for i in range(len(public))]
+            new_exprs.extend(Alias(UnresolvedAttribute(g), p) for g, p in zip(internal, public))
+        elif contains_generator(e):
+            raise ValueError("explode() must be a top-level select expression")
+        else:
+            new_exprs.append(e)
+    return new_exprs, L.Generate(generator, internal, plan)

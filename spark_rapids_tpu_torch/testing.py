@@ -348,8 +348,8 @@ def _load_golden(golden_dir: str, name: str):
 
 
 def golden_cases(golden_dir: str) -> list:
-    """Every expression fixture of the corpus but ``split_at`` (array
-    columns), as :class:`GoldenCase` queries shaped as
+    """Every expression fixture of the corpus, as :class:`GoldenCase`
+    queries shaped as
     ``tests/test_golden.py`` runs them: one query per group where the
     fixtures share their expression, one per fixture where they do not."""
     from decimal import Decimal
@@ -449,6 +449,8 @@ def golden_cases(golden_dir: str) -> list:
         "endswith": ("string", lambda m, c, x: c.endswith(x["pre"]), ""),
         "contains": ("string", lambda m, c, x: c.contains(x["pre"]), ""),
         "like": ("string", lambda m, c, x: c.like(x["pat"]), ""),
+        "split_at": (
+            "string", lambda m, c, x: m.F.element_at(m.F.split(c, x["delim"]), x["idx"]), ""),
     }
     _per_case(add, f, data, per_case)
     for i, c in enumerate(x for x in data if x["op"] == "concat_ws"):
@@ -616,38 +618,59 @@ def run_golden_query(session, fx: dict) -> tuple:
 
 def columns_equal(ref, got) -> tuple:
     """Two ``HostBatch``es equal column by column, in row order: validity
-    exact, the values of valid rows exact (strings byte for byte), floats
+    exact, the values of valid rows exact (strings byte for byte; arrays and
+    maps by their lengths and elements, structs field by field), floats
     within the harness tolerance (rel 1e-9 / abs 1e-11, NaN equal to NaN).
     Returns ``(ok, message)``."""
-    from .types import FractionalType, DecimalType, StringType
-
     if ref.num_rows != got.num_rows:
         return False, f"{ref.num_rows} vs {got.num_rows} rows"
     for f, a, b in zip(ref.schema, ref.columns, got.columns):
-        name = f.name
-        if not np.array_equal(a.validity, b.validity):
-            i = int(np.flatnonzero(a.validity != b.validity)[0])
-            return False, f"{name}: validity differs first at row {i}"
-        v = a.validity
-        if isinstance(f.data_type, StringType):
-            la, lb = np.diff(a.offsets), np.diff(b.offsets)
-            la, lb = np.where(v, la, 0), np.where(v, lb, 0)
-            if not np.array_equal(la, lb):
-                i = int(np.flatnonzero(la != lb)[0])
-                return False, f"{name}: byte lengths differ first at row {i}"
-            ka, kb = np.repeat(v, np.diff(a.offsets)), np.repeat(v, np.diff(b.offsets))
-            if not np.array_equal(a.data[ka], b.data[kb]):
-                return False, f"{name}: string bytes differ"
-            continue
-        x, y = a.data[v], b.data[v]
-        if isinstance(f.data_type, FractionalType) and not isinstance(f.data_type, DecimalType):
-            nan = np.isnan(x)
-            ok = (nan == np.isnan(y)) & (
-                nan | (x == y) | (np.abs(x - y) <= np.maximum(1e-9 * np.abs(x), 1e-11))
-            )
-        else:
-            ok = x == y
-        if not ok.all():
-            i = int(np.flatnonzero(v)[np.flatnonzero(~ok)[0]])
-            return False, f"{name}: row {i}: {a.data[i]!r} vs {b.data[i]!r}"
+        msg = _column_differs(f.name, f.data_type, a, b)
+        if msg:
+            return False, msg
     return True, ""
+
+
+def _column_differs(name: str, dt, a, b) -> str:
+    """Where two host columns of ``dt`` differ ('' when equal)."""
+    from .types import ArrayType, DecimalType, FractionalType, MapType, StringType, StructType
+
+    if not np.array_equal(a.validity, b.validity):
+        i = int(np.flatnonzero(a.validity != b.validity)[0])
+        return f"{name}: validity differs first at row {i}"
+    v = a.validity
+    if isinstance(dt, StructType):
+        rows = np.flatnonzero(v)
+        for f, ka, kb in zip(dt.fields, a.children, b.children):
+            msg = _column_differs(f"{name}.{f.name}", f.data_type, ka.take(rows), kb.take(rows))
+            if msg:
+                return msg
+        return ""
+    if a.offsets is not None:
+        la, lb = np.where(v, np.diff(a.offsets), 0), np.where(v, np.diff(b.offsets), 0)
+        if not np.array_equal(la, lb):
+            i = int(np.flatnonzero(la != lb)[0])
+            return f"{name}: lengths differ first at row {i}"
+        ka, kb = np.repeat(v, np.diff(a.offsets)), np.repeat(v, np.diff(b.offsets))
+        if isinstance(dt, StringType):
+            return "" if np.array_equal(a.data[ka], b.data[kb]) else f"{name}: string bytes differ"
+        kid_types = (dt.key_type, dt.value_type) if isinstance(dt, MapType) else (dt.element_type,)
+        parts = ("key", "value") if isinstance(dt, MapType) else ("element",)
+        for part, kt, ca, cb in zip(parts, kid_types, a.children, b.children):
+            msg = _column_differs(f"{name}.{part}", kt, ca.take(np.flatnonzero(ka)),
+                                  cb.take(np.flatnonzero(kb)))
+            if msg:
+                return msg
+        return ""
+    x, y = a.data[v], b.data[v]
+    if isinstance(dt, FractionalType) and not isinstance(dt, DecimalType):
+        nan = np.isnan(x)
+        ok = (nan == np.isnan(y)) & (
+            nan | (x == y) | (np.abs(x - y) <= np.maximum(1e-9 * np.abs(x), 1e-11))
+        )
+    else:
+        ok = x == y
+    if not ok.all():
+        i = int(np.flatnonzero(v)[np.flatnonzero(~ok)[0]])
+        return f"{name}: row {i}: {a.data[i]!r} vs {b.data[i]!r}"
+    return ""

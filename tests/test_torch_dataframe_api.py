@@ -52,12 +52,6 @@ REF_MODULES = (
 NOT_IN_SLICE = {
     "test_basic_ops::test_cache_roundtrip_and_reuse": "df.cache() (item 10)",
     "test_expr_tail::test_input_file_block_differential": "file scans (item 10)",
-    "test_new_aggregates::test_collect_list_and_set": "the collect family (item 8)",
-    "test_new_aggregates::test_collect_on_device_strict": "the collect family (item 8)",
-    "test_new_aggregates::test_collect_strings_and_ungrouped": "the collect family (item 8)",
-    "test_new_aggregates::test_collect_alongside_distinct": "the collect family (item 8)",
-    "test_new_aggregates::test_collect_floats_canonical": "the collect family (item 8)",
-    "test_new_aggregates::test_collect_set_dedups_with_nans": "the collect family (item 8)",
 }
 
 #: reference tests an earlier slice's port test mirrors already
@@ -88,6 +82,8 @@ def to_port(obj):
 
     if isinstance(obj, PortFrame):
         return obj._df
+    if type(obj).__name__ == "JaxUdf" and type(obj).__module__ == "spark_rapids_tpu.expr.udf":
+        return _torch_udf_of(obj)
     if isinstance(obj, JColumn):
         c = Column(to_port(obj.expr))
         if getattr(obj, "_sort_desc", False):
@@ -109,6 +105,22 @@ def to_port(obj):
             for f in dataclasses.fields(obj) if f.init
         })
     return cls()
+
+
+def _torch_udf_of(judf):
+    """A JAX ``JaxUdf`` as the port's ``TorchUdf``: the same jnp function,
+    called on the tensors' numpy views (on the CPU, where these tests run)
+    and its result handed back as a tensor, so both packages evaluate the
+    same arithmetic."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.expr.udf import TorchUdf
+
+    def fn(*tensors):
+        out = judf.fn(*[t.cpu().numpy() for t in tensors])
+        return torch.from_numpy(np.array(out))
+
+    return TorchUdf(fn, to_port(judf.return_type), to_port(judf.args), judf.name)
 
 
 def _port_class(obj):

@@ -48,14 +48,6 @@ REF_MODULES = (
 
 #: reference tests not mirrored, each with the part of the port it waits for
 NOT_IN_SLICE = {
-    "test_string_datetime_ext::test_split": "StringSplit (array columns)",
-    "test_string_datetime_ext::test_split_literal_on_device": "StringSplit (array columns)",
-    "test_string_datetime_ext::test_split_char_class_and_multichar_on_device":
-        "StringSplit (array columns)",
-    "test_string_datetime_ext::test_split_regex_falls_back": "StringSplit (array columns)",
-    "test_string_datetime_ext::test_split_max_tokens_overflow_raises": "StringSplit",
-    "test_string_datetime_ext::test_get_json_object": "GetJsonObject",
-    "test_misc_exprs::test_rand_deterministic_and_uniform": "Rand",
     "test_misc_exprs::test_input_file_name": "InputFileName (I/O)",
 }
 

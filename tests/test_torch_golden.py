@@ -1,7 +1,7 @@
 """The golden corpus (``tests/golden/*.json``) through the PyTorch port.
 
-Every expression fixture but ``split_at`` (array columns) runs through the
-port's CPU engine and through its device engine on ``device="cpu"`` in test
+Every expression fixture (``split_at`` included, over array columns) runs
+through the port's CPU engine and through its device engine on ``device="cpu"`` in test
 mode, under the conf of ``tests/test_golden.py``'s device session, and must
 equal its literal; so must the 48 whole-query fixtures of
 ``golden_queries.json``, from their SQL text. The inputs are built by
@@ -50,8 +50,8 @@ def _port_session(engine: str, case=None) -> TorchSession:
 
 
 def test_corpus_counts():
-    """1799 expression fixtures (the corpus but the 6 ``split_at``), and
-    the 28 the JAX package keeps off the device among them."""
+    """1805 expression fixtures (the whole corpus, the 6 ``split_at``
+    included), and the 28 the JAX package keeps off the device among them."""
     by_file: dict = {}
     for c in CASES:
         by_file[c.file] = by_file.get(c.file, 0) + c.fixtures
@@ -60,11 +60,11 @@ def test_corpus_counts():
         "golden_cast.json": 241,
         "golden_datetime.json": 249,
         "golden_decimal.json": 34,
-        "golden_strings.json": 854,
+        "golden_strings.json": 860,
         "golden_datetime_fmt.json": 153,
         "golden_arith.json": 32,
     }
-    assert sum(by_file.values()) == 1799
+    assert sum(by_file.values()) == 1805
     labels = {c.label for c in CASES}
     assert set(TT.GOLDEN_OFF_DEVICE) <= labels and len(TT.GOLDEN_OFF_DEVICE) == 28
     assert len(QUERIES) == 48

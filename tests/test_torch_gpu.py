@@ -9,7 +9,10 @@ the nested-loop and cartesian joins on the card against the CPU engine,
 TPC-DS q2, q47, q64, q67 and q95 from SQL text at SF 0.01; the golden
 corpus, the expression families at SF 0.01, ``locate``,
 ``substring_index`` and ``replace`` over the kernel, and the ANSI error
-channel on the card; a real OOM under a per-process cap recovered to equal
+channel on the card; nested columns uploaded, gathered, concatenated,
+downloaded and spilled on the card, split's delimiter scan and token
+planes, explode and the collect family's width pass, and a range born on
+the card; a real OOM under a per-process cap recovered to equal
 rows, injected OOMs around ``Contains`` with the kernel's masks exact, and
 a spill-catalog buffer's walk device → pinned host → disk → device; and
 the query runtime's checks (a)–(e): fused = unfused, the four task and
@@ -782,3 +785,143 @@ def test_reused_exchange_on_gpu(monkeypatch):
     for name in ("reuse", "no_reuse"):
         ok, msg = rows_equal(rows["cpu"], rows[name])
         assert ok, (name, msg)
+
+
+# ── nested types on the card ───────────────────────────────────────────────
+
+
+def _nested_host_batch(n=3000, seed=12):
+    """array<long>, array<string>, struct<x, y> and map<string, double>
+    columns with nulls, built on the host from a seed (no pyarrow)."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, column_from_pylist
+    from spark_rapids_tpu_torch.types import (
+        DOUBLE, LONG, STRING, ArrayType, MapType, Schema, StructField, StructType,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def maybe(v):
+        return None if rng.random() < 0.1 else v
+
+    cols = {
+        "a": (ArrayType(LONG), [maybe([maybe(int(x)) for x in rng.integers(-9, 9, rng.integers(0, 12))])
+                                for _ in range(n)]),
+        "sa": (ArrayType(STRING), [maybe([maybe("w" * int(k)) for k in rng.integers(0, 40, rng.integers(0, 5))])
+                                   for _ in range(n)]),
+        "s": (StructType((StructField("x", LONG), StructField("y", STRING))),
+              [maybe({"x": int(rng.integers(0, 99)), "y": maybe(f"s{rng.integers(0, 9)}")})
+               for _ in range(n)]),
+        "m": (MapType(STRING, DOUBLE), [maybe({f"k{j}": maybe(float(j)) for j in range(rng.integers(0, 4))})
+                                        for _ in range(n)]),
+        "id": (LONG, list(range(n))),
+    }
+    schema = Schema([StructField(k, dt) for k, (dt, _) in cols.items()])
+    return HostBatch(schema, [column_from_pylist(v, dt) for dt, v in cols.values()], n)
+
+
+@pytest.mark.gpu
+def test_nested_planes_on_gpu_equal_cpu():
+    """Upload, gather, concat (both paths) and download of nested columns on
+    the card give the CPU planes and the host batch back, plane for plane."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.columnar.device import column_planes, device_to_host, host_to_device
+    from spark_rapids_tpu_torch.columnar.host import batch_rows
+    from spark_rapids_tpu_torch.ops.concat import concat_device
+    from spark_rapids_tpu_torch.ops.gather import gather_batch
+
+    hb = _nested_host_batch()
+    g, c = host_to_device(hb, "cuda"), host_to_device(hb, "cpu")
+
+    def same(a, b):
+        pa = [t for col in a.columns for t in column_planes(col)]
+        pb = [t for col in b.columns for t in column_planes(col)]
+        assert len(pa) == len(pb)
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(pa, pb))
+
+    same(g, c)
+    assert batch_rows(device_to_host(g)) == batch_rows(hb)
+    idx = torch.randint(0, hb.num_rows, (g.capacity,), generator=torch.Generator().manual_seed(3))
+    same(gather_batch(g, idx.cuda(), hb.num_rows), gather_batch(c, idx, hb.num_rows))
+    same(concat_device([g, g]), concat_device([c, c]))
+    same(concat_device([g, g], counts=[hb.num_rows] * 2), concat_device([c, c], counts=[hb.num_rows] * 2))
+
+
+@pytest.mark.gpu
+def test_nested_spill_on_gpu_restores_bit_for_bit(tmp_path):
+    _need_gpu()
+    from spark_rapids_tpu_torch.columnar.device import column_planes, host_to_device
+    from spark_rapids_tpu_torch.mem import spill as PS
+
+    db = host_to_device(_nested_host_batch(), "cuda")
+    want = [t.clone() for col in db.columns for t in column_planes(col)]
+    cat = PS.BufferCatalog(spill_dir=str(tmp_path))
+    h = cat.register(db)
+    del db
+    assert cat.synchronous_spill(h.size_bytes) > 0
+    cat.host_limit = 0
+    cat.synchronous_spill(0)
+    assert cat._buffers[h.id].tier == PS.StorageTier.DISK
+    got = [t for col in h.get_batch().columns for t in column_planes(col)]
+    assert got[0].device.type == "cuda"
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", [" ", "ly ", "[ ,]"])
+def test_split_planes_on_gpu_equal_cpu(pattern):
+    """split's delimiter scan and token planes on the card equal the same
+    functions on the CPU, and split's rows equal the CPU engine's."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.expr.strings_ext import (
+        split_delimiter_starts,
+        split_device_pattern,
+        split_token_planes,
+    )
+
+    orders, _ = gen_orders_lineitem(0.01, 19980802)
+    comment = orders.columns[orders.schema.index_of("o_comment")]
+    from spark_rapids_tpu_torch.columnar.device import host_to_device
+    from spark_rapids_tpu_torch.columnar.host import HostBatch
+    from spark_rapids_tpu_torch.types import Schema, StructField, STRING
+
+    hb = HostBatch(Schema([StructField("c", STRING)]), [comment], orders.num_rows)
+    kind, payload = split_device_pattern(pattern)
+    for dev in ("cuda", "cpu"):
+        col = host_to_device(hb, dev).columns[0]
+        take = split_delimiter_starts(col.data, col.lengths, kind, payload)
+        starts = torch.zeros((col.capacity, 2), dtype=torch.int32, device=col.data.device)
+        starts[:, 1] = 3
+        planes = split_token_planes(col.data, starts, torch.full_like(starts, 5))
+        if dev == "cuda":
+            got = (take.cpu(), planes.cpu())
+        else:
+            assert torch.equal(got[0], take) and torch.equal(got[1], planes)
+    q = lambda s: s.create_dataframe(orders).select(F.split(F.col("o_comment"), pattern).alias("p"))
+    assert rows_equal(q(TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")).collect(),
+                      q(TorchSession({"spark.rapids.sql.test.enabled": True})).collect())[0]
+
+
+@pytest.mark.gpu
+def test_generate_and_collect_width_on_gpu():
+    """posexplode on the card, and the collect family's width pass, against
+    the CPU engine; the range is born on the card."""
+    _need_gpu()
+    _, lineitem = gen_orders_lineitem(0.01, 19980802)
+
+    def q(s):
+        lists = s.create_dataframe(lineitem, num_partitions=2).group_by("l_orderkey").agg(
+            F.collect_list(F.col("l_partkey")).alias("ps"),
+            F.collect_set(F.col("l_suppkey")).alias("ss"))
+        return lists.select(F.col("l_orderkey"), F.col("ss"), F.posexplode(F.col("ps")))
+
+    gpu = TorchSession({"spark.rapids.sql.test.enabled": True})
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    ok, msg = rows_equal(q(cpu).collect(), q(gpu).collect())
+    assert ok, msg
+    assert "GpuGenerate" in q(gpu).explain()
+    r = gpu.range(0, 10_000_000, 3, 4).agg(F.sum(F.col("id")).alias("s")).collect()
+    n = (10_000_000 + 2) // 3
+    assert r == [(3 * n * (n - 1) // 2,)]
+    assert gpu._last_metrics["hostToDeviceBytes"] == 0

@@ -222,9 +222,10 @@ def test_device_aggregates_and_predicates_match_cpu_engine(tables):
 
 
 def test_unported_nodes_fall_back_with_a_reason(tables):
-    """The collect family stays on the CPU engine, says why in the explain,
-    and still gives the CPU engine's rows; the top-N above it runs on the
-    device (``GpuTakeOrderedAndProject``)."""
+    """A collect alongside a DISTINCT aggregate merges partial arrays, which
+    stays on the CPU engine (as in the JAX package), says why in the
+    explain, and still gives the CPU engine's rows; the top-N above it runs
+    on the device (``GpuTakeOrderedAndProject``)."""
     col = PF.col
     dev = TorchSession({"spark.rapids.sql.enabled": True}, device="cpu")
 
@@ -235,7 +236,7 @@ def test_unported_nodes_fall_back_with_a_reason(tables):
             .group_by("o_orderpriority")
             .agg(
                 PF.size(PF.collect_list(col("o_orderstatus"))).alias("st"),
-                PF.count(col("o_orderkey")).alias("n"),
+                PF.count_distinct(col("o_orderkey")).alias("n"),
             )
             .order_by("o_orderpriority")
             .limit(3)
@@ -244,7 +245,8 @@ def test_unported_nodes_fall_back_with_a_reason(tables):
     df = build(dev)
     got = df.collect()
     reasons = [r for e in dev._last_overrides.explain for r in e.reasons]
-    assert "the collect family (collect_list, collect_set) is not in the torch port yet" in reasons
+    assert ("merging partial collect arrays (collect alongside DISTINCT aggregates) runs on "
+            "the CPU engine") in reasons
     assert _explain(dev)["CpuTakeOrderedAndProject"].on_device
     assert "GpuTakeOrderedAndProject" in df.explain()
     assert _explain(dev)["CpuFilter"].on_device

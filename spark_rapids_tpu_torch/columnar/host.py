@@ -75,6 +75,10 @@ class HostColumn:
                 total += a.nbytes
         return total + sum(k.nbytes for k in self.children or ())
 
+    def to_pylist(self) -> list:
+        """The column's Python values (see :func:`to_pylist`)."""
+        return to_pylist(self)
+
     def take(self, idx: np.ndarray) -> "HostColumn":
         idx = np.asarray(idx, dtype=np.int64)
         if isinstance(self.dtype, StructType):
@@ -121,8 +125,9 @@ class HostBatch:
     columns: list
     num_rows: int
 
-    def column(self, i: int) -> HostColumn:
-        return self.columns[i]
+    def column(self, i) -> HostColumn:
+        """The column at index ``i``, or named ``i``."""
+        return self.columns[self.schema.index_of(i) if isinstance(i, str) else i]
 
     def take(self, idx) -> "HostBatch":
         idx = np.asarray(idx, dtype=np.int64)
@@ -467,7 +472,8 @@ def _from_arrow_column(arr, dt: DataType) -> HostColumn:
         if pa.types.is_date32(arr.type):
             arr = arr.cast(pa.int32())
         elif pa.types.is_timestamp(arr.type):
-            arr = arr.cast(pa.int64())
+            # the port holds microseconds, whatever the Arrow unit
+            arr = arr.cast(pa.timestamp("us", tz=arr.type.tz)).cast(pa.int64())
         if dt.np_dtype == np.bool_:
             data = np.asarray(arr.fill_null(False).to_numpy(zero_copy_only=False), dtype=bool)
         else:

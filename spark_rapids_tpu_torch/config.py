@@ -186,6 +186,52 @@ BATCH_SIZE_ROWS = conf("spark.rapids.sql.batchSizeRows").doc(
     "capacities are bucketed to powers of two above it."
 ).int_conf(1 << 20)
 
+MAX_READER_BATCH_SIZE_ROWS = conf("spark.rapids.sql.reader.batchSizeRows").doc(
+    "Soft cap on rows per batch produced by file readers "
+    "(reference: RapidsConf.scala READER_BATCH_SIZE_ROWS)."
+).int_conf(1 << 20)
+
+MAX_READER_BATCH_SIZE_BYTES = conf("spark.rapids.sql.reader.batchSizeBytes").doc(
+    "Soft cap on bytes per batch produced by file readers."
+).bytes_conf(1 << 30)
+
+PARQUET_READER_TYPE = conf("spark.rapids.sql.format.parquet.reader.type").doc(
+    "File reader strategy: AUTO (COALESCING for local paths, MULTITHREADED "
+    "when any path scheme is in spark.rapids.cloudSchemes — the reference's "
+    "default), PERFILE (one task per file), COALESCING (small files "
+    "stitched into shared partitions), or MULTITHREADED (cloud-style "
+    "thread-pool reads). The per-read option 'readerType' overrides this "
+    "per DataFrame (reference: RapidsConf.scala:624-671)."
+).string_conf("AUTO")
+
+MULTITHREADED_READ_NUM_THREADS = conf(
+    "spark.rapids.sql.multiThreadedRead.numThreads"
+).doc(
+    "Thread pool size for the multithreaded (cloud) file reader "
+    "(reference: RapidsConf.scala:624-671)."
+).int_conf(20)
+
+CLOUD_SCHEMES = conf("spark.rapids.cloudSchemes").doc(
+    "Comma-separated URI schemes treated as cloud storage: the AUTO reader "
+    "type picks MULTITHREADED for them (background prefetch hides object-"
+    "store latency) and COALESCING otherwise (reference: "
+    "RapidsConf.scala:651)."
+).string_conf("dbfs,s3,s3a,s3n,wasbs,gs,abfs,abfss")
+
+ALLUXIO_PATHS_TO_REPLACE = conf("spark.rapids.alluxio.pathsToReplace").doc(
+    "Comma-separated 'src->dst' prefix rewrites applied to read paths "
+    "before file listing — route cloud reads through an Alluxio-style "
+    "cache mount (reference: RapidsConf.scala:929)."
+).string_conf(None)
+
+NATIVE_ENABLED = conf("spark.rapids.native.enabled").doc(
+    "Use the native (C++) host data plane — Spark-exact murmur3 hashing, "
+    "the best-fit staging-arena sub-allocator, and contiguous spill frames "
+    "(built from native/srt_host.cc; auto-compiled with g++ on first use). "
+    "Pure-python/numpy fallbacks run when disabled or when no toolchain is "
+    "available."
+).startup_only().boolean_conf(True)
+
 SPLIT_MAX_TOKENS = conf("spark.rapids.sql.split.maxTokens").doc(
     "Static token-plane width for device split(): a row splitting into "
     "more tokens fails loudly (never truncates) — raise this or disable "

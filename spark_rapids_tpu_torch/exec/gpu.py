@@ -388,6 +388,7 @@ class GpuCoalesceBatchesExec(Exec):
 
     def execute(self, ctx: ExecContext) -> PartitionSet:
         goal = self.goal
+        batches_m = self.metric("numOutputBatches", "ESSENTIAL")
 
         def fn(it):
             acc: list = []
@@ -398,11 +399,13 @@ class GpuCoalesceBatchesExec(Exec):
                     tok.check()
                 sz = db.size_bytes()
                 if goal.target_bytes >= 0 and acc and acc_bytes + sz > goal.target_bytes:
+                    batches_m.add(1)
                     yield concat_device(acc)
                     acc, acc_bytes = [], 0
                 acc.append(db)
                 acc_bytes += sz
             if acc:
+                batches_m.add(1)
                 yield concat_device(acc)
 
         return self.children[0].execute(ctx).map_partitions(fn)

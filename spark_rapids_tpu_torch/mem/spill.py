@@ -21,13 +21,14 @@ Tier currencies:
   ``spark.rapids.memory.host.spillStorageSize``. When the "device" is the
   CPU (the tests), the host tier holds plain copies, so the tier walk runs
   without a card.
-* DISK   — the host tensors' numpy views written with ``np.savez`` into the
-  spill dir, each plane of a nested column under its own path key (``d0.1``
-  is the data of the second child of column 0); the metadata stays in the
-  in-process catalog, as the reference keeps TableMeta in memory. The JAX package writes a contiguous ``.srtf``
-  frame through its native host plane where that is built; the port reads
-  and writes ``.npz`` until its own loader of the native plane lands with
-  the I/O slice (ROADMAP Queue A 10).
+* DISK   — the host tensors' numpy views, each plane of a nested column
+  under its own path key (``d0.1`` is the data of the second child of
+  column 0), written into the spill dir as one contiguous ``.srtf`` frame
+  (a JSON header of keys, dtypes and shapes, then every plane 8-byte
+  aligned, streamed by ``native.frame_write``), as the JAX spill writes
+  them; ``np.savez`` to ``.npz`` where the native host plane is not built or
+  is disabled. The metadata stays in the in-process catalog, as the
+  reference keeps TableMeta in memory.
 
 Byte accounting is by storage, once per storage. A batch's tensors can be
 views of one storage, and the session's upload cache hands the same device
@@ -40,6 +41,7 @@ spilled at all, since moving it would free nothing.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
@@ -592,16 +594,31 @@ class BufferCatalog:
         return True
 
     def _write_disk(self, buf: _Buffer):
+        from .. import native
         from ..resilience import faults
 
         faults.on_spill_write()
-        path = os.path.join(self._dir(), f"buf{buf.id}.npz")
-        buf.path = path  # assigned BEFORE the write: failure cleanup unlinks it
         cols, num_rows = buf.host
         arrays = {"num_rows": num_rows.numpy()}
         for i, c in enumerate(cols):
             _frame_column(c, str(i), arrays)
-        np.savez(path, **arrays)
+        if native.available():
+            # contiguous-frame spill (the reference's one-buffer spill
+            # currency): a header, then every plane, in one streamed file
+            path = os.path.join(self._dir(), f"buf{buf.id}.srtf")
+            buf.path = path  # assigned BEFORE the write: failure cleanup unlinks it
+            names = list(arrays)
+            header = json.dumps({
+                "names": names,
+                "dtypes": [arrays[n].dtype.str for n in names],
+                "shapes": [list(arrays[n].shape) for n in names],
+            }).encode()
+            with open(path, "wb") as f:
+                native.frame_write(f, [header] + [arrays[n] for n in names])
+        else:
+            path = os.path.join(self._dir(), f"buf{buf.id}.npz")
+            buf.path = path
+            np.savez(path, **arrays)
 
     def _disk_to_host(self, buf: _Buffer):
         try:
@@ -633,7 +650,22 @@ class BufferCatalog:
             t = torch.from_numpy(z[name])
             return t.pin_memory() if pin else t
 
-        with np.load(buf.path) as z:
+        if buf.path.endswith(".srtf"):
+            from .. import native
+
+            with open(buf.path, "rb") as f:
+                data = f.read()
+            views = native.frame_unpack(data)
+            meta = json.loads(bytes(views[0]))
+            arrays = {
+                n: np.frombuffer(v, dtype=np.dtype(d)).reshape(shape).copy()
+                for n, d, shape, v in zip(meta["names"], meta["dtypes"], meta["shapes"],
+                                          views[1:])
+            }
+            z = _Frame(arrays)
+        else:
+            z = np.load(buf.path)
+        with z:
             cols = [
                 _unframe_column(f.data_type, str(i), lambda name: load(z, name))
                 for i, f in enumerate(buf.schema)
@@ -714,6 +746,24 @@ class BufferCatalog:
                 "buffers": len(self._buffers),
                 "spill_count": self.spill_count,
             }
+
+
+class _Frame:
+    """A read ``.srtf`` frame's planes by key, read as ``np.load``'s archive
+    is (``files``, ``[name]``, a context manager)."""
+
+    def __init__(self, arrays: dict):
+        self._arrays = arrays
+        self.files = list(arrays)
+
+    def __getitem__(self, name):
+        return self._arrays[name]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._arrays = {}
 
 
 def _to_host(c: DeviceColumn, down) -> tuple:

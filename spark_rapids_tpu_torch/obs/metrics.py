@@ -385,10 +385,10 @@ GLOBAL = MetricRegistry(scope="process")
 
 CATALOG: Iterable[tuple] = (
     # kernels.py — the nvcc builds of the hand-written kernels
-    ("kernel.builds", MetricKind.COUNTER, "kernel libraries built by nvcc (cache misses)"),
-    ("kernel.compileTimeNs", MetricKind.NANOS, "time spent in nvcc builds at first use"),
+    ("kernel.builds", MetricKind.COUNTER, "kernel and host libraries built by nvcc or g++ (cache misses)"),
+    ("kernel.compileTimeNs", MetricKind.NANOS, "time spent in nvcc and g++ builds at first use"),
     ("kernel.compileHist", MetricKind.HISTOGRAM,
-     "nvcc build time per kernel library (ns distribution)"),
+     "nvcc or g++ build time per library (ns distribution)"),
     # mem/spill.py — spill bytes by tier transition + device watermark
     ("spill.bytesDeviceToHost", MetricKind.COUNTER, "bytes spilled device → host RAM"),
     ("spill.bytesHostToDisk", MetricKind.COUNTER, "bytes spilled host RAM → disk"),

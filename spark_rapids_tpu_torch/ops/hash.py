@@ -21,8 +21,10 @@ uint32, so the torch path holds each 32-bit value in an int64 lane and masks
 it to 32 bits after every step. A 32-bit product would reach 2**64, past
 int64, so each multiplier constant is split into 16-bit halves and no
 product exceeds 2**48; a rotate stays below 2**47. The result is turned into
-int32 by the two's-complement rule. The JAX package's native host plane
-(``native/``) is not carried over: the numpy path is its reference.
+int32 by the two's-complement rule. As in the JAX package, the numpy path
+hands flat columns and ``Pmod`` to the native host plane's C++ murmur3
+(``native.py`` over ``native/srt_host.cc``) when that plane is built and
+enabled; the numpy code is its reference and its fallback.
 """
 from __future__ import annotations
 
@@ -272,6 +274,41 @@ def _hash_scalar_np(dt: DataType, value, seed_u32: np.uint32) -> np.uint32:
     return np.uint32(one[0])
 
 
+def _native_hash_column(dt: DataType, data, valid, lengths, seed_u32):
+    """Host path through the C++ murmur3 kernels (native/srt_host.cc;
+    bit-identical to the numpy path). Returns uint32[n], or None when the
+    native plane is unavailable or disabled."""
+    from .. import native
+
+    if not native.available():
+        return None
+    if isinstance(dt, StringType):
+        if getattr(data, "ndim", 1) != 2 or lengths is None:
+            data, lengths = np_strings_to_padded(data, np.asarray(valid).astype(bool))
+        n = data.shape[0]
+        h = np.broadcast_to(np.asarray(seed_u32, dtype=np.uint32), (n,)).copy()
+        native.murmur3_update("bytes", np.ascontiguousarray(data, dtype=np.uint8), valid, h,
+                              np.ascontiguousarray(lengths, dtype=np.int32))
+        return h
+    if isinstance(dt, BooleanType):
+        kind, arr = "bool", np.ascontiguousarray(data, dtype=np.uint8)
+    elif isinstance(dt, (LongType, TimestampType)):
+        kind, arr = "i64", np.ascontiguousarray(data, dtype=np.int64)
+    elif isinstance(dt, DecimalType):
+        if dt.precision > 18:
+            return None
+        kind, arr = "i64", np.ascontiguousarray(data, dtype=np.int64)
+    elif isinstance(dt, FloatType):
+        kind, arr = "f32", np.ascontiguousarray(data, dtype=np.float32)
+    elif isinstance(dt, DoubleType):
+        kind, arr = "f64", np.ascontiguousarray(data, dtype=np.float64)
+    else:  # byte/short/int/date
+        kind, arr = "i32", np.ascontiguousarray(data, dtype=np.int32)
+    h = np.broadcast_to(np.asarray(seed_u32, dtype=np.uint32), (arr.shape[0],)).copy()
+    native.murmur3_update(kind, arr, valid, h)
+    return h
+
+
 def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
     """One column's contribution: returns the new running hash (uint32[n]),
     leaving rows with NULL unchanged (Spark semantics)."""
@@ -288,6 +325,9 @@ def hash_column(xp, dt: DataType, data, valid, lengths, seed_u32):
         return out
     if is_torch(xp):
         return _t_hash_column(dt, data, valid, lengths, seed_u32)
+    nh = _native_hash_column(dt, data, valid, lengths, seed_u32)
+    if nh is not None:
+        return nh
     if isinstance(dt, StringType):
         if not is_torch(xp) and (getattr(data, "ndim", 1) != 2 or lengths is None):
             data, lengths = np_strings_to_padded(data, np.asarray(valid).astype(bool))
@@ -358,5 +398,9 @@ def partition_ids(xp, row_hash_i32, num_partitions: int):
     if is_torch(xp):
         # torch's % on tensors is the floor modulus, as numpy's
         return (row_hash_i32.to(torch.int64) % num_partitions).to(torch.int32)
+    from .. import native
+
+    if native.available():
+        return native.pmod(row_hash_i32, num_partitions)
     m = row_hash_i32 % np.int32(num_partitions)
     return xp.where(m < 0, m + np.int32(num_partitions), m).astype(xp.int32)

@@ -5,9 +5,8 @@ standalone, this module supplies the minimal logical algebra (resolution +
 schema propagation) that feeds the physical planner. Node vocabulary mirrors
 Spark's: Project, Filter, Aggregate, Join, Sort, Limit, Union, Expand, etc.
 
-Copied from ``spark_rapids_tpu/plan/logical.py`` (the write node, whose
-schema lives in the JAX package's I/O layer, is left out). The port's
-planner plans the subset its DataFrame builds.
+Copied from ``spark_rapids_tpu/plan/logical.py``. The port's planner plans
+the subset its DataFrame builds.
 """
 from __future__ import annotations
 
@@ -532,6 +531,30 @@ class AggregateInPandas(LogicalPlan):
             f"AggregateInPandas {self.grouping} "
             f"[{', '.join(u[0] for u in self.udfs)}]"
         )
+
+
+@dataclass
+class WriteFiles(LogicalPlan):
+    """Write command node (GpuDataWritingCommandExec analogue); output is
+    the per-file write stats."""
+
+    child: LogicalPlan
+    path: str
+    file_format: str
+    partition_by: list
+    options: dict
+
+    def children(self):
+        return [self.child]
+
+    @property
+    def schema(self) -> Schema:
+        from ..io.writer import STATS_SCHEMA
+
+        return STATS_SCHEMA
+
+    def _node_string(self):
+        return f"WriteFiles {self.file_format} {self.path}"
 
 
 def output_round_columns(plan: LogicalPlan):

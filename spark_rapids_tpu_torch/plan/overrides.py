@@ -449,6 +449,7 @@ _expr(nx.Greatest, check=_greatest_check)
 _expr(nx.Least, check=_greatest_check)
 
 for _cls in (msc.Murmur3Hash, msc.Md5, msc.SparkPartitionID, msc.MonotonicallyIncreasingID,
+             msc.InputFileName, msc.InputFileBlockStart, msc.InputFileBlockLength,
              msc.NormalizeNaNAndZero):
     _expr(_cls)
 
@@ -937,7 +938,9 @@ class GpuOverrides:
         rule = _EXEC_RULES.get(type(plan))
         reasons: List[str] = []
         if rule is None:
-            reasons.append(f"exec {type(plan).__name__} has no device implementation")
+            reasons.append(_HOST_BY_DESIGN.get(
+                type(plan).__name__,
+                f"exec {type(plan).__name__} has no device implementation"))
             self.explain.append(ExplainEntry(plan.node_string(), False, reasons))
             return plan.with_new_children(children)
         breaker_reason = (
@@ -1158,19 +1161,32 @@ class GpuOverrides:
         )
 
     # transition insertion (GpuTransitionOverrides)
-    def _insert_transitions(self, plan: Exec, want_device: bool) -> Exec:
+    def _insert_transitions(self, plan: Exec, want_device: bool,
+                            under_input_file: bool = False) -> Exec:
+        # input_file_name()/_block_*() read per-batch task state, so the
+        # scan→expression path must keep per-file batches: the coalesce
+        # disable propagates DOWN from the expression-bearing node and
+        # resets at exchanges (batches above a shuffle are mixed-file
+        # already — Spark reports "" there), as in the JAX package
+        # (GpuTransitionOverrides' input-file handling, :84-170)
+        local = _node_has_input_file_expr(plan)
+        is_exchange = isinstance(plan, (G.GpuShuffleExchangeExec, C.CpuShuffleExchangeExec))
+        child_flag = False if is_exchange else (under_input_file or local)
         new_children = [
-            self._insert_transitions(c, want_device=plan.is_device)
+            self._insert_transitions(c, want_device=plan.is_device, under_input_file=child_flag)
             for c in plan.children
         ]
         plan = plan.with_new_children(new_children)
         if plan.is_device and not want_device:
             return G.DeviceToHostExec(plan)
         if not plan.is_device and want_device:
+            h2d = G.HostToDeviceExec(plan)
+            if under_input_file or local:
+                return h2d
             # post-transition coalesce (GpuTransitionOverrides:84-91 +
             # GpuCoalesceBatches)
             return G.GpuCoalesceBatchesExec(
-                G.HostToDeviceExec(plan),
+                h2d,
                 G.CoalesceGoal(cfg.BATCH_SIZE_BYTES.get(self.conf)),
             )
         return plan
@@ -1191,3 +1207,38 @@ class GpuOverrides:
 
     def fallback_execs(self) -> List[str]:
         return [e.node for e in self.explain if not e.on_device]
+
+
+#: host execs that are off the device by design, with their explain reason
+_HOST_BY_DESIGN = {
+    "CpuFileScanExec": "file scans decode on the host (there is no device Parquet or CSV "
+                       "decode); their batches reach the device through HostToDevice",
+    "CpuWriteFilesExec": "file writes encode on the host side of DeviceToHost (there is no "
+                         "device Parquet or CSV encode)",
+}
+
+
+def _node_has_input_file_expr(node: Exec) -> bool:
+    """Whether THIS node's own expressions read the input-file task state
+    (input_file_name / input_file_block_start / input_file_block_length) —
+    the GpuTransitionOverrides condition that disables batch coalescing so
+    file boundaries survive to the expression."""
+    targets = (msc.InputFileName, msc.InputFileBlockStart, msc.InputFileBlockLength)
+
+    def expr_has(e) -> bool:
+        if isinstance(e, targets):
+            return True
+        try:
+            kids = e.children()
+        except Exception:
+            return False
+        return any(expr_has(c) for c in kids)
+
+    def scan_value(v) -> bool:
+        if isinstance(v, Expression):
+            return expr_has(v)
+        if isinstance(v, (list, tuple)):
+            return any(scan_value(x) for x in v)
+        return False
+
+    return any(scan_value(v) for k, v in vars(node).items() if k != "_children")

@@ -12,11 +12,13 @@ set, an Expand under them for several), sort, limit, union, repartition, joins
 (shuffled and broadcast hash joins with the JAX package's build-side
 choice, nested-loop and cartesian joins) and windows (a hash exchange on
 the partition keys, or a coalesce, under each window node), range,
-generate (explode) and the four pandas nodes (map, grouped map, cogrouped
+generate (explode), the four pandas nodes (map, grouped map, cogrouped
 map and grouped-aggregate pandas UDFs, with the JAX package's exchanges
-under them). A global sort over several partitions range-partitions on its
-keys and sorts each partition, as in the JAX package. File scans, file
-writes and cached relations come with the I/O slice. One
+under them), file scans (a filter's ``col <op> literal`` conjuncts pushed
+into the scan as ``__predicates`` for row-group, partition and bucket
+pruning) and file writes. A global sort over several partitions
+range-partitions on its keys and sorts each partition, as in the JAX
+package. Cached relations are resolved by the session before planning. One
 plan shape differs from the JAX package's: an ungrouped aggregate over
 several partitions exchanges its partials into one partition
 (``SinglePartitioning``) instead of coalescing them.
@@ -59,6 +61,15 @@ from ..plan.physical import Exec
 def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     if isinstance(lp, L.LocalRelation):
         return CpuScanExec(lp.table, lp.schema, lp.num_partitions, lp.source)
+    if isinstance(lp, L.FileScan):
+        from ..io.files import CpuFileScanExec
+
+        return CpuFileScanExec(lp.paths, lp.file_format, lp.schema, lp.options, conf)
+    if isinstance(lp, L.WriteFiles):
+        from ..io.writer import CpuWriteFilesExec
+
+        return CpuWriteFilesExec(plan_physical(lp.child, conf), lp.path, lp.file_format,
+                                 lp.partition_by, lp.options)
     if isinstance(lp, L.Range):
         from ..exec.cpu import CpuRangeExec
 
@@ -73,7 +84,18 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     if isinstance(lp, L.Project):
         return CpuProjectExec(lp.exprs, plan_physical(lp.child, conf))
     if isinstance(lp, L.Filter):
-        return CpuFilterExec(lp.condition, plan_physical(lp.child, conf))
+        child = lp.child
+        if isinstance(child, L.FileScan):
+            # predicate pushdown: conjuncts of col-vs-literal comparisons go
+            # to the scan for row-group + partition-value pruning (reference:
+            # GpuParquetFileFilterHandler; the Filter stays — stats pruning
+            # is conservative)
+            preds = _extract_pushdown(lp.condition)
+            if preds:
+                opts = dict(child.options)
+                opts["__predicates"] = tuple(preds)
+                child = dataclasses.replace(child, options=opts)
+        return CpuFilterExec(lp.condition, plan_physical(child, conf))
     if isinstance(lp, L.Aggregate):
         return _plan_aggregate(lp, conf)
     if isinstance(lp, L.Sort):
@@ -131,6 +153,41 @@ def plan_physical(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
     raise NotImplementedError(
         f"no physical plan for {type(lp).__name__} in the torch port yet"
     )
+
+
+def _extract_pushdown(e: Expression):
+    """Conjuncts shaped ``col <op> literal`` → (name, op, value) triples."""
+    from ..expr import predicates as prd
+    from ..expr.base import Literal
+
+    ops = {
+        prd.GreaterThan: ">",
+        prd.GreaterThanOrEqual: ">=",
+        prd.LessThan: "<",
+        prd.LessThanOrEqual: "<=",
+        prd.EqualTo: "=",
+    }
+    flip = {">": "<", ">=": "<=", "<": ">", "<=": ">=", "=": "="}
+    out = []
+
+    def walk(x):
+        if isinstance(x, prd.And):
+            for c in x.children():
+                walk(c)
+            return
+        op = ops.get(type(x))
+        if not op:
+            return
+        l, r = x.children()
+        if isinstance(l, UnresolvedAttribute) and isinstance(r, Literal):
+            if r.value is not None:
+                out.append((l.name, op, r.value))
+        elif isinstance(r, UnresolvedAttribute) and isinstance(l, Literal):
+            if l.value is not None:
+                out.append((r.name, flip[op], l.value))
+
+    walk(e)
+    return out
 
 
 def _plan_pandas(lp: L.LogicalPlan, conf: TpuConf) -> Exec:
@@ -203,6 +260,13 @@ def _estimate_size(lp: L.LogicalPlan) -> Optional[int]:
     sizeInBytes analogue) used only for broadcast-side selection."""
     if isinstance(lp, L.LocalRelation):
         return lp.table.nbytes
+    if isinstance(lp, L.FileScan):
+        import os
+
+        try:
+            return sum(os.path.getsize(p) for p in lp.paths)
+        except OSError:
+            return None
     if isinstance(lp, (L.Project, L.Filter, L.Sort, L.Limit, L.Hint, L.Repartition)):
         return _estimate_size(lp.children()[0])
     if isinstance(lp, L.Union):
@@ -223,8 +287,12 @@ def _has_broadcast_hint(lp: L.LogicalPlan) -> bool:
 
 def _num_partitions_hint(e: Exec) -> int:
     from ..exec.cpu import CpuRangeExec
+    from ..io.files import CpuFileScanExec
 
-    if isinstance(e, (CpuScanExec, CpuShuffleExchangeExec, CpuRangeExec)):
+    if isinstance(e, (CpuScanExec, CpuShuffleExchangeExec, CpuRangeExec, CpuFileScanExec)):
+        # a file scan's count is before pruning, which only takes files away
+        # (the JAX package counts a file scan as one partition whatever its
+        # files, and so aggregates a multi-file PERFILE scan per file)
         return e.num_partitions
     if isinstance(e, (CpuCoalescePartitionsExec, CpuLimitExec)):
         return 1

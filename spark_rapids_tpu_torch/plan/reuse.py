@@ -20,7 +20,10 @@ the subtree non-reusable.
 
 Copied from ``spark_rapids_tpu/plan/reuse.py`` without pyarrow: an
 in-memory table is the port's ``HostBatch``, compared by identity, and a
-scan's columns are its pruned batch's names. The session applies the pass
+scan's columns are its pruned batch's names. A file scan's key holds its
+pruned schema, which the JAX package's key leaves out (its ``_schema`` is
+private), so two scans of the same files that read different columns are
+not taken for one. The session applies the pass
 after whole-stage fusion, as the JAX session does.
 """
 from __future__ import annotations
@@ -98,6 +101,8 @@ def canonical_key(node: Exec):
         for k, v in sorted(vars(node).items())
         if k not in _SKIP_ATTRS and not k.startswith("_")
     )
+    if type(node).__name__ == "CpuFileScanExec":
+        params += (("output", _val_key(node.output)),)
     return (type(node), params, tuple(canonical_key(c) for c in node.children))
 
 

@@ -26,7 +26,8 @@ A query with no measurable inputs falls back to
 pool size — over-estimation degrades to serial execution, never deadlock.
 
 Copied from ``spark_rapids_tpu/sched/estimate.py`` with the port's leaves
-(in-memory scans only: file scans come with the I/O slice) and widths;
+(in-memory scans, and file scans at their bytes on disk times the format's
+expansion, as there) and widths;
 its plan-cost estimate waits for the subplan sharing it serves (the
 caches slice).
 """
@@ -66,14 +67,32 @@ def _walk(node):
         yield from _walk(c)
 
 
+#: decoded bytes per byte on disk, by file format (the JAX package's)
+_FORMAT_EXPANSION = {"parquet": 3.0, "csv": 1.5}
+
+
 def _leaf_bytes_rows(node) -> Optional[tuple]:
     """(host bytes, padded rows) for a source leaf; None for non-sources."""
-    if type(node).__name__ == "CpuScanExec":
+    from ..columnar.device import bucket_capacity
+
+    name = type(node).__name__
+    if name == "CpuScanExec":
         t = getattr(node, "table", None)
         if t is not None:
-            from ..columnar.device import bucket_capacity
-
             return max(int(t.nbytes), 1), bucket_capacity(max(int(t.num_rows), 1))
+    if name == "CpuFileScanExec":
+        import os
+
+        disk = 0
+        for f in node.files:
+            try:
+                disk += os.path.getsize(f)
+            except OSError:
+                pass
+        if disk:
+            decoded = int(disk * _FORMAT_EXPANSION.get(node.fmt, 2.0))
+            rows = max(1, decoded // row_width_bytes(node.output))
+            return decoded, bucket_capacity(rows)
     return None
 
 

@@ -49,8 +49,17 @@ Columns from a dict carry no nulls except strings (None); pass a
 ``HostBatch`` or an Arrow table for nullable fixed-width columns. Plans are column-pruned before
 planning (``plan/pruning.py``), and the session keeps the device batches of
 its in-memory tables in an upload cache (``_h2d_cache``, filled by
-``HostToDeviceExec``), as the JAX session does. ``df.cache()`` and the
-serving layers come with later slices.
+``HostToDeviceExec``), as the JAX session does.
+
+Files: ``session.read`` (``DataFrameReader``: ``parquet``, ``csv``,
+``option``, the alluxio path rewrite, bucket specs and scan roots; ``orc``
+raises, naming ROADMAP item 10b) and ``df.write`` (``io/writer.py``'s
+``DataFrameWriter``) over the port's own Parquet and CSV codecs
+(``io/``). ``df.cache()`` materializes its plan once, on first use, and
+keeps the result as the port's own SNAPPY Parquet bytes (the JAX session
+keeps ZSTD, which the port does not write), decoded once on the next use
+and served as an in-memory relation from then on; ``unpersist()`` drops it
+and its device uploads. The serving layers come with later slices.
 """
 from __future__ import annotations
 
@@ -114,6 +123,10 @@ class TorchSession:
         ):
             self.conf = self.conf.set(cfg.ADAPTIVE_ENABLED.key, True)
         self.device = _resolve_device(device)
+        # native host data plane gate (spark.rapids.native.enabled)
+        from . import native as _native
+
+        _native.set_enabled(cfg.NATIVE_ENABLED.get(self.conf))
         if (
             cfg.SQL_ENABLED.get(self.conf)
             and self.conf.get_raw(cfg.SHUFFLE_PARTITIONS.key) is None
@@ -130,6 +143,10 @@ class TorchSession:
         self._h2d_lock = threading.Lock()
         # SQL temp views: lower-cased name -> DataFrame
         self._temp_views: dict = {}
+        # df.cache(): cache key -> entry (Parquet bytes, then the decoded
+        # batch), single-flight under the lock
+        self._cache_lock = threading.Lock()
+        self._cache_store: dict = {}
         # the last query's task re-executions (spark.task.maxFailures)
         self._task_retries = 0
         # resilience: the session-lifetime CPU-fallback circuit breaker
@@ -265,6 +282,10 @@ class TorchSession:
 
     createDataFrame = create_dataframe
 
+    @property
+    def read(self) -> "DataFrameReader":
+        return DataFrameReader(self)
+
     def range(self, start: int, end: Optional[int] = None, step: int = 1,
               num_partitions: int = 1) -> "DataFrame":
         """``spark.range``: one ``id`` column of longs; on the device the ids
@@ -355,6 +376,110 @@ class TorchSession:
 
         return L.transform_expressions(lp, fix)
 
+    def _resolve_cached(self, lp: L.LogicalPlan) -> L.LogicalPlan:
+        """Materialize InMemoryRelation nodes: first touch executes the
+        subtree and stores the result as PARQUET BYTES in memory (the
+        ParquetCachedBatchSerializer analogue — compressed columnar cache,
+        reference shims/spark311/ParquetCachedBatchSerializer.scala);
+        later touches decode from the store."""
+        import dataclasses as _dc
+
+        if not isinstance(lp, L.LogicalPlan):
+            return lp
+        if isinstance(lp, L.InMemoryRelation):
+            entry = self._cache_entry(lp)
+            return L.LocalRelation(entry["table"], lp.schema, lp.num_partitions)
+        kw = {}
+        changed = False
+        for f in _dc.fields(lp):
+            v = getattr(lp, f.name)
+            if isinstance(v, L.LogicalPlan):
+                nv = self._resolve_cached(v)
+            elif isinstance(v, list) and v and isinstance(v[0], L.LogicalPlan):
+                nv = [self._resolve_cached(c) for c in v]
+            else:
+                nv = v
+            kw[f.name] = nv
+            if nv is not v:
+                changed = True
+        return _dc.replace(lp, **kw) if changed else lp
+
+    def _cache_entry(self, lp: "L.InMemoryRelation") -> dict:
+        """Materialize (or await) one InMemoryRelation's cache entry with
+        SINGLE-FLIGHT semantics: the first toucher of a cold key executes
+        the subtree; concurrent touchers of the same key block on its done
+        event instead of re-executing the subtree or racing the dict. A
+        failed materialization clears the key and raises only to the OWNER;
+        waiters retry ownership themselves — the owner's failure may be its
+        own cancellation or deadline, which must not poison another query.
+        The store holds the port's SNAPPY Parquet bytes (the JAX session's
+        holds ZSTD)."""
+        import io
+
+        from .io.parquet import read_table, write_table
+
+        while True:
+            with self._cache_lock:
+                store = self._cache_store
+                entry = store.get(lp.cache_key)
+                owner = entry is None
+                if owner:
+                    entry = {
+                        "bytes": None,
+                        "table": None,
+                        "error": None,
+                        "done": threading.Event(),
+                        "lock": threading.Lock(),
+                    }
+                    store[lp.cache_key] = entry
+            if owner:
+                try:
+                    table = self._execute(lp.child)
+                    buf = io.BytesIO()
+                    write_table(table, buf, "snappy")
+                    entry["bytes"] = buf.getvalue()
+                except BaseException as e:
+                    entry["error"] = e
+                    with self._cache_lock:
+                        if store.get(lp.cache_key) is entry:
+                            del store[lp.cache_key]
+                    raise
+                finally:
+                    entry["done"].set()
+                break
+            # this wait predates the waiter's own admission, so
+            # session.cancel_all() reaches it through the scheduler's cancel
+            # epoch instead
+            from .sched import QueryCancelledError
+
+            epoch = self._scheduler.cancel_epoch
+            while not entry["done"].wait(0.05):
+                if self._scheduler.cancel_epoch != epoch:
+                    raise QueryCancelledError(
+                        f"cancel_all while waiting on cache ({lp.cache_key}) materialization"
+                    )
+            if entry["error"] is None:
+                break  # materialized: decode below
+        with entry["lock"]:
+            if entry["table"] is None:
+                entry["table"] = read_table(entry["bytes"])
+                # the decoded batch serves all later reads (and anchors the
+                # device-upload cache); the compressed bytes are done
+                entry["bytes"] = None
+        return entry
+
+    def uncache(self, key: int) -> None:
+        with self._cache_lock:
+            entry = self._cache_store.pop(key, None)
+        if entry and entry.get("table") is not None:
+            # also evict the device uploads anchored on the decoded batch —
+            # unpersist() must actually free device memory
+            tid = id(entry["table"])
+            with self._h2d_lock:
+                h2d = self._h2d_cache
+                for k in [k for k in h2d if len(k) > 1 and k[1] == tid]:
+                    h2d.pop(k, None)
+
     def _physical_plan(self, lp: L.LogicalPlan, metrics=None):
         """(device plan, overrides) of a logical plan: subquery resolution
         (its counters add to ``metrics``; the overrides' explain begins
@@ -369,6 +494,7 @@ class TorchSession:
         from .expr.strings_ext import StringSplit
 
         sub_explain: list = []
+        lp = self._resolve_cached(lp)
         lp = self._resolve_subqueries(lp, metrics, sub_explain)
         if cfg.UDF_COMPILER_ENABLED.get(self.conf):
             lp = self._translate_udfs(lp)
@@ -752,7 +878,9 @@ class TorchSession:
             return
         allowed = (cfg.TEST_ALLOWED_NONTPU.get(self.conf) or "").split(",")
         allowed = {a.strip() for a in allowed if a.strip()}
-        allowed |= {"CpuScan", "DeviceToHost", "HostToDevice"}
+        # file scans and writes decode and encode on the host by design
+        # (io/files.py, io/writer.py)
+        allowed |= {"CpuScan", "CpuFileScan", "DeviceToHost", "HostToDevice", "WriteFiles"}
         bad = []
         for e in overrides.explain:
             if e.on_device:
@@ -884,6 +1012,90 @@ def _nested_type_of(values):
     if isinstance(v, tuple):
         raise TypeError("a column of tuples is a struct: pass a schema naming its fields")
     return None
+
+
+class DataFrameReader:
+    """``session.read``: Parquet and CSV files (and directories and globs
+    of them) as DataFrames; ``orc`` raises, naming ROADMAP item 10b."""
+
+    def __init__(self, session: TorchSession):
+        self._session = session
+        self._options: dict = {}
+
+    def option(self, k: str, v) -> "DataFrameReader":
+        self._options[k] = v
+        return self
+
+    def _rewrite(self, paths) -> tuple:
+        """spark.rapids.alluxio.pathsToReplace: 'src->dst' prefix rewrites
+        applied before file listing (RapidsConf.scala:929 — route cloud
+        reads through a cache mount)."""
+        raw = cfg.ALLUXIO_PATHS_TO_REPLACE.get(self._session.conf)
+        if not raw:
+            return tuple(paths)
+        rules = []
+        for part in raw.split(","):
+            if "->" in part:
+                src, dst = part.split("->", 1)
+                rules.append((src.strip(), dst.strip()))
+        out = []
+        for p in paths:
+            for src, dst in rules:
+                if p.startswith(src):
+                    p = dst + p[len(src):]
+                    break
+            out.append(p)
+        return tuple(out)
+
+    def _bucket_options(self, paths) -> dict:
+        """Attach the _bucket_spec.json sidecar (one consistent spec across
+        all roots) so the scan can bucket-prune (io/bucketing.py)."""
+        import os
+
+        from .io.bucketing import read_spec
+
+        opts = dict(self._options)
+        dirs = [p for p in paths if os.path.isdir(p)]
+        specs = [s for s in (read_spec(p) for p in dirs) if s is not None]
+        if specs and all(s == specs[0] for s in specs) and len(specs) == len(dirs):
+            opts["__bucket_spec"] = specs[0]
+        return self._root_options(paths, opts)
+
+    @staticmethod
+    def _root_options(roots, opts: dict) -> dict:
+        """Record the scan ROOTS (not just the expanded files) on the scan
+        node, as the JAX session does for its result cache's keys."""
+        import os
+
+        opts["__roots"] = tuple(os.path.realpath(r) for r in roots)
+        return opts
+
+    def parquet(self, *paths: str) -> "DataFrame":
+        from .io.files import expand_paths, infer_schema
+
+        roots = self._rewrite(paths)
+        files = expand_paths(roots, "parquet")
+        schema = infer_schema(files, "parquet", self._options)
+        return DataFrame(self._session,
+                         L.FileScan(files, "parquet", schema, self._bucket_options(roots)))
+
+    def csv(self, *paths: str, **kwargs) -> "DataFrame":
+        from .io.files import expand_paths, infer_schema
+
+        opts = dict(self._options)
+        opts.update(kwargs)
+        # shim-routed default (SparkShims seam): what string reads as NULL
+        opts.setdefault("nullValue", self._session.shim.csv_null_value())
+        roots = self._rewrite(paths)
+        files = expand_paths(roots, "csv")
+        schema = infer_schema(files, "csv", opts)
+        return DataFrame(self._session,
+                         L.FileScan(files, "csv", schema, self._root_options(roots, opts)))
+
+    def orc(self, *paths: str) -> "DataFrame":
+        from .io.files import orc_not_ported
+
+        raise orc_not_ported("read.orc")
 
 
 def _to_exprs(cols: Sequence[Union[str, Column, Expression]]) -> List[Expression]:
@@ -1254,6 +1466,36 @@ class DataFrame:
         self._session.create_or_replace_temp_view(name, self)
 
     createOrReplaceTempView = create_or_replace_temp_view
+
+    def cache(self) -> "DataFrame":
+        """Materialize this DataFrame's result on first use and serve later
+        uses from a Parquet-compressed in-memory store (the
+        ParquetCachedBatchSerializer analogue)."""
+        import itertools
+
+        counter = self._session.__dict__.setdefault("_cache_ids", itertools.count(1))
+        key = next(counter)
+
+        def parts_of(p) -> int:
+            own = getattr(p, "num_partitions", 0)
+            kids = [parts_of(c) for c in p.children()]
+            return max([own] + kids + [1])
+
+        return DataFrame(self._session, L.InMemoryRelation(self._plan, key, parts_of(self._plan)))
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        if isinstance(self._plan, L.InMemoryRelation):
+            self._session.uncache(self._plan.cache_key)
+            return DataFrame(self._session, self._plan.child)
+        return self
+
+    @property
+    def write(self):
+        from .io.writer import DataFrameWriter
+
+        return DataFrameWriter(self)
 
     # ── actions ─────────────────────────────────────────────────────────
     def to_host(self) -> HostBatch:

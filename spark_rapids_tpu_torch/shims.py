@@ -11,8 +11,8 @@ another Spark version is one subclass, not a code audit. The session
 selects the shim from ``spark.rapids.tpu.sparkVersion``.
 
 Copied whole from ``spark_rapids_tpu/shims.py``. The port's session reads
-the ANSI and adaptive defaults; the CSV ``nullValue`` and Parquet rebase
-hooks wait for the port's readers and writers.
+the ANSI and adaptive defaults, its CSV reader the ``nullValue`` default
+and its Parquet writer the rebase mode (``io/writer.py::_rebase_guard``).
 """
 from __future__ import annotations
 

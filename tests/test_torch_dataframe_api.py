@@ -49,10 +49,7 @@ REF_MODULES = (
 )
 
 #: reference tests not mirrored, each with the ROADMAP item it waits for
-NOT_IN_SLICE = {
-    "test_basic_ops::test_cache_roundtrip_and_reuse": "df.cache() (item 10)",
-    "test_expr_tail::test_input_file_block_differential": "file scans (item 10)",
-}
+NOT_IN_SLICE: dict = {}
 
 #: reference tests an earlier slice's port test mirrors already
 MIRRORED_ELSEWHERE = {
@@ -99,6 +96,8 @@ def to_port(obj):
     if not mod.startswith("spark_rapids_tpu."):
         return obj
     cls = _port_class(obj)
+    if type(obj).__name__ == "Schema":
+        return cls([to_port(f) for f in obj.fields])
     if dataclasses.is_dataclass(obj):
         return cls(**{
             f.name: to_port(getattr(obj, f.name))
@@ -193,6 +192,23 @@ class PortSession(_Forward):
         return PortFrame(self._s.create_dataframe(data, to_port(schema), num_partitions))
 
     createDataFrame = create_dataframe
+
+    @property
+    def read(self):
+        """The port's ``DataFrameReader``, driven by JAX-package arguments."""
+        return PortReader(self._s.read)
+
+
+class PortReader(_Forward):
+    """A port ``DataFrameReader``: options and paths in, a wrapped port
+    DataFrame out (``option`` returns the wrapper again)."""
+
+    def __init__(self, reader):
+        self._target = reader
+
+    def option(self, k, v):
+        self._target.option(k, to_port(v))
+        return self
 
 
 def assert_jax_cpu_and_port_equal(

@@ -47,9 +47,7 @@ REF_MODULES = (
 )
 
 #: reference tests not mirrored, each with the part of the port it waits for
-NOT_IN_SLICE = {
-    "test_misc_exprs::test_input_file_name": "InputFileName (I/O)",
-}
+NOT_IN_SLICE: dict = {}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,13 +85,16 @@ CASES = _mirrored()
 
 
 @pytest.mark.parametrize("module,fname,kwargs", CASES)
-def test_mirror(module, fname, kwargs, monkeypatch):
+def test_mirror(module, fname, kwargs, monkeypatch, request):
     mod = importlib.import_module(module)
     fn = getattr(mod, fname)
     monkeypatch.setattr(mod, "assert_cpu_and_tpu_equal", assert_jax_cpu_and_port_equal,
                         raising=False)
     monkeypatch.setattr(mod, "tpu_session", PortSession, raising=False)
-    fn(**kwargs)
+    # the pytest fixtures the reference test names (tmp_path)
+    fixtures = {n: request.getfixturevalue(n) for n in inspect.signature(fn).parameters
+                if n not in kwargs}
+    fn(**kwargs, **fixtures)
 
 
 def test_mirror_covers_every_suite():

@@ -17,7 +17,9 @@ rows, injected OOMs around ``Contains`` with the kernel's masks exact, and
 a spill-catalog buffer's walk device → pinned host → disk → device; and
 the query runtime's checks (a)–(e): fused = unfused, the four task and
 pipeline settings bit-identical, concurrent = serial with a deadline,
-speculation and the watchdog, the ledger and the trace. Each test decides
+speculation and the watchdog, the ledger and the trace; and files: a
+Parquet write read back into a device aggregate with row-group pruning,
+and a cached file read served from its store. Each test decides
 in its body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -925,3 +927,79 @@ def test_generate_and_collect_width_on_gpu():
     n = (10_000_000 + 2) // 3
     assert r == [(3 * n * (n - 1) // 2,)]
     assert gpu._last_metrics["hostToDeviceBytes"] == 0
+
+
+@pytest.mark.gpu
+def test_files_write_read_aggregate_on_gpu(tmp_path):
+    """TPC-H lineitem at SF 0.01 written with the port's Parquet writer and
+    read back (COALESCING) into q1 and a pruned q6-shaped aggregate on the
+    card: rows equal to the CPU engine over the in-memory table, at least
+    one row group pruned by the ``l_orderkey`` range."""
+    _need_gpu()
+    _orders, li = gen_orders_lineitem(0.01, 7)
+    path = str(tmp_path / "lineitem")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    from spark_rapids_tpu_torch.io import parquet as P
+
+    monkey_rows = P.ROW_GROUP_ROWS
+    P.ROW_GROUP_ROWS = 8192  # several row groups at this size
+    try:
+        cpu.create_dataframe(li, num_partitions=2).write.parquet(path)
+    finally:
+        P.ROW_GROUP_ROWS = monkey_rows
+    gpu = TorchSession({"spark.rapids.sql.enabled": True, "spark.rapids.sql.test.enabled": True},
+                       device="cuda")
+    got = tpch_query(1, lambda t: gpu.read.parquet(path), 0.01).collect()
+    want = tpch_query(1, lambda t: cpu.create_dataframe(li), 0.01).collect()
+    ok, msg = rows_equal(got, want)
+    assert ok, msg
+    hi = int(li.column("l_orderkey").data.max()) // 4
+
+    def ranged(s, df):
+        return df.filter(F.col("l_orderkey") < hi).agg(
+            F.sum(F.col("l_extendedprice") * F.col("l_discount")).alias("revenue"),
+            F.count(F.col("l_orderkey")).alias("n"))
+
+    got = ranged(gpu, gpu.read.parquet(path)).collect()
+    assert gpu._last_metrics["fileScanFiles"] == 2
+    scans = []
+    stack = [gpu._last_plan]
+    while stack:
+        n = stack.pop()
+        if type(n).__name__ == "CpuFileScanExec":
+            scans.append(n)
+        stack.extend(n.children)
+    assert scans and scans[0].pruned_row_groups >= 1
+    ok, msg = rows_equal(got, ranged(cpu, cpu.create_dataframe(li)).collect())
+    assert ok, msg
+
+
+@pytest.mark.gpu
+def test_files_cached_read_on_gpu(tmp_path):
+    """A cached filtered file read: two device aggregates over it equal the
+    CPU engine's, the second reads no file and uploads nothing, and
+    ``unpersist()`` empties the store."""
+    _need_gpu()
+    orders = gen_table("orders", 0.01, 7)
+    path = str(tmp_path / "orders")
+    cpu = TorchSession({"spark.rapids.sql.enabled": False}, device="cpu")
+    cpu.create_dataframe(orders).write.parquet(path)
+    gpu = TorchSession({"spark.rapids.sql.enabled": True, "spark.rapids.sql.test.enabled": True},
+                       device="cuda")
+    base = gpu.read.parquet(path).filter(F.col("o_totalprice") > 1000.0).cache()
+
+    def agg(df):
+        return df.group_by("o_orderpriority").agg(F.count(F.col("o_orderkey")).alias("n"),
+                                                 F.sum(F.col("o_totalprice")).alias("p"))
+
+    first = sorted(agg(base).collect())
+    second = sorted(agg(base).collect())
+    assert gpu._last_metrics["fileScanFiles"] == 0
+    assert gpu._last_metrics["hostToDeviceBytes"] == 0
+    want = sorted(agg(cpu.read.parquet(path).filter(F.col("o_totalprice") > 1000.0)).collect())
+    for rows in (first, second):
+        ok, msg = rows_equal(rows, want)
+        assert ok, msg
+    assert len(gpu._cache_store) == 1
+    base.unpersist()
+    assert len(gpu._cache_store) == 0

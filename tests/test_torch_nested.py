@@ -242,7 +242,7 @@ def test_nested_upload_gather_concat_download_equal_jax():
 
 def test_nested_batch_spills_and_restores_bit_for_bit(tmp_path):
     """A nested batch walks device → host → disk in the spill catalog (each
-    child plane under its own path key in the ``.npz`` frame) and comes
+    child plane under its own path key in the ``.srtf`` frame) and comes
     back plane for plane; the catalog counts every child plane's bytes."""
     from spark_rapids_tpu_torch.columnar.device import column_planes
     from spark_rapids_tpu_torch.mem import spill as PS
@@ -257,8 +257,15 @@ def test_nested_batch_spills_and_restores_bit_for_bit(tmp_path):
     cat.host_limit = 0
     cat.synchronous_spill(0)
     assert cat._buffers[h.id].tier == PS.StorageTier.DISK
-    with np.load(cat._buffers[h.id].path) as z:
-        assert {"d1.0", "v1.0", "d2.0", "l2.0", "d3.1", "v4.1"} <= set(z.files)
+    import json
+
+    from spark_rapids_tpu_torch import native
+
+    path = cat._buffers[h.id].path
+    assert path.endswith(".srtf")
+    with open(path, "rb") as f:
+        names = json.loads(bytes(native.frame_unpack(f.read())[0]))["names"]
+    assert {"d1.0", "v1.0", "d2.0", "l2.0", "d3.1", "v4.1"} <= set(names)
     got = [t for c in h.get_batch().columns for t in column_planes(c)]
     assert len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(want, got))

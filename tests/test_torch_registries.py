@@ -30,11 +30,12 @@ PORTED = {
     "test_typesig_shim_coalesce::test_shim_selection_and_defaults":
         "test_shim_selection_and_defaults",
     "test_typesig_shim_coalesce::test_coalesce_batches_merges_small_scan_batches":
-        "item 10 (Parquet scans)",
-    "test_typesig_shim_coalesce::test_shim_parquet_rebase_write": "item 10 (Parquet writer)",
-    "test_typesig_shim_coalesce::test_shim_csv_null_value_routed": "item 10 (CSV reader)",
+        "test_coalesce_batches_merges_small_scan_batches",
+    "test_typesig_shim_coalesce::test_shim_parquet_rebase_write": "test_shim_parquet_rebase_write",
+    "test_typesig_shim_coalesce::test_shim_csv_null_value_routed":
+        "test_shim_csv_null_value_routed",
     "test_typesig_shim_coalesce::test_rebase_guard_respects_timestamp_unit":
-        "item 10 (Parquet writer)",
+        "test_rebase_guard_respects_timestamp_unit",
     "test_config_docs::test_every_registered_key_is_read_somewhere":
         "test_every_registered_key_is_read_somewhere",
     "test_config_docs::test_docs_generate_and_cover_all_public_keys":
@@ -144,6 +145,94 @@ def test_shim_selection_and_defaults():
     assert cfg.ADAPTIVE_ENABLED.get(s2.conf) is False
     assert _session().shim.version == "3.1"
     assert cfg.ADAPTIVE_ENABLED.get(_session().conf) is False
+
+
+def test_shim_parquet_rebase_write(tmp_path):
+    """The 3.1/3.2 shims refuse pre-Gregorian-cutover dates in Parquet
+    writes (rebase EXCEPTION mode), as the JAX session does; the 3.3 shim
+    writes them as they are (CORRECTED), read back by both readers."""
+    import datetime
+
+    import pyarrow as pa
+
+    from spark_rapids_tpu import TpuSession
+
+    t = pa.table({"d": pa.array([datetime.date(1500, 1, 1)])})
+    s = _session({"spark.rapids.sql.enabled": False}, strict=False)
+    with pytest.raises(ValueError, match="1582") as got:
+        s.create_dataframe(t).write.parquet(str(tmp_path / "old"))
+    with pytest.raises(ValueError) as want:
+        TpuSession({"spark.rapids.sql.enabled": False}).create_dataframe(t).write.parquet(
+            str(tmp_path / "old_jax"))
+    assert str(got.value) == str(want.value)
+    s33 = _session({"spark.rapids.sql.enabled": False, "spark.rapids.tpu.sparkVersion": "3.3"},
+                   strict=False)
+    s33.create_dataframe(t).write.parquet(str(tmp_path / "ok"))
+    assert s33.read.parquet(str(tmp_path / "ok")).collect() == [(datetime.date(1500, 1, 1),)]
+    jax33 = TpuSession({"spark.rapids.sql.enabled": False, "spark.rapids.tpu.sparkVersion": "3.3"})
+    assert jax33.read.parquet(str(tmp_path / "ok")).collect() == [(datetime.date(1500, 1, 1),)]
+    s.create_dataframe(pa.table({"d": pa.array([datetime.date(2020, 5, 4)])})).write.parquet(
+        str(tmp_path / "new"))
+
+
+def test_shim_csv_null_value_routed(tmp_path):
+    """The shim's ``nullValue`` default ("") reaches the port's CSV reader;
+    a ``nullValue`` option replaces it — rows as the JAX session reads
+    them."""
+    from spark_rapids_tpu import TpuSession
+
+    p = str(tmp_path / "x.csv")
+    with open(p, "w") as f:
+        f.write("a,b\n1,\n2,NULLISH\n")
+    s = _session({"spark.rapids.sql.enabled": False}, strict=False)
+    j = TpuSession({"spark.rapids.sql.enabled": False})
+    for sess in (s, j):
+        assert sess.read.option("header", "true").csv(p).collect() == [(1, None), (2, "NULLISH")]
+        rows2 = sess.read.option("header", "true").option("nullValue", "NULLISH").csv(p).collect()
+        assert rows2 == [(1, ""), (2, None)]
+
+
+def test_rebase_guard_respects_timestamp_unit(tmp_path):
+    """A 1960 timestamp[ns] is after the cutover and writes; a 1500
+    timestamp[s] is refused (the port holds microseconds, so each Arrow
+    unit is scaled on the way in)."""
+    import datetime
+
+    import pyarrow as pa
+
+    s = _session({"spark.rapids.sql.enabled": False}, strict=False)
+    ok = pa.table({"t": pa.array([datetime.datetime(1960, 1, 1)], type=pa.timestamp("ns"))})
+    s.create_dataframe(ok).write.parquet(str(tmp_path / "ns"))
+    old = pa.table({"t": pa.array([int(-1.48e10)], type=pa.timestamp("s"))})
+    with pytest.raises(ValueError, match="1582"):
+        s.create_dataframe(old).write.parquet(str(tmp_path / "s"))
+
+
+def test_coalesce_batches_merges_small_scan_batches(tmp_path):
+    """Ten one-file batches coalesce into one device batch before compute
+    (the TargetSize goal), with rows equal to the JAX engines'."""
+    import pyarrow as pa
+    import pyarrow.parquet as papq
+
+    from spark_rapids_tpu import TpuSession
+    from spark_rapids_tpu.functions import col as jcol
+    from spark_rapids_tpu.functions import sum as jsum
+    from spark_rapids_tpu_torch.functions import col, sum as sum_
+
+    for i in range(10):
+        papq.write_table(pa.table({"x": pa.array(range(i * 10, i * 10 + 10))}),
+                         str(tmp_path / f"f{i}.parquet"))
+    s = _session()
+    rows = (s.read.option("readerType", "COALESCING").parquet(str(tmp_path))
+            .agg(sum_(col("x")).alias("s")).collect())
+    want = (TpuSession({"spark.rapids.sql.enabled": False}).read
+            .option("readerType", "COALESCING").parquet(str(tmp_path))
+            .agg(jsum(jcol("x")).alias("s")).collect())
+    assert rows == want == [(sum(range(100)),)]
+    m = s._last_plan.collect_metrics()
+    coalesce_counts = [d.get("numOutputBatches") for k, d in m.items()
+                       if "GpuCoalesceBatches" in k]
+    assert coalesce_counts and coalesce_counts[0] == 1, m
 
 
 def test_unknown_spark_version_raises_as_jax():

@@ -3,8 +3,8 @@ through the weighted permit pool, fair-share pools, the bounded queue,
 cancellation, deadlines, the working-set estimate, and concurrent queries
 bit-identical to their serial runs.
 
-Ported from the JAX package's ``tests/test_scheduler.py`` (its df.cache()
-cases wait for the caches slice). The port's ``WeightedPermitPool`` is
+Ported from the JAX package's ``tests/test_scheduler.py``, its df.cache()
+single-flight cases included. The port's ``WeightedPermitPool`` is
 held against the JAX package's under one scripted sequence of requests:
 the same admission order. A query that must stay running long enough to
 be cancelled runs under the kernel-stall fault point (each device launch
@@ -514,3 +514,53 @@ def test_oom_pressure_shrinks_a_large_admission_instead_of_waiting():
         R.reset()
     assert pool.acquire(8) == 8
     pool.release(8)
+
+
+def test_cache_cold_hit_single_flight():
+    """Two threads racing the same cold cache key execute the subtree
+    exactly once; both read identical results."""
+    pytest.importorskip("pandas")
+    s = TorchSession({}, device="cpu")
+    runs = [0]
+    runs_lock = threading.Lock()
+
+    def fn(it):
+        with runs_lock:
+            runs[0] += 1
+        for pdf in it:
+            time.sleep(0.05)  # widen the race window
+            yield pdf
+
+    cached = s.create_dataframe({"a": np.arange(50)}).map_in_pandas(fn, "a long").cache()
+    results: list = [None, None]
+
+    def client(i: int) -> None:
+        results[i] = sorted(cached.collect())
+
+    th = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for x in th:
+        x.start()
+    for x in th:
+        x.join(timeout=60)
+    assert results[0] == results[1] == [(i,) for i in range(50)]
+    assert runs[0] == 1, f"cached subtree executed {runs[0]} times"
+
+
+def test_cache_failed_materialization_retries():
+    """A failed materialization clears its entry: the next touch runs the
+    subtree again and succeeds."""
+    pytest.importorskip("pandas")
+    s = TorchSession({}, device="cpu")
+    failing = [True]  # persists across task-retry attempts (lineage re-run)
+
+    def fn(it):
+        if failing[0]:
+            raise ValueError("flaky source")
+        yield from it
+
+    cached = s.create_dataframe({"a": np.array([1, 2, 3])}).map_in_pandas(fn, "a long").cache()
+    with pytest.raises(Exception, match="flaky source"):
+        cached.collect()
+    assert not s._cache_store
+    failing[0] = False
+    assert sorted(cached.collect()) == [(1,), (2,), (3,)]

@@ -433,8 +433,8 @@ def test_leak_is_reported_at_query_end(caplog, monkeypatch):
 
 def test_host_tier_holds_the_exact_tensors():
     """The host copy of a spilled buffer is bit-identical, and the disk
-    tier's ``.npz`` gives it back bit for bit (the card's pinned copies
-    are checked in tests/test_torch_gpu.py)."""
+    tier's ``.srtf`` frame gives it back bit for bit (the card's pinned
+    copies are checked in tests/test_torch_gpu.py)."""
     cat = PS.BufferCatalog()
     db = _Port.batch(200, seed=5)
     want = [t.clone() for t in PS._tensors(db)]
@@ -448,3 +448,47 @@ def test_host_tier_holds_the_exact_tensors():
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(want, got))
     h.close()
     assert PRT.report()["spill_write_errors"] == 0
+
+
+@pytest.mark.parametrize("native_on", [True, False], ids=["srtf", "npz"])
+def test_disk_tier_frame_format(native_on, tmp_path):
+    """The DISK tier writes one contiguous ``.srtf`` frame through the
+    native host plane (the JAX spill's format: its own loader unpacks the
+    file), and ``.npz`` with the plane disabled; both restore the batch,
+    a string column and a nested one included, bit for bit."""
+    from spark_rapids_tpu import native as JN
+    from spark_rapids_tpu_torch import native as PN
+    from spark_rapids_tpu_torch.columnar.host import HostBatch, column_from_pylist
+    from spark_rapids_tpu_torch.types import ArrayType, LONG, Schema, StructField
+
+    rb = _record_batch(64, seed=9)
+    hb = from_arrow(rb)
+    lists = column_from_pylist([[i, None, i * 2] if i % 3 else None for i in range(64)],
+                               ArrayType(LONG))
+    schema = Schema(list(hb.schema.fields) + [StructField("l", ArrayType(LONG))])
+    hb = HostBatch(schema, hb.columns + [lists], 64)
+    db = PD.host_to_device(hb, torch.device("cpu"))
+    want = [t.clone() for t in PS._tensors(db)]
+    PN.set_enabled(native_on)
+    try:
+        cat = PS.BufferCatalog(spill_dir=str(tmp_path))
+        h = cat.register(db)
+        del db
+        cat.synchronous_spill(1)
+        cat.host_limit = 0
+        cat.synchronous_spill(0)
+        buf = cat._buffers[h.id]
+        assert buf.tier == PS.StorageTier.DISK
+        assert buf.path.endswith(".srtf" if native_on else ".npz")
+        if native_on:
+            with open(buf.path, "rb") as f:
+                views = JN.frame_unpack(f.read())
+            import json
+
+            meta = json.loads(bytes(views[0]))
+            assert len(views) == 1 + len(meta["names"]) and "num_rows" in meta["names"]
+        got = PS._tensors(h.get_batch())
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(want, got))
+        h.close()
+    finally:
+        PN.set_enabled(True)

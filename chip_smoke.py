@@ -163,7 +163,27 @@ run before any device run, each CPU-engine time its worker's):
   opening no file, ``unpersist()`` emptying the store; (g)
   ``input_file_name()``'s distinct names equal the part files; (h) the
   rebase guard under sparkVersion 3.1 and 3.3; (i) every DISK spill of the
-  memory phase a ``.srtf`` frame.
+  memory phase a ``.srtf`` frame;
+* the distributed path (after the files phase), strict: (a) q3, q5, q18,
+  ``contains_agg`` and a global sort at 4 input x 8 shuffle partitions
+  through the shuffle manager, rows equal to the same runs with it off,
+  each query's map-output bytes in the catalog, q5 with a committed map
+  output lost and recomputed from lineage, and q5 under a cap below its
+  peak with its map output spilling; (b) two executor processes of this
+  script (``--executor``) on the card over TCP, this process their driver
+  service: q5, q18, ``contains_agg`` and the sort with range bounds shared
+  through the driver, under codec none and lz4, merged rows equal to (a)'s
+  (the sort's as contiguous slices of (a)'s order), bytes fetched, fetch
+  wall and each executor's ``match_starts`` launches (each must launch);
+  (c) in the same two processes, q18 and ``contains_agg`` with injected
+  link latency and a bandwidth cap (rows equal), then one executor killed
+  so that the watchdog's periodic sweep evicts it from the driver's
+  registry while the other stays (one pair of processes, a session and a
+  driver service per codec or link, generating the tables once); (d) a
+  group-by, a shuffled join (q3), q5 and a global sort on a mesh of 4
+  members on cuda:0 against the non-mesh runs, with each exchange's bytes,
+  the most rows one member received, and the wall (one card's members
+  copy within its memory, not over NVLink).
 
 It exits non-zero, printing no result, where no CUDA device is present, and
 when any phase fails.
@@ -207,9 +227,11 @@ the geomean of CPU engine / device at SF 0.1), and one split line and one
 hold line per BASELINE query; the nested phase, one line per step (a)–(h)
 with its device walls and peaks, then its seconds; the files phase, one
 line per write, query and check (lines "files (a)" to "files (h)", "files
-(i)" after the memory phase), then its seconds; one JSON line with each
-kernel's launches on the main paths (the slice, expression, runtime,
-memory, adaptive, nested and files phases' timed runs), error, times and bound; and last the line
+(i)" after the memory phase), then its seconds; the distributed phase
+(lines "distributed (a)" to "distributed (d)", then its seconds); one JSON
+line with each kernel's launches on the main paths (the slice, expression,
+runtime, memory, adaptive, nested, files and distributed phases' timed
+runs), error, times and bound; and last the line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3969,6 +3991,393 @@ class SpillFrames:
             "a contiguous .srtf frame (native/srt_host.cc through native.py)")
 
 
+# ── the distributed phase: the shuffle manager, executors over TCP, the mesh ──
+
+DIST_QUERIES = ("q3", "q5", "q18", "contains_agg")
+DIST_MP_QUERIES = ("q5", "q18", "contains_agg")
+DIST_TABLES = ("customer", "orders", "lineitem", "supplier", "nation", "region")
+DIST_CONF = {"spark.sql.shuffle.partitions": SHUFFLE_PARTITIONS, "spark.rapids.sql.test.enabled": True}
+#: each executor's share of the card: two processes' pools must fit
+DIST_ALLOC_FRACTION = 0.4
+#: the fault run's link: one-way latency per frame and a bandwidth cap
+DIST_LATENCY_MS, DIST_BW_MBPS = 5, 2000
+#: the executor pair's sessions, in turn: (label, codec, queries, whether
+#: the link has the injected latency and cap)
+DIST_EXECUTOR_RUNS = (
+    ("none", "none", DIST_MP_QUERIES + ("sort",), False),
+    ("lz4", "lz4", DIST_MP_QUERIES + ("sort",), False),
+    ("faults", "lz4", ("q18", "contains_agg"), True),
+)
+DIST_HEARTBEAT_S, DIST_MAX_AGE_S, DIST_SWEEP_S = 0.2, 1.5, 0.25
+DIST_MESH_MEMBERS = 4
+
+
+def _dist_queries() -> dict:
+    from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES, q3, q5, q18
+
+    return {"q3": q3, "q5": q5, "q18": q18, "contains_agg": SLICE_QUERIES["contains_agg"][0]}
+
+
+def _dist_sort(t):
+    """The distributed phase's global sort: every order's key, the dearest
+    first (a range exchange; o_orderkey makes the order total)."""
+    from spark_rapids_tpu_torch.functions import col
+
+    return t("orders").select("o_orderkey", "o_totalprice").order_by(
+        col("o_totalprice").desc(), col("o_orderkey")).select("o_orderkey")
+
+
+def _wire(rows) -> list:
+    """Rows as JSON can carry them: dates as ISO text, decimals as text."""
+    import datetime
+    import decimal
+
+    def v(x):
+        if isinstance(x, (datetime.date, datetime.datetime)):
+            return x.isoformat()
+        if isinstance(x, decimal.Decimal):
+            return str(x)
+        return x
+
+    return [[v(x) for x in r] for r in rows]
+
+
+def executor_main(rank: int, drivers: str) -> int:
+    """One executor process of the distributed phase (b)/(c): the SF 1
+    tables from the same seed, then one session per entry of
+    ``DIST_EXECUTOR_RUNS`` in turn, each with the multiproc keys on cuda:0
+    against its own driver service (``drivers``, comma-separated, in that
+    order), each query at 4 input x 8 shuffle partitions. After each
+    session's queries the ranks meet at a barrier (through the last
+    driver), so that no peer still fetches when a session closes and no
+    injected delay reaches another session's run. Prints ``RESULT<json>``
+    (per session: rows, walls, bytes fetched, fetch wall, match_starts
+    launches), then beats the last session's heartbeat until its standard
+    input closes."""
+    import threading
+
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.obs.metrics import GLOBAL
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.shuffle import driver_service as ds
+    from spark_rapids_tpu_torch.shuffle import tcp
+    from spark_rapids_tpu_torch.tpch.datagen import gen_orders_lineitem, gen_table
+
+    addrs = drivers.split(",")
+    assert len(addrs) == len(DIST_EXECUTOR_RUNS), addrs
+    host, _, port = addrs[-1].rpartition(":")
+    _, barrier = ds.connect((host, int(port)))
+    orders, lineitem = gen_orders_lineitem(SF, SEED)
+    tables = {"orders": orders, "lineitem": lineitem}
+    tables.update({n: gen_table(n, SF, SEED) for n in DIST_TABLES if n not in tables})
+    queries = {**_dist_queries(), "sort": _dist_sort}
+    out = {"runs": {}, "device": torch.cuda.get_device_name(0)}
+    hist = GLOBAL.histogram("shuffle.fetchHist")
+    s = None
+    for (label, codec, names, link), driver in zip(DIST_EXECUTOR_RUNS, addrs):
+        if s is not None:
+            s.close()
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+        if link:
+            tcp.set_injection(DIST_LATENCY_MS, DIST_BW_MBPS)
+        s = TorchSession({
+            **DIST_CONF,
+            "spark.rapids.shuffle.manager.enabled": True,
+            "spark.rapids.shuffle.multiproc.driver": driver,
+            "spark.rapids.shuffle.multiproc.rank": rank,
+            "spark.rapids.shuffle.multiproc.size": 2,
+            "spark.rapids.shuffle.compression.codec": codec,
+            "spark.rapids.memory.gpu.allocFraction": DIST_ALLOC_FRACTION,
+        }, device="cuda:0")
+        run = {"rows": {}, "walls": {}}
+        fetched0 = GLOBAL.counter("shuffle.bytesFetched").value
+        fetch_ns0 = hist.sum
+        SK.reset_counts()
+        for name in names:
+            rows, ms = _timed(lambda: queries[name](
+                lambda t: s.create_dataframe(tables[t], num_partitions=INPUT_PARTITIONS)).collect())
+            _stayed_on_device(f"executor {rank}, {label}: {name}", s)
+            run["rows"][name] = [r[0] for r in rows] if name == "sort" else _wire(rows)
+            run["walls"][name] = ms
+        run["fetched"] = GLOBAL.counter("shuffle.bytesFetched").value - fetched0
+        run["fetch_ms"] = (hist.sum - fetch_ns0) / 1e6
+        run["launches"] = SK.LAUNCHES
+        out["runs"][label] = run
+        barrier.range_bounds_sync(f"executors done: {label}", rank, 2, 0)
+        tcp.set_injection(0, 0)
+    print("RESULT" + json.dumps(out), flush=True)
+    env = s._mp_shuffle_manager.env
+    stop = threading.Event()
+
+    def beat():
+        while not stop.wait(DIST_HEARTBEAT_S):
+            env.heartbeat.heartbeat()
+
+    threading.Thread(target=beat, daemon=True).start()
+    sys.stdin.read()  # a peer may still fetch this executor's map output
+    stop.set()
+    s.close()
+    return 0
+
+
+def _run_pair(before_release) -> tuple:
+    """The executor pair of (b)/(c): one driver service per session of
+    ``DIST_EXECUTOR_RUNS`` (the last is ``run_executors``' own, whose
+    registry ``before_release`` watches). Returns (results by rank, wall
+    ms)."""
+    from spark_rapids_tpu_torch.shuffle.driver_service import DriverService
+    from spark_rapids_tpu_torch.testing import run_executors
+
+    extra = [DriverService() for _ in DIST_EXECUTOR_RUNS[:-1]]
+    addrs = [f"{svc.address[0]}:{svc.address[1]}" for svc in extra]
+    t0 = time.perf_counter()
+    try:
+        res = run_executors(
+            lambda rank, driver: [sys.executable, __file__, "--executor", str(rank),
+                                  ",".join(addrs + [driver])],
+            timeout_s=600, before_release=before_release,
+        )
+    finally:
+        for svc in extra:
+            svc.close()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def _contiguous_slices(ranks: list, g: list, nparts: int) -> bool:
+    """Whether each rank's sorted output splits into contiguous slices of
+    ``g``, partition p from rank p % 2, in partition order (one set of
+    shared range bounds; the keys are unique)."""
+    ptr, pos = [0] * len(ranks), 0
+    for p in range(nparts):
+        r = p % len(ranks)
+        mine = ranks[r]
+        while ptr[r] < len(mine) and pos < len(g) and mine[ptr[r]] == g[pos]:
+            ptr[r] += 1
+            pos += 1
+    return pos == len(g) and all(ptr[r] == len(ranks[r]) for r in range(len(ranks)))
+
+
+def dist_manager(tables) -> tuple:
+    """(a) q3, q5, q18 and contains_agg at 4 input x 8 shuffle partitions
+    through the shuffle manager, rows equal to the same runs with it off;
+    q5 again with a lost map output recomputed from lineage (c); q5 under a
+    cap below its peak, map output spilling. Returns the reference rows and
+    contains_agg's match_starts launches."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.obs.metrics import GLOBAL
+    from spark_rapids_tpu_torch.ops import strings_kernels as SK
+    from spark_rapids_tpu_torch.resilience import faults
+    from spark_rapids_tpu_torch.testing import rows_equal
+
+    queries = {**_dist_queries(), "sort": _dist_sort}
+    off = TorchSession(DIST_CONF, device="cuda")
+    mgr = TorchSession({**DIST_CONF, "spark.rapids.shuffle.manager.enabled": True}, device="cuda")
+
+    def run(s, name):
+        return queries[name](lambda t: s.create_dataframe(tables[t], num_partitions=INPUT_PARTITIONS)).collect()
+
+    ref, launches = {}, None
+    for name in DIST_QUERIES + ("sort",):
+        ref[name], off_ms = _timed(lambda: run(off, name))
+        _stayed_on_device(f"distributed (a): {name} manager off", off)
+        written0 = GLOBAL.counter("shuffle.bytesWritten").value
+        if name == "contains_agg":
+            SK.reset_counts()  # the main path's own count
+        got, ms = _timed(lambda: run(mgr, name))
+        if name == "contains_agg":
+            launches = _launch_counts(SK)
+        _stayed_on_device(f"distributed (a): {name} through the manager", mgr)
+        ok, msg = rows_equal(ref[name], got)
+        if not ok:
+            raise AssertionError(f"distributed (a): {name}: manager rows differ from manager off: {msg}")
+        log(f"distributed (a): {name} ({INPUT_PARTITIONS} x {SHUFFLE_PARTITIONS}) through the "
+            f"shuffle manager: {ms:.1f} ms (manager off {off_ms:.1f} ms), map output written to "
+            f"the catalog {GLOBAL.counter('shuffle.bytesWritten').value - written0} bytes; rows "
+            "equal to the manager-off run; nothing off the device")
+    if launches["total"] <= 0:
+        raise AssertionError("distributed (a): contains_agg through the manager launched no match_starts")
+    fired = []
+    real = faults.lose_map_output
+
+    def lose_once():
+        if not fired:
+            fired.append(1)
+            return True
+        return False
+
+    lost = TorchSession({**DIST_CONF, "spark.rapids.shuffle.manager.enabled": True,
+                         "spark.task.maxFailures": 4}, device="cuda")
+    recomputed0 = GLOBAL.counter("shuffle.recomputedPartitions").value
+    faults.lose_map_output = lose_once
+    try:
+        got, ms = _timed(lambda: run(lost, "q5"))
+    finally:
+        faults.lose_map_output = real
+    recomputed = GLOBAL.counter("shuffle.recomputedPartitions").value - recomputed0
+    ok, msg = rows_equal(ref["q5"], got)
+    if not fired or recomputed <= 0 or not ok:
+        raise AssertionError(f"distributed (c): lost map output: fired {fired}, recomputed "
+                             f"{recomputed}, rows {msg or 'equal'}")
+    log(f"distributed (c): q5 with a committed map output lost mid-read: recomputed from lineage "
+        f"({recomputed} partition(s) marked, {lost._task_retries} task re-attempts) in {ms:.1f} "
+        "ms; rows equal")
+    del lost
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = capped_run("distributed (a): q5 through the shuffle manager", mgr, lambda: run(mgr, "q5"),
+                   CAP_RATIO["q5"], rows_equal)
+    if c["bytesDeviceToHost"] <= 0:
+        raise AssertionError(f"distributed (a): q5 under the cap spilled nothing: {json.dumps(c)}")
+    return ref, launches
+
+
+def dist_executors(ref) -> None:
+    """(b) Two executor processes on the card over TCP, this process their
+    driver: q5, q18, contains_agg and a global sort with shared range
+    bounds, with codec none and then lz4; merged rows equal (a)'s. (c) In
+    the same processes, q18 and contains_agg with injected latency and a
+    bandwidth cap on the link; then one executor killed and the peer
+    evicted by the watchdog's sweep."""
+    import torch
+
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.testing import rows_equal
+
+    # the executors' pools need the card: give back this process's cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = [r[0] for r in ref["sort"]]
+    evicted = {}
+
+    def kill_heartbeat(procs, svc):
+        # both executors beat (every DIST_HEARTBEAT_S once their queries are
+        # done); then rank 1 dies, its heartbeat with it, and the watchdog's
+        # periodic sweep in this process evicts it from the driver's
+        # registry while rank 0 stays
+        hb = svc.heartbeats
+        t0 = time.perf_counter()
+        while not all(time.monotonic() - (hb.last_heartbeat(f"executor-{r}") or 0) < 4 * DIST_HEARTBEAT_S
+                      for r in (0, 1)):
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("distributed (c): the executors do not beat")
+            time.sleep(0.05)
+        procs[1].kill()
+        procs[1].wait(timeout=30)
+        t0 = time.perf_counter()
+        s = TorchSession({"spark.rapids.tpu.watchdog.evictStalePeriod": DIST_SWEEP_S,
+                          "spark.rapids.tpu.shuffle.heartbeatMaxAgeSeconds": DIST_MAX_AGE_S},
+                         device="cuda")
+        s.range(0, 10).count()  # an admission starts the watchdog
+        while True:
+            ids = {e.executor_id for e in svc.heartbeats.all_executors()}
+            if "executor-1" not in ids:
+                break
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"distributed (c): executor-1 not evicted: {ids}")
+            time.sleep(0.05)
+        if "executor-0" not in ids:
+            raise AssertionError(f"distributed (c): the live executor was evicted too: {ids}")
+        evicted["s"] = time.perf_counter() - t0
+        return {1}
+
+    res, wall = _run_pair(kill_heartbeat)
+    for label, codec, names, link in DIST_EXECUTOR_RUNS:
+        part = "(c)" if link else "(b)"
+        runs = [rank["runs"][label] for rank in res]
+        for name in names:
+            if name == "sort":
+                if not _contiguous_slices([r["rows"]["sort"] for r in runs], g, SHUFFLE_PARTITIONS):
+                    raise AssertionError(f"distributed {part}: the global sort over TCP ({label}) is "
+                                         "not contiguous slices of the single-process order")
+                continue
+            merged = [tuple(r) for run in runs for r in run["rows"][name]]
+            ok, msg = rows_equal([tuple(r) for r in _wire(ref[name])], merged)
+            if not ok:
+                raise AssertionError(f"distributed {part}: {name} over TCP ({label}): merged rows "
+                                     f"differ from (a): {msg}")
+        launches = [run["launches"] for run in runs]
+        if min(launches) <= 0:
+            raise AssertionError(f"distributed {part}: an executor launched no match_starts "
+                                 f"({label}): {launches}")
+        link_note = (f", {DIST_LATENCY_MS} ms one-way latency per frame and a {DIST_BW_MBPS} MB/s "
+                     "cap on the link" if link else "")
+        for i, run in enumerate(runs):
+            log(f"distributed {part}: session {label} (codec {codec}{link_note}), executor {i} "
+                f"({res[i]['device']}): walls "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in run["walls"].items())
+                + f"; bytes fetched {run['fetched']}, fetch wall {run['fetch_ms']:.1f} ms; "
+                f"match_starts launches {run['launches']}")
+        log(f"distributed {part}: session {label}: " + ", ".join(n for n in names if n != "sort")
+            + " merged rows equal to (a)"
+            + (f"; the sort's {len(g)} keys in {SHUFFLE_PARTITIONS} contiguous slices from one "
+               "set of shared range bounds" if "sort" in names else ""))
+    log(f"distributed (b)/(c): one pair of executor processes on cuda:0 over TCP, sessions "
+        + ", ".join(r[0] for r in DIST_EXECUTOR_RUNS) + f" in turn, in {wall:.1f} ms (data "
+        "generation and the heartbeat kill included)")
+    log(f"distributed (c): executor-1 killed, its heartbeat stopped: the watchdog's sweep "
+        f"(evictStalePeriod {DIST_SWEEP_S} s, heartbeatMaxAgeSeconds {DIST_MAX_AGE_S} s) evicted "
+        f"it from the driver's registry {evicted['s']:.2f} s after the kill; executor-0 kept")
+
+
+def dist_mesh(tables) -> None:
+    """(d) The mesh: DIST_MESH_MEMBERS members on cuda:0; a group-by, a
+    shuffled join, q5 and a global sort from the planner, strict, rows
+    equal to the non-mesh run, each exchange's bytes, the most rows one
+    member received, and the wall."""
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.testing import rows_equal
+    from spark_rapids_tpu_torch.tpch.queries import orders_by_priority, q3, q5, q18_big_orders
+
+    n = DIST_MESH_MEMBERS
+    base = {"spark.sql.autoBroadcastJoinThreshold": -1, "spark.rapids.sql.test.enabled": True}
+    mesh = TorchSession({**base, "spark.rapids.sql.mesh.enabled": True,
+                         "spark.rapids.sql.mesh.size": n}, device="cuda:0")
+    flat = TorchSession({**base, "spark.sql.shuffle.partitions": n}, device="cuda:0")
+    mc = mesh.mesh_context()
+    for name, fn in (("group-by (q18_big_orders)", q18_big_orders),
+                     ("shuffled join (q3)", q3), ("shuffled joins (q5)", q5),
+                     ("global sort (orders_by_priority)", orders_by_priority)):
+        def run(s):
+            return fn(lambda t: s.create_dataframe(tables[t], num_partitions=n)).collect()
+
+        want, flat_ms = _timed(lambda: run(flat))
+        mc.reset_stats()
+        got, ms = _timed(lambda: run(mesh))
+        _stayed_on_device(f"distributed (d): {name}", mesh)
+        st = dict(mc.stats)
+        if st["exchanges"] <= 0:
+            raise AssertionError(f"distributed (d): {name}: no exchange took the mesh path")
+        ok, msg = rows_equal(want, got)
+        if not ok:
+            raise AssertionError(f"distributed (d): {name}: mesh rows differ from the non-mesh run: {msg}")
+        log(f"distributed (d): {name} on a mesh of {n} members on cuda:0: {ms:.1f} ms (non-mesh, "
+            f"{n} shuffle partitions: {flat_ms:.1f} ms); {st['exchanges']} mesh exchanges, "
+            f"at most {st['max_received']} rows received by one member, "
+            f"{st['bytes_local'] + st['bytes_moved']} bytes moved "
+            f"({st['bytes_moved']} between devices), exchange wall {st['wall_ns'] / 1e6:.1f} ms; "
+            "rows equal")
+    log("distributed (d): one card's members share its memory: the exchange's member-to-member "
+        "copies are slices within device memory, not NVLink transfers")
+
+
+def distributed_phase(tables) -> dict:
+    """The distributed phase (a)–(d). Returns (a)'s match_starts launches
+    (contains_agg through the manager, a main path of this phase)."""
+    t0 = time.perf_counter()
+    ref, launches = dist_manager(tables)
+    dist_executors(ref)
+    dist_mesh(tables)
+    log(f"distributed phase: {time.perf_counter() - t0:.1f} s; match_starts launches in "
+        f"(a)'s contains_agg {launches['total']} {json.dumps(launches['by_path'])}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4051,6 +4460,8 @@ def main() -> int:
     mark("nested phase")
     files_launches = files_phase(tables)
     mark("files phase")
+    dist_launches = distributed_phase(tables)
+    mark("distributed phase")
     wide_string_hash(orders)
     with SpillFrames() as frames:
         memory_launches = memory_phase(tables)
@@ -4068,7 +4479,7 @@ def main() -> int:
     # the files phase's contains_agg from Parquet
     main_path = {"total": 0, "by_path": {}, "by_consumer": {}}
     for part in (sliced["launches"], expr_launches, runtime_launches, memory_launches,
-                 adaptive_launches, nested_launches, files_launches):
+                 adaptive_launches, nested_launches, files_launches, dist_launches):
         _add_launches(main_path, part)
     record["launches"] = main_path["total"]
     record["launches_by_path"] = main_path["by_path"]
@@ -4092,4 +4503,6 @@ if __name__ == "__main__":
         sys.exit(tpcds_cpu_rows(int(sys.argv[2]), float(sys.argv[3])))
     if sys.argv[1:2] == ["--sticky-child"]:
         sys.exit(sticky_child())
+    if sys.argv[1:2] == ["--executor"]:
+        sys.exit(executor_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -135,6 +135,21 @@ SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
     "Default number of partitions for exchanges (Spark's key, honored here)."
 ).int_conf(8)
 
+MESH_ENABLED = conf("spark.rapids.sql.mesh.enabled").doc(
+    "Execute planner-built queries over a single-controller device mesh "
+    "(parallel/mesh.py): shuffle exchanges lower to one scatter → member-"
+    "to-member copy → compact exchange (peer copies between GPUs; slices "
+    "in device memory when the members share one device) and partition i "
+    "stays on member i. Requires shuffle partitions == mesh size (the "
+    "session aligns the default automatically)."
+).startup_only().boolean_conf(False)
+
+MESH_SIZE = conf("spark.rapids.sql.mesh.size").doc(
+    "Number of members in the execution mesh. A session given one explicit "
+    "device places every member on it (0 means 1); with device=None the "
+    "members are the visible CUDA devices, min(size, count) (0 means all)."
+).startup_only().int_conf(0)
+
 AUTO_BROADCAST_THRESHOLD = conf("spark.sql.autoBroadcastJoinThreshold").doc(
     "Maximum estimated build-side size for which a join is planned as a "
     "broadcast hash join (Spark's key, honored here; -1 disables)."
@@ -376,6 +391,103 @@ SHUFFLE_MANAGER_ENABLED = conf("spark.rapids.shuffle.manager.enabled").doc(
     "resident spillable map output + transport fetches) instead of the "
     "in-process default path (reference: RapidsShuffleManager)."
 ).boolean_conf(False)
+
+SHUFFLE_COMPRESSION_CODEC = conf("spark.rapids.shuffle.compression.codec").doc(
+    "Codec for shuffle buffers on the TCP path: none, copy, lz4 (the LZ4 "
+    "frame format, in the port's host C++ library); zstd raises "
+    "(reference: TableCompressionCodec + nvcomp LZ4)."
+).string_conf("lz4")
+
+SHUFFLE_MAX_RECEIVE_INFLIGHT = conf(
+    "spark.rapids.shuffle.transport.maxReceiveInflightBytes"
+).doc(
+    "Bytes a reduce task may have requested but not yet received "
+    "(reference: RapidsConf.scala:850)."
+).bytes_conf(1 << 30)
+
+SHUFFLE_BOUNCE_BUFFER_SIZE = conf("spark.rapids.shuffle.bounceBufferSize").doc(
+    "Size of each host staging (bounce) buffer used to window large shuffle "
+    "payloads into frames (reference: BounceBufferManager)."
+).bytes_conf(4 << 20)
+
+SHUFFLE_BOUNCE_BUFFER_COUNT = conf("spark.rapids.shuffle.bounceBufferCount").doc(
+    "Number of bounce buffers in the staging pool."
+).int_conf(8)
+
+SHUFFLE_FETCH_TIMEOUT_S = conf("spark.rapids.shuffle.fetchTimeoutSeconds").doc(
+    "Seconds a reduce task waits for shuffle data before raising a fetch "
+    "failure (reference: shuffleFetchTimeoutSeconds)."
+).int_conf(120)
+
+MULTIPROC_DRIVER = conf("spark.rapids.shuffle.multiproc.driver").doc(
+    "host:port of the cross-process driver service (heartbeat registry + "
+    "map-output tracker — shuffle/driver_service.py). When set, this "
+    "session is ONE executor of a multi-process query: exchanges run only "
+    "the map/reduce partitions this rank owns and fetch peer map output "
+    "over the TCP transport (the DCN path; reference: "
+    "RapidsShuffleHeartbeatManager + UCX executor-to-executor traffic)."
+).startup_only().string_conf("")
+
+MULTIPROC_RANK = conf("spark.rapids.shuffle.multiproc.rank").doc(
+    "This executor's rank in the multi-process query (0-based)."
+).startup_only().int_conf(0)
+
+MULTIPROC_SIZE = conf("spark.rapids.shuffle.multiproc.size").doc(
+    "Total executors cooperating on the multi-process query."
+).startup_only().int_conf(1)
+
+SHUFFLE_HANDSHAKE_TIMEOUT_S = conf("spark.rapids.tpu.shuffle.handshakeTimeout").doc(
+    "Seconds the TCP transport waits for a dialing peer's HELLO frame "
+    "before dropping the connection (the WorkerAddress-exchange deadline)."
+).double_conf(10.0)
+
+HEARTBEAT_MAX_AGE_S = conf("spark.rapids.tpu.shuffle.heartbeatMaxAgeSeconds").doc(
+    "An executor whose last heartbeat is older than this is considered "
+    "dead and evicted from the peer registry (ShuffleHeartbeatManager."
+    "evict_stale); 0 disables age-based eviction."
+).double_conf(0.0)
+
+RETRY_FETCH_MAX_RETRIES = conf("spark.rapids.tpu.retry.fetch.maxRetries").doc(
+    "Per-peer shuffle fetch retries (metadata request or transfer wave) "
+    "before the fetch surfaces as a ShuffleFetchError; each retry "
+    "re-requests only the blocks not yet received."
+).int_conf(3)
+
+RETRY_FETCH_BACKOFF_MS = conf("spark.rapids.tpu.retry.fetch.backoffMs").doc(
+    "Base backoff between shuffle fetch retries; attempt k sleeps "
+    "backoffMs * 2^(k-1) with deterministic seeded jitter, capped by "
+    "spark.rapids.tpu.retry.fetch.maxBackoffMs."
+).double_conf(50.0)
+
+RETRY_FETCH_MAX_BACKOFF_MS = conf("spark.rapids.tpu.retry.fetch.maxBackoffMs").doc(
+    "Upper bound on the exponential shuffle-fetch backoff."
+).double_conf(2000.0)
+
+RETRY_FETCH_BLACKLIST_AFTER = conf("spark.rapids.tpu.retry.fetch.blacklistAfter").doc(
+    "Consecutive exhausted fetch-retry budgets against one peer before "
+    "that peer is blacklisted (evicted from the executor's peer table; "
+    "later fetches to it fail fast). 0 disables blacklisting."
+).int_conf(3)
+
+RECOVERY_RECOMPUTE_ENABLED = conf(
+    "spark.rapids.tpu.recovery.recomputeMapOutputs"
+).doc(
+    "Rebuild lost shuffle map outputs from lineage instead of failing the "
+    "query: when a managed shuffle read hits an exhausted fetch budget, a "
+    "blacklisted peer, or finds its committed map outputs gone (lost "
+    "executor), the exchange marks the shuffle released and the partition "
+    "task's re-attempt re-runs the map stage under the next generation's "
+    "shuffle id. Counted in shuffle.recomputedPartitions."
+).boolean_conf(True)
+
+RECOVERY_MAX_MAP_RECOMPUTES = conf(
+    "spark.rapids.tpu.recovery.maxMapRecomputes"
+).doc(
+    "How many map-stage regenerations one exchange may perform per query "
+    "before a shuffle-read failure is allowed to propagate (a persistently "
+    "failing peer must not recompute forever; spark.task.maxFailures "
+    "bounds the per-partition attempts on top)."
+).int_conf(3)
 
 
 # ── memory and resilience (mem/, resilience/) ───────────────────────────────
@@ -705,6 +817,17 @@ WATCHDOG_BEAT_INTERVAL_S = conf("spark.rapids.tpu.watchdog.beatInterval").doc(
     "[0.05, 5]."
 ).double_conf(0.0)
 
+WATCHDOG_EVICT_STALE_PERIOD_S = conf(
+    "spark.rapids.tpu.watchdog.evictStalePeriod"
+).doc(
+    "Seconds between the watchdog's periodic shuffle-registry "
+    "evict_stale sweeps (±20% jitter so many sessions never sweep in "
+    "lockstep); dead peers older than spark.rapids.tpu.shuffle."
+    "heartbeatMaxAgeSeconds (or 3x this period when that is unset) are "
+    "evicted without waiting for an explicit heartbeat. 0 disables the "
+    "periodic sweep (eviction then happens only on heartbeat calls)."
+).double_conf(0.0)
+
 SPECULATION_ENABLED = conf("spark.rapids.tpu.speculation.enabled").doc(
     "Launch a speculative duplicate attempt for partitions that run far "
     "past the measured baseline (spark.speculation analogue). The monitor "
@@ -750,6 +873,38 @@ FAULTS_KERNEL_STALL_EVERY_N = conf(
 FAULTS_KERNEL_STALL_MS = conf("spark.rapids.tpu.faults.kernelStallMs").doc(
     "Injected stall duration for the kernel-stall point."
 ).double_conf(500.0)
+
+FAULTS_TCP_DROP_EVERY_N = conf("spark.rapids.tpu.faults.transport.dropEveryN").doc(
+    "Silently drop every Nth outgoing shuffle DATA frame on the TCP "
+    "transport (the fetch times out and retries); 0 disables."
+).int_conf(0)
+
+FAULTS_TCP_DELAY_EVERY_N = conf("spark.rapids.tpu.faults.transport.delayEveryN").doc(
+    "Delay every Nth outgoing shuffle DATA frame by "
+    "spark.rapids.tpu.faults.transport.delayMs; 0 disables."
+).int_conf(0)
+
+FAULTS_TCP_DELAY_MS = conf("spark.rapids.tpu.faults.transport.delayMs").doc(
+    "Injected per-frame delay for the transport delay point."
+).double_conf(50.0)
+
+FAULTS_TCP_CORRUPT_EVERY_N = conf(
+    "spark.rapids.tpu.faults.transport.corruptEveryN"
+).doc(
+    "Flip one payload byte in every Nth outgoing shuffle DATA frame "
+    "AFTER its checksum is stamped (the receiver's CRC check drops the "
+    "frame and the fetch retry recovers); 0 disables."
+).int_conf(0)
+
+FAULTS_MAP_OUTPUT_LOSS_EVERY_N = conf(
+    "spark.rapids.tpu.faults.shuffle.mapOutputLossEveryN"
+).doc(
+    "On every Nth managed shuffle-read, drop the shuffle's registered map "
+    "outputs AND its catalog-held blocks before the read — the lost-"
+    "executor simulation. The lineage recovery layer must rebuild the map "
+    "stage from its partition thunks instead of failing the query "
+    "(spark.rapids.tpu.recovery.recomputeMapOutputs); 0 disables."
+).int_conf(0)
 
 FAULTS_STALL_PARTITION = conf("spark.rapids.tpu.faults.stallPartition").doc(
     "Stall the FIRST attempt of this partition id for stallPartitionSeconds "

@@ -12,7 +12,14 @@
 // * the PLAIN BYTE_ARRAY scan (4-byte length prefixes to Arrow offsets and a
 //   byte buffer) and its reverse;
 // * bit-packed booleans both ways;
-// * the min and max of a string column by unsigned bytes.
+// * the min and max of a string column by unsigned bytes;
+// * the LZ4 frame format (lz4_Frame_format.md: magic, frame descriptor with
+//   its xxHash32 header checksum, sized blocks, end mark, optional block
+//   and content checksums) both ways, for the shuffle codec
+//   (shuffle/compression.py). The compressor writes independent 4 MiB
+//   blocks of greedy 4-byte-hash LZ77 sequences with a content checksum;
+//   the decompressor reads any frame without a dictionary, linked blocks
+//   included.
 //
 // Every function checks its bounds and returns a negative number on
 // malformed input; the Python side turns that into an error naming the
@@ -416,6 +423,227 @@ void srt_string_minmax(const int32_t* offsets, const uint8_t* data, const uint8_
   }
   minmax[0] = lo;
   minmax[1] = hi;
+}
+
+// ── LZ4 frame ───────────────────────────────────────────────────────────────
+
+static const uint32_t P1 = 2654435761u, P2 = 2246822519u, P3 = 3266489917u,
+                      P4 = 668265263u, P5 = 374761393u;
+
+static inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+static inline uint32_t rd32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+static inline void wr32(uint8_t* p, uint32_t v) { memcpy(p, &v, 4); }
+
+uint32_t srt_xxh32(const uint8_t* p, int64_t n, uint32_t seed) {
+  const uint8_t* end = p + n;
+  uint32_t h;
+  if (n >= 16) {
+    uint32_t v1 = seed + P1 + P2, v2 = seed + P2, v3 = seed, v4 = seed - P1;
+    const uint8_t* limit = end - 16;
+    do {
+      v1 = rotl32(v1 + rd32(p) * P2, 13) * P1; p += 4;
+      v2 = rotl32(v2 + rd32(p) * P2, 13) * P1; p += 4;
+      v3 = rotl32(v3 + rd32(p) * P2, 13) * P1; p += 4;
+      v4 = rotl32(v4 + rd32(p) * P2, 13) * P1; p += 4;
+    } while (p <= limit);
+    h = rotl32(v1, 1) + rotl32(v2, 7) + rotl32(v3, 12) + rotl32(v4, 18);
+  } else {
+    h = seed + P5;
+  }
+  h += (uint32_t)n;
+  while (p + 4 <= end) {
+    h = rotl32(h + rd32(p) * P3, 17) * P4;
+    p += 4;
+  }
+  while (p < end) {
+    h = rotl32(h + (*p) * P5, 11) * P1;
+    p++;
+  }
+  h ^= h >> 15; h *= P2; h ^= h >> 13; h *= P3; h ^= h >> 16;
+  return h;
+}
+
+static const int64_t kLz4Block = 4 << 20;  // BD code 7: 4 MiB blocks
+static const int kLz4HashBits = 16;
+
+// Worst-case frame size: header, per block its size word and the block
+// stored raw, the end mark and the content checksum.
+int64_t srt_lz4f_max_compressed(int64_t n) {
+  int64_t blocks = n / kLz4Block + 1;
+  return 7 + blocks * 4 + n + 4 + 4;
+}
+
+static inline uint8_t* lz4_len(uint8_t* op, int64_t len) {
+  while (len >= 255) { *op++ = 255; len -= 255; }
+  *op++ = (uint8_t)len;
+  return op;
+}
+
+// One LZ4 block (the raw block format) of src[0:n] into op; the end of the
+// written block. Matches stay at least 12 bytes from the end and the last
+// 5 bytes are literals, as the format requires.
+static uint8_t* lz4_block(const uint8_t* src, int64_t n, uint8_t* op, int32_t* table) {
+  const int64_t mflimit = n - 12, matchlimit = n - 5;
+  int64_t anchor = 0, ip = 0;
+  if (n >= 13) {
+    for (int i = 0; i < (1 << kLz4HashBits); i++) table[i] = -1;
+    while (ip < mflimit) {
+      uint32_t seq = rd32(src + ip);
+      uint32_t h = (seq * 2654435761u) >> (32 - kLz4HashBits);
+      int64_t ref = table[h];
+      table[h] = (int32_t)ip;
+      if (ref < 0 || ip - ref > 65535 || rd32(src + ref) != seq) {
+        ip++;
+        continue;
+      }
+      int64_t mlen = 4;
+      while (ip + mlen < matchlimit && src[ref + mlen] == src[ip + mlen]) mlen++;
+      int64_t lit = ip - anchor;
+      uint8_t* token = op++;
+      uint8_t t = (uint8_t)((lit >= 15 ? 15 : lit) << 4);
+      if (lit >= 15) op = lz4_len(op, lit - 15);
+      memcpy(op, src + anchor, lit);
+      op += lit;
+      uint16_t off = (uint16_t)(ip - ref);
+      *op++ = (uint8_t)off;
+      *op++ = (uint8_t)(off >> 8);
+      int64_t ml = mlen - 4;
+      t |= (uint8_t)(ml >= 15 ? 15 : ml);
+      if (ml >= 15) op = lz4_len(op, ml - 15);
+      *token = t;
+      ip += mlen;
+      anchor = ip;
+    }
+  }
+  int64_t lit = n - anchor;
+  *op++ = (uint8_t)((lit >= 15 ? 15 : lit) << 4);
+  if (lit >= 15) op = lz4_len(op, lit - 15);
+  memcpy(op, src + anchor, lit);
+  return op + lit;
+}
+
+// Compress ``in[0:n]`` into one LZ4 frame in ``out`` (at least
+// srt_lz4f_max_compressed(n) bytes); returns the frame's size.
+int64_t srt_lz4f_compress(const uint8_t* in, int64_t n, uint8_t* out) {
+  uint8_t* op = out;
+  wr32(op, 0x184D2204u);
+  op += 4;
+  op[0] = 0x64;  // version 01, independent blocks, content checksum
+  op[1] = 0x70;  // 4 MiB block maximum
+  op[2] = (uint8_t)(srt_xxh32(op, 2, 0) >> 8);
+  op += 3;
+  int32_t* table = new int32_t[1 << kLz4HashBits];
+  uint8_t* tmp = new uint8_t[kLz4Block + kLz4Block / 255 + 64];
+  for (int64_t pos = 0; pos < n; pos += kLz4Block) {
+    int64_t len = n - pos < kLz4Block ? n - pos : kLz4Block;
+    int64_t clen = lz4_block(in + pos, len, tmp, table) - tmp;
+    if (clen < len) {
+      wr32(op, (uint32_t)clen);
+      memcpy(op + 4, tmp, clen);
+      op += 4 + clen;
+    } else {  // incompressible: stored raw, the high bit set
+      wr32(op, (uint32_t)len | 0x80000000u);
+      memcpy(op + 4, in + pos, len);
+      op += 4 + len;
+    }
+  }
+  delete[] table;
+  delete[] tmp;
+  wr32(op, 0);
+  wr32(op + 4, srt_xxh32(in, n, 0));
+  return op + 8 - out;
+}
+
+// Decode one raw LZ4 block into out[pos:cap]; back-references may reach
+// earlier output (linked blocks). The new output position, or -1.
+static int64_t lz4_unblock(const uint8_t* ip, int64_t n, uint8_t* out, int64_t pos, int64_t cap) {
+  const uint8_t* end = ip + n;
+  while (ip < end) {
+    uint8_t token = *ip++;
+    int64_t lit = token >> 4;
+    if (lit == 15) {
+      uint8_t b;
+      do {
+        if (ip >= end) return -1;
+        b = *ip++;
+        lit += b;
+      } while (b == 255);
+    }
+    if (lit > end - ip || lit > cap - pos) return -1;
+    memcpy(out + pos, ip, lit);
+    ip += lit;
+    pos += lit;
+    if (ip == end) break;  // the last sequence holds literals only
+    if (end - ip < 2) return -1;
+    int64_t off = ip[0] | (ip[1] << 8);
+    ip += 2;
+    if (off == 0 || off > pos) return -1;
+    int64_t ml = (token & 15);
+    if (ml == 15) {
+      uint8_t b;
+      do {
+        if (ip >= end) return -1;
+        b = *ip++;
+        ml += b;
+      } while (b == 255);
+    }
+    ml += 4;
+    if (ml > cap - pos) return -1;
+    const uint8_t* ref = out + pos - off;
+    for (int64_t k = 0; k < ml; k++) out[pos + k] = ref[k];  // may overlap
+    pos += ml;
+  }
+  return pos;
+}
+
+// Decompress one LZ4 frame into out[0:cap]; the bytes written, or a
+// negative number on malformed input (-2: a dictionary id, -3: a checksum
+// mismatch).
+int64_t srt_lz4f_decompress(const uint8_t* in, int64_t n, uint8_t* out, int64_t cap) {
+  if (n < 7 || rd32(in) != 0x184D2204u) return -1;
+  const uint8_t* ip = in + 4;
+  uint8_t flg = ip[0];
+  if ((flg >> 6) != 1) return -1;
+  bool block_ck = flg & 0x10, content_size = flg & 0x08, content_ck = flg & 0x04;
+  if (flg & 0x01) return -2;
+  int64_t desc = 2 + (content_size ? 8 : 0);
+  if (n < 4 + desc + 1) return -1;
+  if ((uint8_t)(srt_xxh32(ip, desc, 0) >> 8) != ip[desc]) return -3;
+  ip += desc + 1;
+  const uint8_t* end = in + n;
+  int64_t pos = 0;
+  while (true) {
+    if (end - ip < 4) return -1;
+    uint32_t word = rd32(ip);
+    ip += 4;
+    if (word == 0) break;
+    int64_t len = word & 0x7FFFFFFFu;
+    if (len > end - ip) return -1;
+    if (block_ck) {
+      if (end - ip < len + 4) return -1;
+      if (srt_xxh32(ip, len, 0) != rd32(ip + len)) return -3;
+    }
+    if (word & 0x80000000u) {
+      if (len > cap - pos) return -1;
+      memcpy(out + pos, ip, len);
+      pos += len;
+    } else {
+      pos = lz4_unblock(ip, len, out, pos, cap);
+      if (pos < 0) return -1;
+    }
+    ip += len + (block_ck ? 4 : 0);
+  }
+  if (content_ck) {
+    if (end - ip < 4) return -1;
+    if (srt_xxh32(out, pos, 0) != rd32(ip)) return -3;
+  }
+  return pos;
 }
 
 }  // extern "C"

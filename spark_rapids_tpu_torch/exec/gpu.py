@@ -94,6 +94,8 @@ from ..plan.partitioning import (
     RoundRobinPartitioning,
     align_word_groups,
     compute_range_bounds,
+    merge_sampled_word_groups,
+    pad_flat_words,
     words_partition_ids,
 )
 from ..plan.physical import Exec, ExecContext, PartitionSet
@@ -219,7 +221,7 @@ class HostToDeviceExec(Exec):
 
         child = self.children[0]
         if not isinstance(child, CpuScanExec) or ctx.session is None:
-            return child.execute(ctx).map_partitions(fn)
+            return _placed_partitions(ctx, child.execute(ctx).map_partitions(fn))
         entry = self._cache_entry(ctx, child, (max_rows, max_str))
         child_parts = child.execute(ctx)
 
@@ -259,7 +261,9 @@ class HostToDeviceExec(Exec):
 
             return it
 
-        return PartitionSet([make_cached(p, t) for p, t in enumerate(child_parts.parts)])
+        return _placed_partitions(
+            ctx, PartitionSet([make_cached(p, t) for p, t in enumerate(child_parts.parts)])
+        )
 
     def _cache_entry(self, ctx: ExecContext, scan, geometry: tuple) -> dict:
         """The session's cache entry for this scan, created (and the LRU
@@ -289,6 +293,46 @@ class HostToDeviceExec(Exec):
                     held -= cache.pop(next(iter(cache)))["est_bytes"]  # LRU head
             cache[key] = entry  # (re)inserted last: most recently used
         return entry
+
+
+def _range_samples(batches: list, all_words: list, home) -> list:
+    """The range exchange's sample: ``SAMPLE_PER_BATCH`` evenly spaced rows
+    of every batch's sort words, taken on each batch's device, gathered on
+    ``home`` and fetched in ONE transfer; a list of numpy arrays, one per
+    word. Duplicates (n < SAMPLE_PER_BATCH) just weight the sample; only an
+    empty batch is left out, by its flag row."""
+    samples = []
+    for db, words in zip(batches, all_words):
+        s_idx = (
+            torch.arange(SAMPLE_PER_BATCH, dtype=torch.int64, device=db.device)
+            * torch.clamp(db.num_rows, min=1)
+        ) // SAMPLE_PER_BATCH
+        flag = (db.num_rows > 0).to(torch.int64).expand(SAMPLE_PER_BATCH)
+        samples.append(torch.stack([flag] + [w[s_idx] for w in words]).to(home))
+    host = torch.stack(samples).cpu().numpy()  # [batches, 1 + words, S]
+    keep = host[:, 0, :].astype(bool)
+    return [host[:, 1 + i, :][keep] for i in range(host.shape[1] - 1)]
+
+
+def _placed_partitions(ctx: ExecContext, pset: PartitionSet) -> PartitionSet:
+    """Mesh mode: partition p's batches on member p % n's device, so
+    per-partition operators run data-parallel from the upload on (the JAX
+    package's ``_placed_partitions``); single-device mode and members that
+    share the session's device pass through untouched."""
+    mc = ctx.mesh
+    if mc is None or all(d == ctx.device for d in mc.devices):
+        return pset
+    from ..parallel.mesh import put_batch
+
+    def make(p, t):
+        def it():
+            dev = mc.device_for(p)
+            for db in t():
+                yield put_batch(db, dev)
+
+        return it
+
+    return PartitionSet([make(p, t) for p, t in enumerate(pset.parts)])
 
 
 class DeviceToHostExec(Exec):
@@ -1400,10 +1444,16 @@ class GpuShuffleExchangeExec(Exec):
     exchange reuse (``plan/reuse.py``) shares between consumers memoizes
     its ``PartitionSet`` in the query's ``reuse_cache``.
 
-    Left out of the port so far: the mesh (SPMD all_to_all) path, the
-    multi-process exchange and the shuffle manager (Queue A item 13) — the
-    overrides keep an exchange on the CPU engine while
-    ``spark.rapids.shuffle.manager.enabled`` is set.
+    With ``spark.rapids.shuffle.manager.enabled`` the read goes through the
+    shuffle manager (``_managed_read``), and in a multi-process query
+    (``spark.rapids.shuffle.multiproc.*``) each executor maps only its
+    rank's child partitions, reduces only its rank's output partitions and
+    fetches the peers' map output over TCP; a range exchange then shares
+    one set of bounds through the driver service. In mesh mode
+    (``spark.rapids.sql.mesh.enabled``, as many partitions as members) a
+    hash, range or round-robin exchange is one ``parallel/mesh.py``
+    exchange (``_execute_mesh``). These are the JAX package's
+    ``exec/tpu.py:2052-2230, :2283-2304, :2363-2395, :2441-2611``.
 
     Every bucketing step runs behind ``with_oom_retry``, as in the JAX
     package. Unlike the JAX package's in-memory exchange, the slices it
@@ -1505,14 +1555,18 @@ class GpuShuffleExchangeExec(Exec):
         ]
 
     def _materialize(
-        self, kind: str, fn, child_parts: PartitionSet, ctx: ExecContext, rows=None
+        self, kind: str, fn, child_parts: PartitionSet, ctx: ExecContext, rows=None,
+        shared_bounds=None,
     ) -> list:
         """Every input batch bucketed into its output partitions, each slice
         registered in the spill catalog (a list of handles per partition).
         With ``rows`` (a list; the adaptive read passes one), each input
         batch also appends its slices' live-row counts as one int32
         ``[nparts]`` device tensor, so the sizes cross to the host later in
-        one fetch."""
+        one fetch. ``shared_bounds(sample_words, targets)`` (a multi-process
+        range exchange) replaces the local bounds with ``(bounds,
+        global_targets)`` agreed by every rank; it is called even when this
+        rank has no rows."""
         from ..mem.spill import SpillPriorities, with_oom_retry
 
         catalog = ctx.catalog
@@ -1550,26 +1604,23 @@ class GpuShuffleExchangeExec(Exec):
                     del db
             # string columns may encode to different word counts per batch
             # (bucketed widths) — align before sampling/bucketing
-            all_words, _ = align_word_groups(group_lists, order)
+            all_words, targets = align_word_groups(group_lists, order)
             del group_lists
+            sample_words = None
+            if batches:
+                device = batches[0].device
+                sample_words = _range_samples(batches, all_words, device)
+            if shared_bounds is not None:
+                bounds, gtargets = shared_bounds(sample_words, targets)
+                if bounds is not None and gtargets != targets and batches:
+                    # peers saw wider string keys: re-pad this rank's words
+                    # to the agreed widths so rows and bounds compare
+                    # word for word
+                    all_words = [pad_flat_words(w, targets, gtargets, order) for w in all_words]
+            else:
+                bounds = None if sample_words is None else compute_range_bounds(sample_words, nparts)
             if not batches:
                 return buckets
-            # sample on the device, then fetch every sample in ONE transfer
-            device = batches[0].device
-            samples = []
-            for db, words in zip(batches, all_words):
-                s_idx = (
-                    torch.arange(SAMPLE_PER_BATCH, dtype=torch.int64, device=device)
-                    * torch.clamp(db.num_rows, min=1)
-                ) // SAMPLE_PER_BATCH
-                # duplicates (n < SAMPLE_PER_BATCH) just weight the sample;
-                # only an empty batch is left out, by its flag row
-                flag = (db.num_rows > 0).to(torch.int64).expand(SAMPLE_PER_BATCH)
-                samples.append(torch.stack([flag] + [w[s_idx] for w in words]))
-            host = torch.stack(samples).cpu().numpy()  # [batches, 1 + words, S]
-            keep = host[:, 0, :].astype(bool)
-            sample_words = [host[:, 1 + i, :][keep] for i in range(host.shape[1] - 1)]
-            bounds = compute_range_bounds(sample_words, nparts)
             if bounds is None:
                 park(0, batches)
                 return buckets
@@ -1628,8 +1679,16 @@ class GpuShuffleExchangeExec(Exec):
         return self._execute_impl(ctx)
 
     def _execute_impl(self, ctx: ExecContext) -> PartitionSet:
+        from .. import config as cfg
+
         nparts = self.num_partitions
         kind = self._kind()
+        mc = ctx.mesh
+        if mc is not None and nparts == mc.n and kind != "single":
+            from ..parallel.mesh import mesh_supported_schema
+
+            if mesh_supported_schema(self.output):
+                return self._execute_mesh(ctx, mc, kind)
         exchange_child = self.children[0]
         pre_filter = None
         if (
@@ -1646,17 +1705,58 @@ class GpuShuffleExchangeExec(Exec):
             exchange_child = exchange_child.children[0]
         fn = self._scatter_fn(kind, nparts, pre_filter)
         child_parts = exchange_child.execute(ctx)
-        from .. import config as cfg
+        # A multi-process query (spark.rapids.shuffle.multiproc.*): this
+        # executor maps only the child partitions its rank owns; peers map
+        # the rest and serve them over the TCP transport. The topology is
+        # the context's, frozen at the session's construction. A broadcast
+        # build's subtree runs whole in every executor.
+        managed = cfg.SHUFFLE_MANAGER_ENABLED.get(ctx.conf) and ctx.broadcast_depth == 0
+        multiproc = managed and bool(ctx.mp_driver) and ctx.mp_size > 1
+        if multiproc:
+            size, rank = ctx.mp_size, ctx.mp_rank
+            child_parts = PartitionSet(
+                [t if i % size == rank else (lambda: iter(()))
+                 for i, t in enumerate(child_parts.parts)]
+            )
+        # the shuffle id is minted HERE, in the single-threaded plan walk:
+        # identical plans mint identical ids in every rank (minting inside
+        # the partition threads would let the pool's order decide)
+        base_sid = ctx.next_shuffle_id() if managed else None
+        shared_bounds = None
+        if multiproc and kind == "range":
+            order = self.partitioning.order
 
-        adaptive = cfg.ADAPTIVE_ENABLED.get(ctx.conf) and not self._aqe_disabled
+            def shared_bounds(sample_words, targets):
+                # every rank sees only its own child partitions, so per-rank
+                # bounds would send one key range to different reduce
+                # partitions: gather every rank's sample through the driver
+                # and replay one deterministic merge
+                payload = {
+                    "targets": list(targets),
+                    "words": [w.tolist() for w in (sample_words or [])],
+                }
+                contribs = ctx.shuffle_manager.registry.range_bounds_sync(
+                    key=f"{base_sid}:range", rank=ctx.mp_rank, size=ctx.mp_size,
+                    payload=payload,
+                )
+                merged, gtargets = merge_sampled_word_groups(contribs, order)
+                if merged is None:
+                    return None, None
+                return compute_range_bounds(merged, nparts), gtargets
+
+        adaptive = (
+            not managed and cfg.ADAPTIVE_ENABLED.get(ctx.conf) and not self._aqe_disabled
+        )
         state: dict = {}
         lock = threading.RLock()
 
         def materialize() -> list:
             with lock:
                 if "buckets" not in state:
-                    rows = [] if adaptive else None
-                    state["buckets"] = self._materialize(kind, fn, child_parts, ctx, rows)
+                    rows = [] if adaptive or managed else None
+                    state["buckets"] = self._materialize(
+                        kind, fn, child_parts, ctx, rows, shared_bounds
+                    )
                     state["rows"] = rows
                 return state["buckets"]
 
@@ -1664,6 +1764,9 @@ class GpuShuffleExchangeExec(Exec):
             db = h.get_batch()
             h.unpin()  # spillable again once the reader lets go of it
             return db
+
+        if managed:
+            return self._managed_read(ctx, materialize, read, state, lock, base_sid, multiproc)
 
         if not adaptive:
 
@@ -1678,6 +1781,228 @@ class GpuShuffleExchangeExec(Exec):
 
             return PartitionSet([make(p) for p in range(nparts)])
         return self._adaptive_read(ctx, materialize, read, state, lock)
+
+    def _managed_read(self, ctx: ExecContext, materialize, read, state: dict, lock,
+                      base_sid: int, multiproc: bool) -> PartitionSet:
+        """The accelerated shuffle path (the JAX package's
+        ``exec/tpu.py:2441-2611``): the map side parks each partition's
+        slices in the shuffle manager's spillable catalog and commits one
+        MapStatus; readers go through the caching reader — local catalog
+        hits, and in a multi-process query the peers' output fetched over
+        TCP (the read waits for ``expected_maps`` statuses).
+
+        Each (map, attempt) commit is atomic: a failed write aborts its
+        partial blocks and the retry writes under the next attempt id. A
+        lost map output (a peer gone, a fetch budget spent, the
+        ``mapOutputLossEveryN`` fault) marks the generation released and
+        raises ``MapOutputLostError``; the partition task's re-attempt then
+        re-runs the map stage from lineage under the next generation's
+        shuffle id, at most ``recovery.maxMapRecomputes`` times."""
+        from .. import config as cfg
+
+        nparts = self.num_partitions
+        mp_size, mp_rank = ctx.mp_size, ctx.mp_rank
+        mgr_state = {"shuffle_id": None, "generation": 0, "attempt": 0, "released": False}
+        mgr_lock = threading.Lock()
+
+        def ensure_written() -> int:
+            with mgr_lock:
+                if mgr_state["shuffle_id"] is not None:
+                    return mgr_state["shuffle_id"]
+                manager = ctx.shuffle_manager
+                sid = base_sid + mgr_state["generation"] * 10_000
+                writer = manager.get_writer(
+                    sid, map_id=mp_rank if multiproc else 0, num_partitions=nparts,
+                    attempt=mgr_state["attempt"],
+                )
+                try:
+                    buckets = materialize()
+                    with lock:
+                        rows = state.get("rows") or []
+                    # one fetch of every slice's live rows (slice i of
+                    # partition p counts at rows[i][p]): an empty slice is
+                    # not written, it would cost a frame per peer
+                    counts = torch.stack(rows).cpu().tolist() if rows else []
+                    for p, bucket in enumerate(buckets):
+                        for i, h in enumerate(bucket):
+                            if counts[i][p]:
+                                db = read(h)
+                                writer.write(p, db)
+                                del db
+                            h.close()  # the shuffle catalog holds it now
+                    writer.commit()
+                except BaseException:
+                    # atomic per-(map, attempt) commit: drop THIS attempt's
+                    # partial blocks and advance the attempt id, so the
+                    # retry's re-write can never duplicate batches
+                    writer.abort()
+                    mgr_state["attempt"] += 1
+                    raise
+                finally:
+                    with lock:
+                        # the catalog owns the batches now; a regeneration
+                        # re-runs the child pipeline
+                        state.pop("buckets", None)
+                mgr_state["shuffle_id"] = sid
+                return sid
+
+        consumed: set = set()
+
+        def make(p):
+            def it():
+                from ..resilience import faults as _faults
+                from ..shuffle.client import ShuffleFetchError
+                from ..shuffle.manager import MapOutputLostError
+
+                with mgr_lock:
+                    if mgr_state["released"]:
+                        # a task retry AFTER the map output was freed: re-run
+                        # the map stage under the next generation's id
+                        # (reading the freed id would commit zero rows)
+                        mgr_state["shuffle_id"] = None
+                        mgr_state["generation"] += 1
+                        mgr_state["released"] = False
+                        consumed.clear()
+                sid = ensure_written()
+                if multiproc and p % mp_size != mp_rank:
+                    # a peer owns this reduce partition; this executor only
+                    # had to contribute its map output
+                    return
+                manager = ctx.shuffle_manager
+                if _faults.lose_map_output():
+                    # chaos: the committed map output vanishes (peer death)
+                    manager.unregister_shuffle(sid)
+
+                def lost(cause):
+                    if not cfg.RECOVERY_RECOMPUTE_ENABLED.get(ctx.conf):
+                        raise cause
+                    if mgr_state["generation"] >= cfg.RECOVERY_MAX_MAP_RECOMPUTES.get(ctx.conf):
+                        raise cause
+                    with mgr_lock:
+                        if mgr_state["shuffle_id"] == sid and not mgr_state["released"]:
+                            mgr_state["released"] = True
+                            from ..obs.metrics import GLOBAL as _obs
+
+                            _obs.counter("shuffle.recomputedPartitions").add(1)
+                    raise MapOutputLostError(
+                        f"shuffle {sid} partition {p}: map output lost ({cause}); "
+                        f"recomputing from lineage under generation "
+                        f"{mgr_state['generation'] + 1}"
+                    ) from cause
+
+                if not multiproc and not manager.registry.outputs_for(sid):
+                    # a single-process read expects no maps, so an emptied
+                    # registry would yield NOTHING; ensure_written always
+                    # commits a status, so absence means loss
+                    lost(MapOutputLostError(f"shuffle {sid}: no map outputs registered"))
+                try:
+                    yield from manager.get_reader().read_partitions(
+                        sid, p, p + 1, expected_maps=mp_size if multiproc else 0,
+                        device=ctx.device,
+                    )
+                except (ShuffleFetchError, TimeoutError) as e:
+                    lost(e)
+                # free the catalog-held map output once every partition is
+                # drained (ShuffleBufferCatalog unregisterShuffle); a reused
+                # exchange is drained once per consumer, and a multi-process
+                # executor's peers fetch on their own clock
+                with mgr_lock:
+                    consumed.add(p)
+                    done = (
+                        len(consumed) == nparts
+                        and not mgr_state["released"]
+                        and mgr_state["shuffle_id"] == sid
+                        and not getattr(self, "_reuse_shared", False)
+                        and not multiproc
+                    )
+                    if done:
+                        mgr_state["released"] = True
+                if done:
+                    manager.unregister_shuffle(sid)
+
+            return it
+
+        foreign = [p for p in range(nparts) if p % mp_size != mp_rank] if multiproc else ()
+        return PartitionSet([make(p) for p in range(nparts)], foreign)
+
+    def _pids(self, kind: str, batch: DeviceBatch, member: int, nparts: int) -> torch.Tensor:
+        """Per-row partition ids of one member's batch (the JAX package's
+        ``_pid_fns``) — no per-partition slicing: the mesh exchange
+        scatters by them. Range ids come from ``_execute_mesh``."""
+        c = Ctx.for_device(batch)
+        if kind == "hash":
+            cols = []
+            for k in self.partitioning.keys:
+                col = val_to_column(c, k.eval(c), k.data_type)
+                cols.append((k.data_type, col.data, col.validity, col.lengths))
+            return partition_ids(c.xp, murmur3_rows(c.xp, cols, batch.capacity), nparts)
+        iota = torch.arange(batch.capacity, dtype=torch.int64, device=batch.device)
+        return ((member + iota) % nparts).to(torch.int32)
+
+    def _execute_mesh(self, ctx: ExecContext, mc, kind: str) -> PartitionSet:
+        """The mesh exchange (the JAX package's ``_execute_mesh``,
+        ``exec/tpu.py:2126-2230``): member i contributes child partitions
+        j ≡ i (mod n), concatenated into one batch on its device; one mesh
+        exchange re-partitions every member's rows; output partition i
+        stays on member i. Range bounds come from one fetch of every
+        member's samples."""
+        from ..columnar.device import empty_batch as _empty
+        from ..ops.gather import bulk_shrink
+        from ..parallel.mesh import mesh_exchange, put_batch
+
+        nparts = self.num_partitions
+        schema = self.output
+        child_parts = self.children[0].execute(ctx)
+        state: dict = {}
+        lock = threading.Lock()
+
+        def materialize() -> list:
+            with lock:
+                if "out" in state:
+                    return state["out"]
+                n = mc.n
+                lists: list = [[] for _ in range(n)]
+                for j, t in enumerate(child_parts.parts):
+                    lists[j % n].extend(t())
+                flat = [db for l in lists for db in l]
+                _, counts = bulk_shrink(flat) if flat else ([], [])
+                per, at = [], 0
+                for i, l in enumerate(lists):
+                    k = len(l)
+                    dev = mc.device_for(i)
+                    if k:
+                        b = concat_device([put_batch(db, dev) for db in l],
+                                          counts=counts[at : at + k])
+                    else:
+                        b = _empty(schema, dev)
+                    per.append(b)
+                    at += k
+                del lists, flat
+                if kind == "range":
+                    pids = self._mesh_range_pids(per, nparts)
+                else:
+                    pids = [self._pids(kind, b, i, nparts) for i, b in enumerate(per)]
+                state["out"] = mesh_exchange(mc, schema, per, pids)
+                return state["out"]
+
+        def make(p):
+            def it():
+                yield materialize()[p]
+
+            return it
+
+        return PartitionSet([make(p) for p in range(nparts)])
+
+    def _mesh_range_pids(self, per: list, nparts: int) -> list:
+        order = self.partitioning.order
+        all_words, _ = align_word_groups([self._range_words(b) for b in per], order)
+        bounds = compute_range_bounds(_range_samples(per, all_words, per[0].device), nparts)
+        if bounds is None:
+            return [torch.zeros(b.capacity, dtype=torch.int32, device=b.device) for b in per]
+        return [
+            words_partition_ids(w, [torch.from_numpy(x).to(b.device) for x in bounds])
+            for b, w in zip(per, all_words)
+        ]
 
     def _adaptive_read(self, ctx: ExecContext, materialize, read, state: dict, lock) -> PartitionSet:
         """AQE partition coalescing + skew-join splitting

@@ -53,8 +53,10 @@ and skew-split plan, and tries the runtime broadcast switch first
 (``_try_broadcast_switch``), both from the JAX package's
 ``exec/tpu_join.py:56-93, :265-346``.
 
-Left out of the port so far, with its place in ROADMAP.md: the mesh
-placement of the two sides (item 13).
+In mesh mode the two sides of a join and the broadcast build meet on the
+probe's device (``_colocate_with``, ``broadcast_batch_like``,
+``_colocated``: the JAX package's ``exec/tpu_join.py:33-53, :424-438,
+:578-593``), and the runtime broadcast switch stays off, as there.
 """
 from __future__ import annotations
 
@@ -123,8 +125,10 @@ def _link_aqe_exchanges(left: Exec, right: Exec, join_type: str = "inner") -> No
 
 def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
     """One probe stream joined against one build batch — the loop under the
-    shuffled and broadcast joins. ``get_build()`` supplies the build batch
-    at the first probe batch; ``matched_acc['m']`` (when given) accumulates
+    shuffled and broadcast joins. ``get_build(probe)`` supplies the build
+    batch at the first probe batch (a broadcast build replicated onto the
+    probe's device in mesh mode), and a probe on another device than its
+    build moves to it (``_colocate_with``); ``matched_acc['m']`` (when given) accumulates
     build-row match bits for right/full null-extension. OOM handling as in
     the module docstring."""
     build = prepared = None
@@ -173,8 +177,11 @@ def _stream_probe_join(node, get_build, probe_thunk, jt, ctx, matched_acc=None):
         window, held = [], 0
         for probe in it:
             if build is None:
-                build = get_build()
+                build = get_build(probe)
                 prepared = R.run_once(catalog, prepare, build, policy, op=op, breaker=breaker)
+            # mesh mode: the two sides can land on different devices when
+            # only one side's exchange took the mesh path
+            probe = _colocate_with(probe, build)
             window.extend(
                 R.run_with_retry(
                     catalog, lambda b: (b, phase1(prepared, b)), probe, policy,
@@ -410,7 +417,7 @@ class GpuShuffledHashJoinExec(Exec):
         declining never materializes it twice."""
         from .gpu import GpuShuffleExchangeExec
 
-        if not cfg.ADAPTIVE_ENABLED.get(ctx.conf):
+        if ctx.mesh is not None or not cfg.ADAPTIVE_ENABLED.get(ctx.conf):
             return None, None
         # broadcast-build-right is only sound when unmatched BUILD rows
         # never surface (they would duplicate per probe partition)
@@ -447,7 +454,7 @@ class GpuShuffledHashJoinExec(Exec):
         bstate: dict = {}
         block = threading.Lock()
 
-        def build_once() -> DeviceBatch:
+        def build_once(_probe=None) -> DeviceBatch:
             with block:
                 if "b" not in bstate:
                     from ..mem.spill import with_oom_retry
@@ -498,7 +505,7 @@ class GpuShuffledHashJoinExec(Exec):
                 acc = None
                 if jt in ("right", "full"):
                     acc = {"m": torch.zeros(build.capacity, dtype=torch.bool, device=build.device)}
-                yield from _stream_probe_join(self, lambda: build, lt, jt, ctx, acc)
+                yield from _stream_probe_join(self, lambda _p: build, lt, jt, ctx, acc)
                 if acc is not None:
                     unmatched = (~acc["m"]) & build.row_mask()
                     yield self._null_extend(build, unmatched, "right")
@@ -514,13 +521,53 @@ class GpuShuffledHashJoinExec(Exec):
         )
 
 
+def _colocate_with(batch: DeviceBatch, anchor: DeviceBatch) -> DeviceBatch:
+    """``batch`` on ``anchor``'s device when they differ (mesh mode can mix
+    mesh-exchanged and single-device join inputs); a device check only
+    otherwise. The JAX package's ``exec/tpu_join.py::_colocate_with``."""
+    if batch.device == anchor.device:
+        return batch
+    from ..parallel.mesh import put_batch
+
+    return put_batch(batch, anchor.device)
+
+
+def _colocated(anchor: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` on ``anchor``'s device (per-partition match masks of partitions
+    placed on different mesh members); the JAX package's ``_colocated``."""
+    return t if t.device == anchor.device else t.to(anchor.device)
+
+
+def broadcast_batch_like(build: DeviceBatch, peer: DeviceBatch, state: dict,
+                         lock: threading.Lock) -> DeviceBatch:
+    """Mesh mode: the broadcast build replicated onto ``peer``'s device (the
+    in-process analogue of a broadcast re-materializing per executor), one
+    copy per device kept in ``state``; the build itself when they share a
+    device. The JAX package's ``broadcast_batch_like``."""
+    if build.device == peer.device:
+        return build
+    from ..parallel.mesh import put_batch
+
+    with lock:
+        cache = state.setdefault("replicas", {})
+        if peer.device not in cache:
+            cache[peer.device] = put_batch(build, peer.device)
+        return cache[peer.device]
+
+
 def _broadcast_once(node: Exec, state: dict, lock: threading.Lock, ctx: ExecContext) -> DeviceBatch:
     """The whole of ``node``'s output as one device batch, built once per
     state under its lock."""
     with lock:
         if "b" not in state:
-            parts = node.execute(ctx)
-            batches = [b for t in parts.parts for b in t()]
+            # a multi-process query runs a broadcast's subtree WHOLE in every
+            # executor (no rank split below it)
+            ctx.broadcast_depth += 1
+            try:
+                parts = node.execute(ctx)
+                batches = [b for t in parts.parts for b in t()]
+            finally:
+                ctx.broadcast_depth -= 1
             state["b"] = (
                 concat_device(batches) if batches else empty_batch(node.output, ctx.device)
             )
@@ -580,10 +627,13 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
         def build() -> DeviceBatch:
             return _broadcast_once(right, bstate, block, ctx)
 
+        def build_like(probe: DeviceBatch) -> DeviceBatch:
+            return broadcast_batch_like(build(), probe, bstate, block)
+
         if jt not in ("right", "full"):
             def make(lt):
                 def it():
-                    yield from _stream_probe_join(self, build, lt, jt, ctx)
+                    yield from _stream_probe_join(self, build_like, lt, jt, ctx)
 
                 return it
 
@@ -594,12 +644,19 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
 
         def make_outer(lt):
             def it():
-                b = build()
-                acc = {"m": torch.zeros(b.capacity, dtype=torch.bool, device=b.device)}
+                seen = {}
+
+                def get_build(probe):
+                    b = seen["b"] = build_like(probe)
+                    if "m" not in acc:
+                        acc["m"] = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+                    return b
+
+                acc: dict = {}
                 done = False
                 abandoned = False
                 try:
-                    yield from _stream_probe_join(self, lambda: b, lt, jt, ctx, acc)
+                    yield from _stream_probe_join(self, get_build, lt, jt, ctx, acc)
                     done = True
                 except GeneratorExit:
                     # consumer stopped wanting rows (e.g. satisfied limit):
@@ -608,9 +665,14 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
                     raise
                 finally:
                     with lock:
-                        # the OR stays on the device: no sync per partition
-                        prev = state["mask"]
-                        state["mask"] = acc["m"] if prev is None else prev | acc["m"]
+                        # the OR stays on the device: no sync per partition;
+                        # a mask from a partition on another mesh member
+                        # moves to the accumulator's device first
+                        if "m" in acc:
+                            prev = state["mask"]
+                            state["mask"] = (
+                                acc["m"] if prev is None else prev | _colocated(prev, acc["m"])
+                            )
                         # decrement once per FINISHED partition
                         last = False
                         if done or abandoned:
@@ -619,7 +681,12 @@ class GpuBroadcastHashJoinExec(GpuShuffledHashJoinExec):
                             if last:
                                 state["emitted"] = True
                     if last and done:
-                        unmatched = (~state["mask"]) & b.row_mask()
+                        b = seen.get("b") or build()
+                        rm = b.row_mask()
+                        mask = state["mask"]
+                        if mask is None:
+                            mask = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+                        unmatched = (~_colocated(rm, mask)) & rm
                         yield self._null_extend(b, unmatched, "right")
 
             return it

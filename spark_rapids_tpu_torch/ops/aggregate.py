@@ -77,7 +77,7 @@ def _scan_reduce(op: str, data, valid, starts, idx, cap):
         return segscan(vals, starts, "add"), _count_scan(valid, starts) > 0, None
     if op == "count":
         out = segscan(valid.to(torch.int64), starts, "add")
-        return out, torch.ones(cap, dtype=torch.bool, device=data.device), None
+        return out, torch.ones(cap, dtype=torch.bool, device=valid.device), None
     if op in ("min", "max"):
         masked = torch.where(valid, data, _minmax_fill(op, data.dtype))
         if data.dtype.is_floating_point:

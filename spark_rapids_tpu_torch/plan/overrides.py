@@ -716,18 +716,7 @@ _rule(
 )
 
 
-def _exchange_check(e: C.CpuShuffleExchangeExec, conf: TpuConf) -> Optional[str]:
-    """The port's exchange is the JAX package's in-process path, adaptive
-    read included; the shuffle manager is not ported yet."""
-    if cfg.SHUFFLE_MANAGER_ENABLED.get(conf):
-        return (
-            f"{cfg.SHUFFLE_MANAGER_ENABLED.key} is set: the device exchange has "
-            "no shuffle manager in the torch port yet"
-        )
-    return _partition_key_check(e, conf)
-
-
-_partition_key_check = _no_complex_keys(lambda e: e.partitioning.exprs(), "partition key")
+_exchange_check = _no_complex_keys(lambda e: e.partitioning.exprs(), "partition key")
 
 
 _rule(

@@ -17,9 +17,8 @@ work over the port's radix words — int64 holding the JAX package's uint64
 word with the sign bit flipped — as torch tensors on the device and as
 numpy arrays in the CPU engine. So the padding words that stand for uint64
 ``0`` and ``~0`` are ``WORD_MIN`` and ``WORD_MAX`` here, and signed compares
-and ``np.lexsort`` on the flipped words give the uint64 order. The
-multi-process sample merge (``merge_sampled_word_groups``) comes with the
-shuffle slice (ROADMAP Queue A item 13).
+and ``np.lexsort`` on the flipped words give the uint64 order, the
+multi-process sample merge (``merge_sampled_word_groups``) included.
 """
 from __future__ import annotations
 
@@ -120,6 +119,41 @@ def pad_flat_words(flat_words, local_targets, global_targets, orders):
             g = g[:-1] + [pad] * missing + [g[-1]]
         out.extend(g)
     return out
+
+
+def merge_sampled_word_groups(contribs, orders):
+    """Merge per-rank sampled radix-word contributions into one flat sample.
+
+    Multi-process range exchanges must agree on ONE set of range bounds —
+    per-rank bounds would route the same key range to different reduce
+    partitions on different ranks (globally wrong sort). Each rank samples
+    its own rows, publishes ``{"targets": [words-per-column], "words":
+    [[int,...] per flat word]}`` through the driver service, and every rank
+    runs this same deterministic merge over the gathered contributions
+    (GpuRangePartitioner computes bounds once on the Spark driver; here the
+    merge is replicated instead, driver service only gathers).
+
+    Returns ``(sample_words, global_targets)`` — flat int64 word arrays
+    ready for :func:`compute_range_bounds` — or ``(None, None)`` when no
+    rank contributed rows.
+    """
+    # a rank with no input batches posts targets=[0,...], words=[] — it
+    # contributes nothing and must not reach pad_flat_words (g[0] on [])
+    live = [c for c in contribs if c and c.get("targets") and c.get("words")]
+    if not live:
+        return None, None
+    ncols = len(orders)
+    gtargets = [max(c["targets"][ci] for c in live) for ci in range(ncols)]
+    merged: List[List[np.ndarray]] = [[] for _ in range(sum(gtargets))]
+    for c in live:
+        flat = [np.asarray(w, dtype=np.int64) for w in c["words"]]
+        padded = pad_flat_words(flat, c["targets"], gtargets, orders)
+        for i, w in enumerate(padded):
+            merged[i].append(w)
+    sample_words = [np.concatenate(ws) for ws in merged]
+    if sample_words[0].size == 0:
+        return None, None
+    return sample_words, gtargets
 
 
 def compute_range_bounds(

@@ -20,12 +20,17 @@ sequence number, its phase ledger (``obs/ledger.py``, set by the session's
 prepare) and the metrics level; every ``Exec`` has its own metric registry
 (``metric``, ``metrics_on``, ``collect_metrics``), as in the JAX package.
 It holds the adaptive exchanges' size providers and the reuse memo
-(``aqe_size_providers``, ``reuse_cache``, ``:129-132`` there). Shuffle and
-mesh state come with later slices.
+(``aqe_size_providers``, ``reuse_cache``, ``:129-132`` there), and the
+shuffle and mesh state (``:95-103``, ``:133-138``, ``:180-274`` there): the
+multi-process topology frozen at the session's construction
+(``mp_driver``, ``mp_rank``, ``mp_size``), the lazily built
+``shuffle_manager`` with ``next_shuffle_id()``, the thread-local
+``broadcast_depth`` and the session's ``mesh``.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 from collections import Counter
 from typing import Callable, Iterator, List, Optional, Sequence
@@ -107,6 +112,31 @@ class ExecContext:
         # exchange reuse (plan/reuse.py): shared exchange nodes memoize
         # their PartitionSet here so every consumer reads one materialization
         self.reuse_cache: dict = {}
+        # multi-process topology (spark.rapids.shuffle.multiproc.*): frozen
+        # at the session's construction; a session-less context reads it
+        # once here
+        if session is not None:
+            self.mp_driver, self.mp_rank, self.mp_size = session.multiproc_topology()
+        else:
+            self.mp_driver = cfg.MULTIPROC_DRIVER.get(conf)
+            self.mp_rank = cfg.MULTIPROC_RANK.get(conf)
+            self.mp_size = cfg.MULTIPROC_SIZE.get(conf)
+        self._shuffle_manager = None
+        self._shuffle_mgr_lock = threading.Lock()
+        # Shuffle ids are namespaced by the query sequence: a multi-process
+        # driver registry outlives one query, and every rank must mint the
+        # same id for the same exchange (each runs the same program, so the
+        # (query_seq, per-query counter) pair agrees across processes)
+        self._shuffle_ids = itertools.count(self.query_seq * 1_000_000 + 1)
+        # depth > 0 while building a broadcast batch: exchanges below a
+        # broadcast run WHOLE in every process. Thread-local: a build runs
+        # on the thread that first asks for it
+        self._broadcast_tls = threading.local()
+        # mesh execution: the session's MeshContext (stable across queries);
+        # None = single-device mode
+        self.mesh = None
+        if session is not None and getattr(session, "_mesh_on", False):
+            self.mesh = session.mesh_context()
 
     @property
     def cancel_token(self):
@@ -121,6 +151,93 @@ class ExecContext:
     @cancel_token.setter
     def cancel_token(self, token) -> None:
         self._cancel_token = token
+
+    @property
+    def broadcast_depth(self) -> int:
+        return getattr(self._broadcast_tls, "depth", 0)
+
+    @broadcast_depth.setter
+    def broadcast_depth(self, value: int) -> None:
+        self._broadcast_tls.depth = value
+
+    @property
+    def shuffle_manager(self):
+        """The accelerated shuffle manager (GpuShuffleEnv.init analogue),
+        built at first use under a lock (partition tasks and sibling
+        exchanges may first-touch it at once). In-process: one executor
+        whose map output lives in the query's spill catalog. A multi-process
+        executor (``mp_driver`` set): the TCP transport and the driver
+        service's heartbeat registry and map-output tracker, held on the
+        SESSION — an executor keeps one shuffle server for its lifetime, and
+        its map output stays servable after the query that wrote it, in an
+        executor-lifetime store (not a query's catalog)."""
+        with self._shuffle_mgr_lock:
+            if self._shuffle_manager is None:
+                self._shuffle_manager = self._build_shuffle_manager()
+            return self._shuffle_manager
+
+    def _shuffle_env_kwargs(self) -> dict:
+        from .. import config as cfg
+
+        c = self.conf
+        return dict(
+            codec=cfg.SHUFFLE_COMPRESSION_CODEC.get(c),
+            max_inflight_bytes=cfg.SHUFFLE_MAX_RECEIVE_INFLIGHT.get(c),
+            fetch_timeout_s=cfg.SHUFFLE_FETCH_TIMEOUT_S.get(c),
+            bounce_buffer_size=cfg.SHUFFLE_BOUNCE_BUFFER_SIZE.get(c),
+            bounce_buffer_count=cfg.SHUFFLE_BOUNCE_BUFFER_COUNT.get(c),
+            fetch_max_retries=cfg.RETRY_FETCH_MAX_RETRIES.get(c),
+            fetch_backoff_ms=cfg.RETRY_FETCH_BACKOFF_MS.get(c),
+            fetch_max_backoff_ms=cfg.RETRY_FETCH_MAX_BACKOFF_MS.get(c),
+            blacklist_after=cfg.RETRY_FETCH_BLACKLIST_AFTER.get(c),
+            heartbeat_max_age_s=cfg.HEARTBEAT_MAX_AGE_S.get(c),
+            device=self.device,
+        )
+
+    def _build_shuffle_manager(self):
+        from .. import config as cfg
+        from ..mem.spill import BufferCatalog
+        from ..shuffle.heartbeat import ShuffleHeartbeatManager
+        from ..shuffle.local import InProcessRegistry, InProcessTransport
+        from ..shuffle.manager import MapOutputRegistry, ShuffleEnv, TpuShuffleManager
+
+        if not self.mp_driver:
+            env = ShuffleEnv(
+                "driver-executor",
+                InProcessTransport("driver-executor", InProcessRegistry()),
+                self.catalog,
+                ShuffleHeartbeatManager(),
+                owner="exchange",
+                **self._shuffle_env_kwargs(),
+            )
+            return TpuShuffleManager(env, MapOutputRegistry())
+        cached = getattr(self.session, "_mp_shuffle_manager", None)
+        if cached is not None:
+            return cached
+        from ..shuffle import driver_service as ds
+        from ..shuffle.tcp import TcpTransport
+
+        host, _, port = self.mp_driver.rpartition(":")
+        heartbeats, registry = ds.connect((host, int(port)))
+        executor_id = f"executor-{self.mp_rank}"
+        transport = TcpTransport(
+            executor_id,
+            handshake_timeout_s=cfg.SHUFFLE_HANDSHAKE_TIMEOUT_S.get(self.conf),
+        )
+        store = BufferCatalog.from_conf(self.conf)
+        if self.device_limit:
+            store.device_limit = self.device_limit
+        env = ShuffleEnv(
+            executor_id, transport, store, heartbeats,
+            address=tuple(transport.address), **self._shuffle_env_kwargs(),
+        )
+        mgr = TpuShuffleManager(env, registry)
+        if self.session is not None:
+            self.session._mp_shuffle_manager = mgr
+        return mgr
+
+    def next_shuffle_id(self) -> int:
+        return next(self._shuffle_ids)
 
     @contextlib.contextmanager
     def token_override(self, token):
@@ -165,21 +282,38 @@ def _scoped_part(index: int, thunk):
     return run
 
 
-class PartitionSet:
-    """Lazily computable partitions (the RDD[ColumnarBatch] analogue)."""
+def _drained(thunk) -> Iterator:
+    """Pull ``thunk`` to its end and yield nothing (a foreign partition)."""
+    for _ in thunk():
+        pass
+    return
+    yield
 
-    def __init__(self, parts: List[Callable[[], Iterator]]):
+
+class PartitionSet:
+    """Lazily computable partitions (the RDD[ColumnarBatch] analogue).
+
+    ``foreign`` holds the partitions a multi-process query's peer executors
+    compute (a managed exchange's reduce partitions of other ranks): a
+    per-partition operator mapped over one yields nothing — not, say, the
+    one row an ungrouped aggregate makes of an empty input — but still
+    pulls it, so that this executor's map side runs."""
+
+    def __init__(self, parts: List[Callable[[], Iterator]], foreign=frozenset()):
         self.parts = [_scoped_part(i, t) for i, t in enumerate(parts)]
+        self.foreign = frozenset(foreign)
 
     @property
     def num_partitions(self) -> int:
         return len(self.parts)
 
     def map_partitions(self, fn) -> "PartitionSet":
-        def wrap(thunk):
+        def wrap(i, thunk):
+            if i in self.foreign:
+                return lambda: _drained(thunk)
             return lambda: fn(thunk())
 
-        return PartitionSet([wrap(t) for t in self.parts])
+        return PartitionSet([wrap(i, t) for i, t in enumerate(self.parts)], self.foreign)
 
     def materialize(self) -> List[list]:
         return [list(t()) for t in self.parts]

@@ -23,9 +23,12 @@ points the query runtime observes: ``on_kernel_stall``
 (``kernelStallEveryN``: a device launch SLEEPS without a progress beat —
 what the watchdog must notice) and ``on_task_attempt``
 (``stallPartition``: the first attempt of one partition straggles while
-beating — what speculation must overtake). The compile, transport,
-compile-cache and map-output points come with the subsystems that observe
-them.
+beating — what speculation must overtake) — and the shuffle slice's
+points: outgoing TCP DATA frames dropped, delayed or bit-flipped
+(``drop_tcp_data_frame``, ``corrupt_tcp_data_frame``, called from
+``shuffle/tcp.py::_send_frame``) and a committed map output lost
+(``lose_map_output``, the managed exchange's read). The compile and
+compile-cache points come with the subsystems that observe them.
 """
 from __future__ import annotations
 
@@ -60,6 +63,11 @@ class FaultConfig:
     kernel_stall_ms: float = 0.0
     stall_partition: int = -1  # straggle this partition id (first attempt)
     stall_partition_s: float = 2.0
+    tcp_drop_every_n: int = 0  # outgoing shuffle DATA frames
+    tcp_delay_every_n: int = 0
+    tcp_delay_ms: float = 0.0
+    tcp_corrupt_every_n: int = 0  # flip a byte in outgoing DATA frames
+    map_output_loss_every_n: int = 0  # drop a committed shuffle map output
 
 
 class FaultInjector:
@@ -164,6 +172,36 @@ class FaultInjector:
             self._record("spill_read")
             raise InjectedFault("io", "injected spill-disk read IO error")
 
+    def on_tcp_data_frame(self) -> bool:
+        """Returns True when the frame should be DROPPED; may also sleep
+        (injected delay). Called only for DATA frames — control frames
+        stay reliable, like a lossy link under a reliable RPC layer."""
+        c = self.config
+        if self._tick("tcp_delay", c.tcp_delay_every_n) and c.tcp_delay_ms > 0:
+            time.sleep(c.tcp_delay_ms / 1e3)
+        if self._tick("tcp_drop", c.tcp_drop_every_n):
+            self._record("tcp_drop")
+            return True
+        return False
+
+    def corrupt_tcp_data_frame(self) -> bool:
+        """Whether to flip a payload byte in this outgoing DATA frame
+        (AFTER its checksum is stamped — the receiver's CRC check is what
+        must catch it)."""
+        if self._tick("tcp_corrupt", self.config.tcp_corrupt_every_n):
+            self._record("tcp_corrupt")
+            return True
+        return False
+
+    def lose_map_output(self) -> bool:
+        """Whether this exchange read should find its committed map output
+        GONE (peer loss / blacklist simulation — the lineage layer must
+        rebuild it instead of failing the query)."""
+        if self._tick("map_output_loss", self.config.map_output_loss_every_n):
+            self._record("map_output_loss")
+            return True
+        return False
+
 
 _ACTIVE: Optional[FaultInjector] = None
 _ACTIVE_COUNT = 0  # concurrent scoped() entries holding _ACTIVE installed
@@ -227,6 +265,27 @@ def on_spill_read() -> None:
     inj = _ACTIVE
     if inj is not None:
         inj.on_spill_read()
+
+
+def drop_tcp_data_frame() -> bool:
+    inj = _ACTIVE
+    if inj is not None:
+        return inj.on_tcp_data_frame()
+    return False
+
+
+def corrupt_tcp_data_frame() -> bool:
+    inj = _ACTIVE
+    if inj is not None:
+        return inj.corrupt_tcp_data_frame()
+    return False
+
+
+def lose_map_output() -> bool:
+    inj = _ACTIVE
+    if inj is not None:
+        return inj.lose_map_output()
+    return False
 
 
 @contextmanager
@@ -296,4 +355,9 @@ def config_from_conf(conf) -> Optional[FaultConfig]:
         kernel_stall_ms=cfg.FAULTS_KERNEL_STALL_MS.get(conf),
         stall_partition=cfg.FAULTS_STALL_PARTITION.get(conf),
         stall_partition_s=cfg.FAULTS_STALL_PARTITION_S.get(conf),
+        tcp_drop_every_n=cfg.FAULTS_TCP_DROP_EVERY_N.get(conf),
+        tcp_delay_every_n=cfg.FAULTS_TCP_DELAY_EVERY_N.get(conf),
+        tcp_delay_ms=cfg.FAULTS_TCP_DELAY_MS.get(conf),
+        tcp_corrupt_every_n=cfg.FAULTS_TCP_CORRUPT_EVERY_N.get(conf),
+        map_output_loss_every_n=cfg.FAULTS_MAP_OUTPUT_LOSS_EVERY_N.get(conf),
     )

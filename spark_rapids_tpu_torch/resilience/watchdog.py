@@ -15,7 +15,7 @@ The contract here is deliberately minimal and lock-light:
   Long legitimate waits (the nvcc build of a kernel at first use) stamp
   explicit beats at entry/exit via :func:`stall_phase`.
 
-* **Phases.** ``stall_phase("compile"|"launch", detail=op)`` labels the
+* **Phases.** ``stall_phase("compile"|"launch"|"fetch", detail=op)`` labels the
   potentially-blocking region the current thread is inside, on the
   thread-local current token (installed by the execution loops via
   :func:`set_current`). When a stall fires, the phase is the
@@ -25,24 +25,26 @@ The contract here is deliberately minimal and lock-light:
 
 * **The thread.** One daemon scanner per :class:`QueryScheduler`, spawned
   lazily at the first admission that enables it (``watchdog.stallTimeout``
-  non-zero) and self-terminating after a long idle streak — an engine
-  used as a library never pays for it. A query with no beat for
-  ``stallTimeout`` is cancelled with reason ``stall:<phase>``; the cancel
-  unwinds through the normal error path when the stalled wait returns,
-  releasing permits through the ordinary admission exit.
+  or ``watchdog.evictStalePeriod`` non-zero) and self-terminating after a
+  long idle streak — an engine used as a library never pays for it. A
+  query with no beat for ``stallTimeout`` is cancelled with reason
+  ``stall:<phase>``; the cancel unwinds through the normal error path when
+  the stalled wait returns, releasing permits through the ordinary
+  admission exit. The same thread runs the jittered
+  ``shuffle/heartbeat.py::evict_stale`` sweep so dead executors are
+  evicted even when nobody explicitly heartbeats.
 
 Cancellation cannot interrupt a C call that never returns; the watchdog
 bounds the DAMAGE of such a wedge (the cancel is flagged immediately, the
 stall is counted and classified, the breaker learns).
 
-Copied from ``spark_rapids_tpu/resilience/watchdog.py``. The JAX
-package's scanner also runs the periodic stale-shuffle-peer sweep
-(``watchdog.evictStalePeriod``); the port has no shuffle heartbeat yet
-(ROADMAP Queue A item 13), so that sweep and its conf wait for it.
+Copied from ``spark_rapids_tpu/resilience/watchdog.py``, the periodic
+stale-shuffle-peer sweep (``watchdog.evictStalePeriod``) included.
 """
 from __future__ import annotations
 
 import logging
+import random
 import threading
 import time
 from contextlib import contextmanager
@@ -108,23 +110,27 @@ def stall_phase(phase: str, detail: str = "", token=None):
 
 # ── the scanner thread ──────────────────────────────────────────────────────
 
-#: idle scans (no active queries) before the thread exits; it respawns
-#: lazily at the next enabling admission
+#: idle scans (no active queries, no sweep configured) before the thread
+#: exits; it respawns lazily at the next enabling admission
 _IDLE_SCANS_BEFORE_EXIT = 40
 
 
 class Watchdog:
     """One scanner per :class:`QueryScheduler`. ``configure`` is called at
     every admission with the CURRENT conf values (nothing session-frozen),
-    and spawns/respawns the daemon thread only while stall detection is
-    enabled."""
+    and spawns/respawns the daemon thread only while something is enabled."""
 
     def __init__(self, scheduler):
         self._scheduler = scheduler
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
+        self._wake = threading.Event()
         self.stall_timeout_s = 0.0
         self.beat_interval_s = 0.0
+        self.evict_period_s = 0.0
+        self.evict_age_s = 0.0
+        self._next_evict = 0.0
+        self._rng = random.Random(0xD06)  # jitter only; determinism unneeded
 
     # ── configuration (per admission) ───────────────────────────────────
     def configure(self, conf) -> None:
@@ -132,19 +138,26 @@ class Watchdog:
 
         if not cfg.WATCHDOG_ENABLED.get(conf):
             self.stall_timeout_s = 0.0
+            self.evict_period_s = 0.0
             return
         self.stall_timeout_s = max(0.0, cfg.WATCHDOG_STALL_TIMEOUT_S.get(conf))
         beat = cfg.WATCHDOG_BEAT_INTERVAL_S.get(conf)
         if beat <= 0:
             beat = min(5.0, max(0.05, self.stall_timeout_s / 4.0))
         self.beat_interval_s = beat
-        if self.stall_timeout_s > 0:
+        self.evict_period_s = max(
+            0.0, cfg.WATCHDOG_EVICT_STALE_PERIOD_S.get(conf)
+        )
+        age = cfg.HEARTBEAT_MAX_AGE_S.get(conf)
+        self.evict_age_s = age if age > 0 else self.evict_period_s * 3.0
+        if self.stall_timeout_s > 0 or self.evict_period_s > 0:
             self._ensure_running()
 
     def _ensure_running(self) -> None:
         with self._lock:
             if self._thread is not None and self._thread.is_alive():
                 return
+            self._wake.clear()
             self._thread = threading.Thread(
                 target=self._run, name="srt-watchdog", daemon=True
             )
@@ -155,18 +168,24 @@ class Watchdog:
         t = self._thread
         return t is not None and t.is_alive()
 
+    def kick(self) -> None:
+        """Wake the scanner early (tests; drain paths)."""
+        self._wake.set()
+
     # ── scanning ────────────────────────────────────────────────────────
     def _run(self) -> None:
         idle = 0
         while True:
             interval = self.beat_interval_s or 0.25
-            time.sleep(interval)
+            self._wake.wait(interval)
+            self._wake.clear()
             busy = False
             try:
-                busy = self._scan_stalls()
+                busy |= self._scan_stalls()
+                busy |= self._maybe_evict_stale()
             except Exception:  # noqa: BLE001 - the watchdog must not die
                 log.warning("watchdog scan failed", exc_info=True)
-            if busy:
+            if busy or self.evict_period_s > 0:
                 idle = 0
             else:
                 idle += 1
@@ -225,3 +244,20 @@ class Watchdog:
                         ),
                     )
         return True
+
+    def _maybe_evict_stale(self) -> bool:
+        period = self.evict_period_s
+        if period <= 0:
+            return False
+        now = time.monotonic()
+        if now < self._next_evict:
+            return False
+        # ±20% jitter: many sessions' sweeps de-correlate instead of
+        # hammering shared registries in lockstep
+        self._next_evict = now + period * (0.8 + 0.4 * self._rng.random())
+        from ..shuffle import heartbeat as hb
+
+        evicted = hb.evict_stale_all(self.evict_age_s or period * 3.0)
+        if evicted:
+            log.warning("watchdog: evicted stale shuffle peers: %s", evicted)
+        return False

@@ -63,6 +63,7 @@ and its device uploads. The serving layers come with later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import List, Optional, Sequence, Union
 
@@ -123,17 +124,53 @@ class TorchSession:
         ):
             self.conf = self.conf.set(cfg.ADAPTIVE_ENABLED.key, True)
         self.device = _resolve_device(device)
+        # an explicit device places every mesh member on it; None means the
+        # visible CUDA devices (mesh_context)
+        self._device_given = device is not None
         # native host data plane gate (spark.rapids.native.enabled)
         from . import native as _native
 
         _native.set_enabled(cfg.NATIVE_ENABLED.get(self.conf))
-        if (
+        self._mesh_ctx = None
+        # startup_only: mesh mode is committed at construction (partition
+        # arity, exchange lowering); per-query surfaces read this frozen
+        # flag, never the conf
+        self._mesh_on = cfg.MESH_ENABLED.get(self.conf)
+        if self._mesh_on:
+            # mesh mode: one exchange partition per member, so the planner's
+            # shuffle arity matches the mesh unless the user pinned it
+            if self.conf.get_raw(cfg.SHUFFLE_PARTITIONS.key) is None:
+                self.conf = self.conf.set(cfg.SHUFFLE_PARTITIONS.key, self.mesh_context().n)
+        elif (
             cfg.SQL_ENABLED.get(self.conf)
             and self.conf.get_raw(cfg.SHUFFLE_PARTITIONS.key) is None
         ):
             # single-device default: ONE task (the reference's
             # concurrentGpuTasks model), as in the JAX package
             self.conf = self.conf.set(cfg.SHUFFLE_PARTITIONS.key, 1)
+        mp_driver = cfg.MULTIPROC_DRIVER.get(self.conf)
+        mp_rank = cfg.MULTIPROC_RANK.get(self.conf)
+        mp_size = cfg.MULTIPROC_SIZE.get(self.conf)
+        if mp_driver:
+            # fail fast on inconsistent multi-process settings — a missing
+            # piece silently double-counts (every rank runs the full query)
+            if not cfg.SHUFFLE_MANAGER_ENABLED.get(self.conf):
+                raise ValueError(
+                    "spark.rapids.shuffle.multiproc.driver requires "
+                    "spark.rapids.shuffle.manager.enabled=true"
+                )
+            if mp_size < 2 or not (0 <= mp_rank < mp_size):
+                raise ValueError(f"multiproc rank/size invalid: rank={mp_rank} size={mp_size}")
+        # The multiproc keys are startup_only: the transport, executor id
+        # and driver registration commit to this topology, so every
+        # per-query surface reads the frozen tuple; the thread-local
+        # override lets subquery resolution run single-process without
+        # mutating the shared conf (as in the JAX session)
+        self._mp_topology = (mp_driver, mp_rank, mp_size) if mp_driver else ("", 0, 1)
+        self._mp_off_tls = threading.local()
+        # one executor's shuffle manager for the session's lifetime
+        # (multi-process mode; plan/physical.py::ExecContext.shuffle_manager)
+        self._mp_shuffle_manager = None
         self._last_overrides: Optional[GpuOverrides] = None
         # the last query's counters (hostToDeviceBytes, …)
         self._last_metrics: dict = {}
@@ -191,11 +228,56 @@ class TorchSession:
             return self._query_seq
 
     def close(self) -> None:
-        """Stop what the session started: the scrape listener, if any."""
+        """Stop what the session started: the scrape listener, if any, and
+        a multi-process executor's shuffle transport."""
         srv = self._scrape_server
         if srv is not None:
             self._scrape_server = None
             srv.stop()
+        mgr = self._mp_shuffle_manager
+        if mgr is not None:
+            self._mp_shuffle_manager = None
+            mgr.env.transport.shutdown()
+
+    def multiproc_topology(self) -> tuple:
+        """``(driver, rank, size)`` as frozen at construction — the only
+        read of the startup_only multiproc keys on the query path. The
+        single-process tuple while the calling thread resolves a subquery
+        (subqueries run WHOLE on every rank)."""
+        if getattr(self._mp_off_tls, "depth", 0) > 0:
+            return ("", 0, 1)
+        return self._mp_topology
+
+    @contextlib.contextmanager
+    def _single_process_scope(self):
+        """Thread-local multiproc-off scope for subquery resolution; a depth
+        counter, so a nested subquery's exit does not re-enable multiproc
+        for the still-running outer one."""
+        tls = self._mp_off_tls
+        tls.depth = getattr(tls, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            tls.depth -= 1
+
+    def mesh_context(self):
+        """The session's ``MeshContext`` (mesh mode), built at first use:
+        ``spark.rapids.sql.mesh.size`` members on the session's device when
+        one was given (0 means 1), else the visible CUDA devices,
+        ``min(size, count)`` (0 means all), as the JAX session takes
+        ``min(size, len(jax.devices()))``."""
+        if self._mesh_ctx is None:
+            from .parallel.mesh import MeshContext
+
+            size = cfg.MESH_SIZE.get(self.conf)
+            if self._device_given:
+                devices = [self.device] * max(size, 1)
+            else:
+                count = torch.cuda.device_count()
+                n = min(size or count, count)
+                devices = [torch.device("cuda", i) for i in range(n)]
+            self._mesh_ctx = MeshContext(devices)
+        return self._mesh_ctx
 
     # ── multi-tenant scheduling (sched/) ────────────────────────────────
     @property
@@ -315,7 +397,13 @@ class TorchSession:
         from .types import DateType, TimestampType
 
         def run(plan) -> HostBatch:
-            tbl = self._execute(plan)
+            # under a multi-process query every rank computes the WHOLE
+            # subquery (a rank split would inline a partial aggregate)
+            if self._mp_topology[0]:
+                with self._single_process_scope():
+                    tbl = self._execute(plan)
+            else:
+                tbl = self._execute(plan)
             if metrics is not None:
                 metrics.update(self._last_metrics)
             if explain is not None:

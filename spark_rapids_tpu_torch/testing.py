@@ -674,3 +674,92 @@ def _column_differs(name: str, dt, a, b) -> str:
         i = int(np.flatnonzero(v)[np.flatnonzero(~ok)[0]])
         return f"{name}: row {i}: {a.data[i]!r} vs {b.data[i]!r}"
     return ""
+
+
+# ── multi-process runs: the driver service and its executor processes ───────
+
+
+def run_executors(argv_for_rank, size: int = 2, env=None, timeout_s: float = 600.0,
+                  before_release=None):
+    """Run ``size`` executor processes of one multi-process query against a
+    ``shuffle/driver_service.py`` in this process. ``argv_for_rank(rank,
+    driver)`` gives each process's command (``driver`` is the service's
+    ``host:port``, for ``spark.rapids.shuffle.multiproc.driver``). Each
+    process prints one line ``RESULT<json>`` on its standard output, then
+    waits for its standard input to close: a peer may still be fetching
+    its map output. ``before_release(procs, service)``, when given, runs
+    once every result is in and before the processes are released; it
+    returns the ranks it killed on purpose (their exit by SIGKILL is then
+    no failure).
+
+    Returns the parsed results by rank. Raises — naming the rank and the
+    tail of its standard error — when a process produces no result within
+    ``timeout_s`` or exits non-zero; every process is ended either way."""
+    import json
+    import subprocess
+    import threading
+    import time
+
+    from .shuffle.driver_service import DriverService
+
+    svc = DriverService()
+    driver = f"{svc.address[0]}:{svc.address[1]}"
+    procs = []
+    results = [None] * size
+    errs = [[] for _ in range(size)]
+
+    def read_out(i, p):
+        for ln in p.stdout:
+            if ln.startswith("RESULT"):
+                results[i] = json.loads(ln[len("RESULT"):])
+                return
+
+    def read_err(i, p):
+        for ln in p.stderr:
+            errs[i].append(ln)
+            if len(errs[i]) > 400:
+                del errs[i][:200]
+
+    def tail(i) -> str:
+        return "".join(errs[i])[-4000:]
+
+    try:
+        for rank in range(size):
+            procs.append(subprocess.Popen(
+                argv_for_rank(rank, driver), stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env,
+            ))
+        readers = [threading.Thread(target=read_out, args=(i, p), daemon=True)
+                   for i, p in enumerate(procs)]
+        for i, p in enumerate(procs):
+            threading.Thread(target=read_err, args=(i, p), daemon=True).start()
+        for t in readers:
+            t.start()
+        deadline = time.monotonic() + timeout_s
+        for t in readers:
+            t.join(timeout=max(1.0, deadline - time.monotonic()))
+        for i, p in enumerate(procs):
+            if results[i] is None:
+                raise RuntimeError(
+                    f"executor rank {i} produced no result (exit {p.poll()}):\n{tail(i)}"
+                )
+        killed = set(before_release(procs, svc) or ()) if before_release is not None else set()
+        for p in procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for i, p in enumerate(procs):
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"executor rank {i} did not exit:\n{tail(i)}") from None
+            if p.returncode != 0 and not (i in killed and p.returncode == -9):
+                raise RuntimeError(f"executor rank {i} exited {p.returncode}:\n{tail(i)}")
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        svc.close()

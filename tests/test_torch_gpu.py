@@ -19,7 +19,11 @@ the query runtime's checks (a)–(e): fused = unfused, the four task and
 pipeline settings bit-identical, concurrent = serial with a deadline,
 speculation and the watchdog, the ledger and the trace; and files: a
 Parquet write read back into a device aggregate with row-group pruning,
-and a cached file read served from its store. Each test decides
+and a cached file read served from its store; and the shuffle slice: two
+executor processes on the card over TCP (``contains_agg`` and a grouped
+aggregate, merged rows against the CPU engine, ``match_starts`` launched
+in each) and a mesh of 4 members on one card against single-device runs.
+Each test decides
 in its body whether a card is present and skips where none is.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
@@ -1003,3 +1007,97 @@ def test_files_cached_read_on_gpu(tmp_path):
     assert len(gpu._cache_store) == 1
     base.unpersist()
     assert len(gpu._cache_store) == 0
+
+
+_EXECUTOR = """
+import json, sys
+import numpy as np
+import torch
+from spark_rapids_tpu_torch import TorchSession
+from spark_rapids_tpu_torch.ops import strings_kernels as SK
+from spark_rapids_tpu_torch.tpch.datagen import gen_table
+from spark_rapids_tpu_torch.tpch.queries import SLICE_QUERIES
+from spark_rapids_tpu_torch import functions as F
+
+rank, driver = int(sys.argv[1]), sys.argv[2]
+orders = gen_table("orders", 0.01, 7)
+s = TorchSession({
+    "spark.rapids.sql.test.enabled": True,
+    "spark.sql.shuffle.partitions": 4,
+    "spark.rapids.shuffle.manager.enabled": True,
+    "spark.rapids.shuffle.multiproc.driver": driver,
+    "spark.rapids.shuffle.multiproc.rank": rank,
+    "spark.rapids.shuffle.multiproc.size": 2,
+    "spark.rapids.memory.gpu.allocFraction": 0.2,
+}, device="cuda:0")
+df = lambda t: s.create_dataframe(orders, num_partitions=4)
+SK.reset_counts()
+out = {"contains_agg": [list(r) for r in SLICE_QUERIES["contains_agg"][0](df).collect()]}
+out["launches"] = SK.LAUNCHES
+out["agg"] = [list(r) for r in df("orders").group_by("o_orderpriority").agg(
+    F.count(F.col("o_orderkey")).alias("n"), F.sum(F.col("o_totalprice")).alias("p")).collect()]
+print("RESULT" + json.dumps(out), flush=True)
+sys.stdin.read()
+"""
+
+
+@pytest.mark.gpu
+def test_multiproc_executors_on_gpu_over_tcp(tmp_path):
+    """Two executor processes on the card, each its own CUDA context with a
+    fifth of its memory for spill accounting, run ``contains_agg`` and a
+    grouped aggregate over orders at SF 0.01 through the shuffle manager
+    over TCP; the merged rows equal the port's CPU engine's, and each
+    executor launched ``match_starts``."""
+    _need_gpu()
+    import os
+    import sys
+
+    from spark_rapids_tpu_torch.testing import run_executors
+
+    script = tmp_path / "executor.py"
+    script.write_text(_EXECUTOR)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = run_executors(lambda rank, driver: [sys.executable, str(script), str(rank), driver],
+                        env=env, timeout_s=300)
+    assert all(r["launches"] > 0 for r in res), [r["launches"] for r in res]
+    orders = gen_table("orders", 0.01, 7)
+    cpu = TorchSession({"spark.rapids.sql.enabled": False, "spark.sql.shuffle.partitions": 4},
+                       device="cpu")
+    df = lambda t: cpu.create_dataframe(orders, num_partitions=4)
+    want_c = [tuple(r) for r in SLICE_QUERIES["contains_agg"][0](df).collect()]
+    want_a = [tuple(r) for r in df("orders").group_by("o_orderpriority").agg(
+        F.count(F.col("o_orderkey")).alias("n"), F.sum(F.col("o_totalprice")).alias("p")).collect()]
+    for key, want in (("contains_agg", want_c), ("agg", want_a)):
+        got = [tuple(r) for rank in res for r in rank[key]]
+        ok, msg = rows_equal(want, got)
+        assert ok, f"{key}: {msg}"
+
+
+@pytest.mark.gpu
+def test_mesh_on_gpu_equals_single_device():
+    """A mesh of 4 members on cuda:0: a group-by, a shuffled join and a
+    global sort equal the single-device runs, every exchange on the mesh."""
+    _need_gpu()
+    orders, lineitem = gen_orders_lineitem(0.01, 7)
+    tables = {"orders": orders, "lineitem": lineitem}
+    base = {"spark.sql.autoBroadcastJoinThreshold": -1, "spark.rapids.sql.test.enabled": True}
+    mesh = TorchSession({**base, "spark.rapids.sql.mesh.enabled": True,
+                         "spark.rapids.sql.mesh.size": 4}, device="cuda:0")
+    flat = TorchSession({**base, "spark.sql.shuffle.partitions": 4}, device="cuda:0")
+
+    def queries(s):
+        t = lambda n: s.create_dataframe(tables[n], num_partitions=4)
+        return [
+            t("lineitem").group_by("l_orderkey").agg(F.sum(F.col("l_quantity")).alias("q")).collect(),
+            t("lineitem").join(t("orders"), on=[("l_orderkey", "o_orderkey")])
+            .group_by("o_orderpriority").agg(F.count(F.col("l_linenumber")).alias("n")).collect(),
+            t("orders").select("o_orderkey", "o_totalprice")
+            .order_by(F.col("o_totalprice").desc(), F.col("o_orderkey")).collect(),
+        ]
+
+    for want, got in zip(queries(flat), queries(mesh)):
+        ok, msg = rows_equal(want, got)
+        assert ok, msg
+    st = mesh.mesh_context().stats
+    assert st["exchanges"] >= 4 and st["bytes_moved"] == 0 and st["bytes_local"] > 0

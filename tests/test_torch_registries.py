@@ -270,7 +270,8 @@ def test_shim_defaults_equal_jax(version):
 
 def test_adaptive_exchange_stays_on_the_device():
     """With adaptive on (the 3.2 shim), an in-process exchange is no longer
-    kept on the CPU engine; the shuffle manager still is."""
+    kept on the CPU engine; since the shuffle slice, neither is an exchange
+    through the shuffle manager (strict mode, equal rows)."""
     from spark_rapids_tpu_torch import functions as F
 
     data = {"k": np.arange(300, dtype=np.int64) % 7, "v": np.arange(300, dtype=np.int64)}
@@ -279,10 +280,13 @@ def test_adaptive_exchange_stays_on_the_device():
                   .agg(F.sum(F.col("v")).alias("s")).collect())
     assert len(rows) == 7
     assert "GpuShuffleExchange" in s._last_plan.tree_string()
-    s2 = _session({"spark.rapids.shuffle.manager.enabled": True}, strict=False)
-    s2.create_dataframe(data, num_partitions=3).group_by("k").agg(F.count().alias("c")).collect()
-    reasons = [r for e in s2._last_overrides.explain for r in e.reasons]
-    assert any("no shuffle manager in the torch port yet" in r for r in reasons)
+    s2 = _session({"spark.rapids.shuffle.manager.enabled": True})
+    rows2 = sorted(s2.create_dataframe(data, num_partitions=3).group_by("k")
+                   .agg(F.sum(F.col("v")).alias("s")).collect())
+    assert rows2 == rows
+    assert "GpuShuffleExchange" in s2._last_plan.tree_string()
+    assert all(e.on_device for e in s2._last_overrides.explain
+               if e.node.startswith("ShuffleExchange") or "Exchange" in e.node.split(" ")[0])
 
 
 # ── config registry and generated documents ────────────────────────────────

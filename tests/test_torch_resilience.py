@@ -3,11 +3,18 @@ the session's task retry and the overrides' breaker) held against the JAX
 package's: OOM classification and the retry state machine
 (``tests/test_resilience.py``, with ``torch.cuda.OutOfMemoryError`` in the
 place of the JAX wrappers), lineage and attempts (``tests/test_recovery.py``),
-task retry (``tests/test_task_retry.py``, all but the managed-shuffle case)
-and the chaos cases (``tests/test_chaos.py``: q6 under injected OOM,
-split-and-retry, the split floor, the out-of-core sort under spill write
-errors, the counters). Each query runs on the port (``device="cpu"``)
-under faults and without, and on the JAX CPU engine.
+task retry (``tests/test_task_retry.py``) and the chaos cases
+(``tests/test_chaos.py``: q6 under injected OOM, split-and-retry, the split
+floor, the out-of-core sort under spill write errors, the counters). Since
+the shuffle slice also the shuffle, heartbeat and TCP cases: heartbeat
+liveness and eviction, the client's retry, backoff, blacklist and
+cancellable throttle and the handshake deadline (``test_resilience.py``),
+the attempt-striped commit, abort and map-output recomputation
+(``test_recovery.py``), dropped DATA frames (``test_chaos.py``), the
+fault-and-peer-loss storm (``test_chaos_recovery.py``), the managed
+shuffle's re-runnable thunks (``test_task_retry.py``) and the watchdog's
+stale-peer sweep (``test_survivability.py``). Each query runs on the port
+(``device="cpu"``) under faults and without, and on the JAX CPU engine.
 """
 from __future__ import annotations
 
@@ -861,3 +868,410 @@ def test_join_phase2_splits_its_probe_rows(monkeypatch, how):
 
     assert q(TorchSession(conf, device="cpu")) == q(cpu_session(conf))
     assert R.report()["splits"] > 0
+
+
+# ── shuffle: heartbeat liveness and eviction (tests/test_resilience.py) ─────
+
+import threading  # noqa: E402
+import time  # noqa: E402
+
+from spark_rapids_tpu_torch.shuffle import meta as SM  # noqa: E402
+from spark_rapids_tpu_torch.shuffle.catalog import ShuffleReceivedBufferCatalog  # noqa: E402
+from spark_rapids_tpu_torch.shuffle.client import ShuffleClient, ShuffleFetchError  # noqa: E402
+from spark_rapids_tpu_torch.shuffle.heartbeat import (  # noqa: E402
+    HeartbeatEndpoint,
+    ShuffleHeartbeatManager,
+)
+from spark_rapids_tpu_torch.shuffle.transport import (  # noqa: E402
+    REQ_METADATA,
+    FetchCancelled,
+    InflightThrottle,
+    TransactionStatus,
+    new_transaction,
+)
+
+
+def _manager_with_clock():
+    clock = {"t": 0.0}
+    return ShuffleHeartbeatManager(now_fn=lambda: clock["t"]), clock
+
+
+def test_heartbeat_records_last_beat_and_evicts_stale():
+    mgr, clock = _manager_with_clock()
+    mgr.register_executor("e0", ("h", 1))
+    mgr.register_executor("e1", ("h", 2))
+    assert mgr.last_heartbeat("e0") == 0.0
+    clock["t"] = 100.0
+    mgr.executor_heartbeat("e1")
+    assert mgr.evict_stale(30.0) == ["e0"]
+    assert [e.executor_id for e in mgr.all_executors()] == ["e1"]
+    # an evicted peer is gone from later deltas until it re-registers
+    assert mgr.executor_heartbeat("e1") == []
+    assert R.report()["peers_evicted"] == 1
+
+
+def test_evicted_peer_reappears_only_on_reregistration():
+    mgr, clock = _manager_with_clock()
+    mgr.register_executor("e0", ("h", 1))
+    mgr.register_executor("e1", ("h", 2))
+    clock["t"] = 50.0
+    mgr.executor_heartbeat("e1")
+    mgr.evict_stale(10.0)
+    mgr.register_executor("e0", ("h", 9))  # restart with a new address
+    delta = mgr.executor_heartbeat("e1")
+    assert [p.executor_id for p in delta] == ["e0"] and delta[0].address == ("h", 9)
+
+
+def test_endpoint_sweeps_stale_peers_on_heartbeat():
+    """heartbeatMaxAgeSeconds: the endpoint's heartbeat evicts quiet
+    executors and drops them from its peer table."""
+    mgr, clock = _manager_with_clock()
+    mgr.register_executor("dead", ("h", 1))
+    ep = HeartbeatEndpoint("live", mgr, ("h", 2), max_age_s=10.0)
+    assert ep.peer("dead") is not None
+    clock["t"] = 60.0
+    ep.heartbeat()
+    assert ep.peer("dead") is None
+    assert [e.executor_id for e in mgr.all_executors()] == ["live"]
+
+
+def test_registry_stays_bounded_across_evictions():
+    mgr, clock = _manager_with_clock()
+    for i in range(50):
+        clock["t"] = float(i)
+        mgr.register_executor(f"e{i}", ("h", i))
+        assert all(int(e[1:]) < i - 5 for e in mgr.evict_stale(5.0))
+    assert len(mgr._entries) <= 7  # compacted, not grown without bound
+
+
+def test_watchdog_runs_periodic_evict_stale():
+    """The watchdog thread sweeps every shuffle heartbeat registry on the
+    jittered ``evictStalePeriod`` (the JAX ``test_survivability.py`` case):
+    a dead peer vanishes without any heartbeat call, counted on
+    ``shuffle.evictedStale``."""
+    s = TorchSession({"spark.rapids.tpu.watchdog.evictStalePeriod": 0.05,
+                      "spark.rapids.tpu.shuffle.heartbeatMaxAgeSeconds": 0.15}, device="cpu")
+    mgr = ShuffleHeartbeatManager()
+    mgr.register_executor("doomed-peer", ("127.0.0.1", 1))
+    before = _counter("shuffle.evictedStale")
+    assert s.range(0, 10).count() == 10  # an admission starts the watchdog
+    deadline = time.monotonic() + 20.0
+    while mgr.all_executors() or _counter("shuffle.evictedStale") <= before:
+        assert time.monotonic() < deadline, "stale peer not evicted by the watchdog sweep"
+        time.sleep(0.05)
+
+
+# ── shuffle client: retry, backoff, blacklist, cancellation ─────────────────
+
+
+class _MetaOnlyConnection:
+    """Metadata succeeds; transfers are accepted but frames never arrive."""
+
+    peer_executor_id = "deadpeer"
+
+    def request(self, req_type, payload):
+        tx = new_transaction()
+        if req_type == REQ_METADATA:
+            tm = SM.TableMeta(1, 0, 0, 0, 10, SM.BufferMeta(11, 4096, 4096, SM.CODEC_NONE), b"")
+            tx.complete(TransactionStatus.SUCCESS, SM.pack_metadata_response([tm]))
+        else:
+            tx.complete(TransactionStatus.SUCCESS, SM.TransferResponse((0,)).pack())
+        return tx
+
+    def set_frame_handler(self, h):
+        pass
+
+
+class _FlakyMetadataConnection(_MetaOnlyConnection):
+    """The first metadata request errors (a transient transport fault)."""
+
+    peer_executor_id = "flaky"
+
+    def __init__(self):
+        self.calls = 0
+
+    def request(self, req_type, payload):
+        if req_type == REQ_METADATA:
+            self.calls += 1
+            if self.calls == 1:
+                tx = new_transaction()
+                tx.complete(TransactionStatus.ERROR, error="connection reset")
+                return tx
+        return super().request(req_type, payload)
+
+
+def test_timed_out_fetch_leaves_no_live_threads():
+    before = set(threading.enumerate())
+    client = ShuffleClient(_MetaOnlyConnection(), ShuffleReceivedBufferCatalog(),
+                           throttle=InflightThrottle(1 << 20), fetch_timeout_s=0.3)
+    with pytest.raises(ShuffleFetchError):
+        list(client.fetch_blocks([SM.BlockId(1, 0, 0, 1)]))
+    deadline = time.monotonic() + 2.0
+    while time.monotonic() < deadline:
+        leaked = [t for t in threading.enumerate() if t not in before and t.is_alive()]
+        if not leaked:
+            break
+        time.sleep(0.05)
+    assert not leaked, f"fetch leaked threads: {leaked}"
+
+
+def test_metadata_retry_with_backoff():
+    conn = _FlakyMetadataConnection()
+    client = ShuffleClient(conn, ShuffleReceivedBufferCatalog(), throttle=InflightThrottle(1 << 20),
+                           fetch_timeout_s=0.3, max_retries=2, backoff_ms=5)
+    # metadata retried past the transient error; the frame-less transfer
+    # then times out after its own retry budget
+    with pytest.raises(ShuffleFetchError, match="timed out"):
+        list(client.fetch_blocks([SM.BlockId(1, 0, 0, 1)]))
+    assert conn.calls == 2
+    assert R.report()["fetch_retries"] >= 1
+
+
+def test_fetch_failure_callback_drives_blacklist():
+    from spark_rapids_tpu_torch.shuffle.local import InProcessRegistry, InProcessTransport
+    from spark_rapids_tpu_torch.shuffle.manager import ShuffleEnv
+
+    env = ShuffleEnv("execL", InProcessTransport("execL", InProcessRegistry()), BufferCatalog(),
+                     ShuffleHeartbeatManager(), blacklist_after=2)
+    env._on_fetch_result("peerZ", False)
+    assert not env.blacklisted("peerZ")
+    env._on_fetch_result("peerZ", False)
+    assert env.blacklisted("peerZ")
+    with pytest.raises(ShuffleFetchError, match="blacklisted"):
+        env.client_to("peerZ")
+    assert R.report()["peers_evicted"] == 1
+    # success resets the count
+    env._on_fetch_result("peerY", False)
+    env._on_fetch_result("peerY", True)
+    env._on_fetch_result("peerY", False)
+    assert not env.blacklisted("peerY")
+
+
+def test_throttle_acquire_cancellable():
+    th = InflightThrottle(100)
+    th.acquire(100)
+    cancel = threading.Event()
+    errs = []
+
+    def waiter():
+        try:
+            th.acquire(50, timeout=30.0, cancel=cancel)
+        except FetchCancelled as e:
+            errs.append(e)
+
+    t = threading.Thread(target=waiter)
+    t.start()
+    time.sleep(0.1)
+    cancel.set()
+    th.kick()
+    t.join(timeout=2.0)
+    assert not t.is_alive() and len(errs) == 1
+    th.release(100)
+    th.acquire(100, timeout=1.0)  # the cancelled waiter left no residue
+    th.release(100)
+
+
+def test_tcp_handshake_timeout_conf_driven():
+    import socket
+
+    from spark_rapids_tpu_torch import config as cfg
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.shuffle.tcp import TcpTransport
+
+    assert cfg.SHUFFLE_HANDSHAKE_TIMEOUT_S.get(TpuConf({})) == 10.0
+    conf = TpuConf({"spark.rapids.tpu.shuffle.handshakeTimeout": "0.25"})
+    t = TcpTransport("hs", handshake_timeout_s=cfg.SHUFFLE_HANDSHAKE_TIMEOUT_S.get(conf))
+    try:
+        assert t.handshake_timeout_s == 0.25
+        # a dialer that never sends HELLO is dropped after the deadline, and
+        # the listener stays healthy for real peers
+        bad = socket.create_connection(t.address)
+        time.sleep(0.6)
+        t.register_address()
+        t2 = TcpTransport("hs2")
+        tx = t2.connect("hs").request(REQ_METADATA, b"")  # no handler -> error reply
+        tx.wait(5.0)
+        assert tx.status == TransactionStatus.ERROR
+        bad.close()
+        t2.shutdown()
+    finally:
+        t.shutdown()
+
+
+# ── shuffle: attempts, lost map output, dropped frames (test_recovery.py,
+#    test_chaos.py, test_chaos_recovery.py, test_task_retry.py) ─────────────
+
+
+def _local_shuffle_manager():
+    from spark_rapids_tpu_torch.shuffle.local import InProcessRegistry, InProcessTransport
+    from spark_rapids_tpu_torch.shuffle.manager import MapOutputRegistry, ShuffleEnv, TpuShuffleManager
+
+    env = ShuffleEnv("recov", InProcessTransport("recov", InProcessRegistry()), BufferCatalog(),
+                     ShuffleHeartbeatManager())
+    return TpuShuffleManager(env, MapOutputRegistry())
+
+
+def test_shuffle_writer_commit_is_attempt_striped():
+    from spark_rapids_tpu_torch.shuffle.manager import ATTEMPT_STRIDE
+
+    mgr = _local_shuffle_manager()
+    w0 = mgr.get_writer(shuffle_id=1, map_id=0, num_partitions=2, attempt=0)
+    w1 = mgr.get_writer(shuffle_id=1, map_id=0, num_partitions=2, attempt=2)
+    assert w0.map_id == 0 and w0.logical_map_id == 0 and w0.attempt == 0
+    assert w1.map_id == 2 * ATTEMPT_STRIDE and w1.logical_map_id == 0 and w1.attempt == 2
+    for w in (w0, w1):
+        w.write(0, _batch(3))
+        assert w.commit().logical_map_id == 0
+    # replacement: ONE registered output per logical map id
+    outs = mgr.registry.outputs_for(1)
+    assert len(outs) == 1 and outs[0].attempt == 2
+
+
+def test_shuffle_writer_abort_removes_partial_output():
+    mgr = _local_shuffle_manager()
+    w = mgr.get_writer(shuffle_id=9, map_id=1, num_partitions=2, attempt=0)
+    w.write(0, _batch(2))
+    assert mgr.env.catalog.stats()["cached_batches"] > 0
+    w.abort()
+    assert mgr.env.catalog.stats()["cached_batches"] == 0
+    assert not mgr.registry.outputs_for(9)
+
+
+def _shuffle_agg_query(F, session, n=4000, parts=2):
+    rng = np.random.default_rng(5)
+    t = pa.table({"k": (np.arange(n) % 9).astype(np.int64),
+                  "v": rng.integers(0, 100, n).astype(np.int64)})
+    return _normalize(
+        session.create_dataframe(t, num_partitions=parts).group_by("k")
+        .agg(F.sum(F.col("v")).alias("s"), F.count(F.col("v")).alias("c")).collect(),
+        True,
+    )
+
+
+_MANAGED = {"spark.sql.shuffle.partitions": 2, "spark.rapids.shuffle.manager.enabled": True}
+
+
+def test_lost_map_output_recomputed_from_lineage(monkeypatch):
+    """A lost map output mid-read re-runs the map stage from lineage under a
+    new generation: the JAX CPU engine's rows, the recovery counted, no
+    whole-query restart."""
+    from spark_rapids_tpu import functions as JF
+    from spark_rapids_tpu_torch import functions as PF
+
+    fired = []
+
+    def lose_once():
+        if not fired:
+            fired.append(1)
+            return True
+        return False
+
+    monkeypatch.setattr(faults, "lose_map_output", lose_once)
+    s = TorchSession({**_MANAGED, "spark.task.maxFailures": 4,
+                      "spark.rapids.sql.test.enabled": True}, device="cpu")
+    recomputed0, reattempts0 = _counter("shuffle.recomputedPartitions"), _counter("task.reattempts")
+    got = _shuffle_agg_query(PF, s)
+    assert got == _shuffle_agg_query(JF, cpu_session({"spark.sql.shuffle.partitions": 2}))
+    assert fired, "loss injection never fired — the test is inert"
+    assert _counter("shuffle.recomputedPartitions") > recomputed0
+    assert _counter("task.reattempts") > reattempts0
+
+
+def test_map_output_loss_exhausts_recompute_budget(monkeypatch):
+    """With recomputation off the loss surfaces instead of silently
+    returning empty partitions (the zero-row-read guard)."""
+    from spark_rapids_tpu_torch import functions as PF
+    from spark_rapids_tpu_torch.shuffle.manager import MapOutputLostError
+
+    monkeypatch.setattr(faults, "lose_map_output", lambda: True)
+    s = TorchSession({**_MANAGED, "spark.rapids.tpu.recovery.recomputeMapOutputs": False,
+                      "spark.task.maxFailures": 1}, device="cpu")
+    with pytest.raises(MapOutputLostError):
+        _shuffle_agg_query(PF, s)
+
+
+def test_device_fault_and_peer_loss_storm_bit_identical_vs_cpu_oracle(monkeypatch):
+    """Injected device OOMs on every 3rd recoverable launch AND a lost map
+    output (twice): one plan execution absorbs every fault — losses
+    recompute from lineage, OOMs spill-retry, failed attempts re-run — and
+    the rows equal the JAX CPU engine's."""
+    from spark_rapids_tpu import functions as JF
+    from spark_rapids_tpu_torch import functions as PF
+
+    losses = []
+
+    def lose_twice() -> bool:
+        if len(losses) < 2:
+            losses.append(1)
+            return True
+        return False
+
+    monkeypatch.setattr(faults, "lose_map_output", lose_twice)
+    s = TorchSession({"spark.sql.shuffle.partitions": 4, "spark.rapids.shuffle.manager.enabled": True,
+                      "spark.task.maxFailures": 8, "spark.rapids.tpu.recovery.maxMapRecomputes": 8,
+                      "spark.rapids.tpu.faults.enabled": True,
+                      "spark.rapids.tpu.faults.deviceOomEveryN": 3}, device="cpu")
+    runs = {"n": 0}
+    orig = s._run_plan
+
+    def count_runs(final_plan, ctx):
+        runs["n"] += 1
+        return orig(final_plan, ctx)
+
+    s._run_plan = count_runs
+    recomputed0, reattempts0 = _counter("shuffle.recomputedPartitions"), _counter("task.reattempts")
+    got = _shuffle_agg_query(PF, s, n=6000, parts=3)
+    assert got == _shuffle_agg_query(JF, cpu_session({}), n=6000, parts=3)
+    assert runs["n"] == 1
+    rep = R.report()
+    assert rep["faults_injected"] > 0 and rep["oom_retries"] > 0, "the storm never fired"
+    assert losses and _counter("shuffle.recomputedPartitions") > recomputed0
+    assert _counter("task.reattempts") > reattempts0
+
+
+def test_shuffle_fetch_survives_dropped_data_frames():
+    """Every 2nd outgoing DATA frame on the TCP transport vanishes; the
+    per-fetch retry (timeout → backoff → re-request of the missing blocks)
+    delivers every row exactly once."""
+    from spark_rapids_tpu_torch.shuffle.manager import MapOutputRegistry, ShuffleEnv, TpuShuffleManager
+    from spark_rapids_tpu_torch.shuffle.tcp import TcpTransport
+
+    hb, outputs = ShuffleHeartbeatManager(), MapOutputRegistry()
+    ta, tb = TcpTransport("chA"), TcpTransport("chB")
+    ta.register_address()
+    tb.register_address()
+    try:
+        kw = dict(fetch_timeout_s=1.0, fetch_max_retries=5, fetch_backoff_ms=10)
+        env_a = ShuffleEnv("chA", ta, BufferCatalog(), hb, address=ta.address, **kw)
+        env_b = ShuffleEnv("chB", tb, BufferCatalog(), hb, address=tb.address, **kw)
+        mgr_a, mgr_b = TpuShuffleManager(env_a, outputs), TpuShuffleManager(env_b, outputs)
+        batches = [_batch(200, seed=i) for i in range(3)]
+        want = sorted(_rows(b) for b in batches)
+        w = mgr_a.get_writer(shuffle_id=31, map_id=0, num_partitions=3)
+        for p, b in enumerate(batches):
+            w.write(p, b)
+        w.commit()
+        with faults.scoped(FaultConfig(tcp_drop_every_n=2)):
+            got = list(mgr_b.get_reader().read_partitions(31, 0, 3))
+        assert sorted(_rows(g) for g in got) == want
+        assert R.report()["fetch_retries"] > 0, "no retry fired — inert test"
+        assert env_b.throttle.inflight == 0
+    finally:
+        ta.shutdown()
+        tb.shutdown()
+
+
+def test_managed_shuffle_thunk_rerunnable_after_release():
+    """The managed exchange's partition thunks stay re-runnable after the
+    map output was freed: a re-run re-executes the map stage from lineage
+    under a fresh shuffle id instead of reading zero rows."""
+    s = TorchSession({"spark.rapids.shuffle.manager.enabled": True,
+                      "spark.sql.adaptive.enabled": False}, device="cpu")
+    t = {"k": np.arange(100, dtype=np.int64), "v": np.arange(100, dtype=np.float64)}
+    df = s.create_dataframe(t, num_partitions=2).repartition(4, "k")
+    assert len(df.collect()) == 100
+    parts = s._last_plan.execute(ExecContext(s.conf, s))
+    assert sum(hb.num_rows for th in parts.parts for hb in th()) == 100
+    # every thunk again, after all were drained and the shuffle released
+    assert sum(hb.num_rows for th in parts.parts for hb in th()) == 100
+
